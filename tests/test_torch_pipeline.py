@@ -1,0 +1,112 @@
+"""The port's whole slice (models.pipeline) against the JAX engine, on the
+CPU, plus the package-level guarantees.
+
+Tolerances: run_pair_np(device="cpu") fed the JAX engine's own draws
+(JaxDraws) must give u8 disparity maps within 1 level of JAX run_pair_np on
+>= 98 % of each view's pixels, and a bad-pixel(nonocc) @1px within 0.005
+of the JAX engine's -- the window costs agree to ~1e-6 relative, so only
+near-tie adoptions may differ and the trajectories stay together.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from crossscalepatchmatch_tpu import CostMethod, CSPMConfig
+from crossscalepatchmatch_tpu.data import make_pair
+from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
+from crossscalepatchmatch_tpu.models.pipeline import run_pair_np as j_run
+from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
+                                                            run_pair_np,
+                                                            run_pairs)
+from jax_draws import JaxDraws
+
+# One intra-op thread: the suite runs several pytest-xdist workers on
+# a few cores, and per-worker OpenMP pools oversubscribe them (a 3-worker
+# run of these files took 13x longer with the default pool).
+torch.set_num_threads(1)
+
+SMALL = dict(h=48, w=64, max_dis=12, seed=3)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def small_cfg(**kw):
+    base = dict(max_dis=12, dis_scale=16, wnd_size=11,
+                cost_method=CostMethod.GRD, use_cs=False, use_pp=False)
+    base.update(kw)
+    return CSPMConfig(**base)
+
+
+def bad_rates(dis, pair, scale):
+    return [bad_pixel_rate(dis[0] / scale, pair.disp_left, pair.valid_left),
+            bad_pixel_rate(dis[1] / scale, pair.disp_right,
+                           pair.valid_right)]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),                               # production: rank+exact, batched
+    dict(adopt_mode="exact"),
+    dict(adopt_mode="rank"),
+    dict(batch_refine=False, adopt_mode="exact", prescreen_stride=1),
+])
+def test_run_pair_matches_jax(kw):
+    cfg = small_cfg(**kw)
+    pair = make_pair(**SMALL)
+    want = j_run(pair.left, pair.right, cfg, seed=0)
+    got = run_pair_np(pair.left, pair.right, cfg, seed=0, device="cpu",
+                      draws=JaxDraws(0, cfg))
+    assert got["dis"].dtype == np.uint8 and got["dis"].shape == (2, 48, 64)
+    for v in range(2):
+        d = np.abs(got["dis"][v].astype(int) - want["dis"][v].astype(int))
+        assert (d <= 1).mean() >= 0.98, (v, (d <= 1).mean())
+    for b_got, b_want in zip(bad_rates(got["dis"], pair, cfg.dis_scale),
+                             bad_rates(want["dis"], pair, cfg.dis_scale)):
+        assert abs(b_got - b_want) <= 0.005
+
+
+def test_run_pair_deterministic_and_converges():
+    cfg = small_cfg()
+    pair = make_pair(**SMALL)
+    a = run_pair_np(pair.left, pair.right, cfg, seed=1, device="cpu")
+    b = run_pair_np(pair.left, pair.right, cfg, seed=1, device="cpu")
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    assert a["valid"].all() and a["abc"].shape == (2, 48, 64, 3)
+    assert np.isfinite(a["cost"]).all()
+    assert max(bad_rates(a["dis"], pair, cfg.dis_scale)) < 0.15
+
+
+def test_run_pairs_is_a_loop_over_run_pair():
+    cfg = small_cfg(max_iter=1, exact_iters=1)
+    pairs = [make_pair(h=24, w=32, max_dis=12, seed=s) for s in (0, 1)]
+    ls = torch.from_numpy(np.stack([p.left for p in pairs]))
+    rs = torch.from_numpy(np.stack([p.right for p in pairs]))
+    out = run_pairs(ls, rs, [4, 5], cfg, device="cpu")
+    assert out["dis"].shape == (2, 2, 24, 32)
+    for i, seed in enumerate((4, 5)):
+        one = run_pair(ls[i], rs[i], seed, cfg, device="cpu")
+        assert torch.equal(out["dis"][i], one["dis"])
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke, import without jax."""
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import crossscalepatchmatch_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "print(json.dumps([len(names), 'jax' in sys.modules, "
+        "any(k.startswith('jax') for k in sys.modules)]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n, has_jax, has_any = json.loads(res.stdout.strip().splitlines()[-1])
+    assert n >= 15 and not has_jax and not has_any
