@@ -5,19 +5,26 @@ NVIDIA GPU.
 
 Phases, each fatal on failure:
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels from csrc/ (timed);
+  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel;
+     timed);
   3. K1, the window cost: kernel vs its plain PyTorch version on the card
-     at the bench shape (375x450, max_dis=60, wnd=35) for K=1 and K=2
+     at the bench shape (375x450, max_dis=60, wnd=35, GRD) for K=1 and K=2
      candidates (converged-like, random and wild near-zero-nz planes), f32
-     and bf16 volumes; errors and CUDA-event times (plain/kernel/kernel/
-     plain);
+     and bf16 volumes; errors and CUDA-event times in turns;
   4. K2, the quadrant-volume build: the same;
-  5. the main path: run_pair at README_DEMO on the bench scene for seeds
-     0, 1, 2 with every launch counter reset just before; K1/K2 must have
-     launched and their plain versions not; bad-pixel(nonocc) @1px <= 0.01
-     per seed; seed 0 run twice must be bit-identical; ms/pair and peak
-     device memory; then a small pair run on the card and on the CPU
-     (plain versions) from the same draws must agree.
+  5. K4, the cross-scale window cost: the same on the 5-level census
+     pyramid of the bench scene (CEN_CS_PP); f32 within 2e-5 relative, and
+     bf16 census volumes (integers, exact in bf16) bit-equal;
+  6. each kernel's bound: the larger of its bytes over the HBM rate and its
+     f32 operations, counted on this run's inputs, over the f32 peak;
+  7. the main paths, each with every launch counter reset just before and
+     read just after: run_pair at README_DEMO and at CEN_CS_PP on the bench
+     scene for seeds 0, 1, 2 and 0 again; the path's kernels must have
+     launched and no plain version; bad-pixel(nonocc) @1px <= 0.01 per seed
+     (left view); seed 0 bit-identical on rerun; ms/pair and peak device
+     memory; for CEN_CS_PP also the time and launch count of postprocess;
+  8. small pairs run on the card and on the CPU (plain versions) from the
+     same draws must agree (README_DEMO-like and CEN_CS_PP-like).
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 """
@@ -31,6 +38,16 @@ SHAPE = dict(h=375, w=450, max_dis=60)
 F32_REL_TOL = 2e-5          # |kernel - plain| <= tol * max(1, |plain|)
 BAD_PIXEL_MAX = 0.01
 SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level, card vs CPU
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and f32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# f32 operations per window sample of K1 / K4: dq (a*dx and two adds) and
+# the weighted accumulation (a multiply and an add) for every in-image
+# sample; the two-tap lerp ((f+1)-dq, 1-fw, two multiplies, an add) for an
+# in-range one
+FLOPS_IN_IMAGE = 5
+FLOPS_IN_RANGE = 5
 
 
 def rel_err(got, want):
@@ -42,17 +59,16 @@ def rel_err(got, want):
 
 
 def time_turns(fns, reps):
-    """ms per call of each fn, CUDA events, in turns a/b/b/a after one
-    warm-up call of each."""
+    """ms per call of each fn, CUDA events, in turns a, b, ..., ..., b, a
+    after one warm-up call of each."""
     import torch
 
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     names = list(fns)
-    order = [names[0], names[1], names[1], names[0]]
     acc = {n: [] for n in names}
-    for n in order:
+    for n in names + names[::-1]:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -64,7 +80,7 @@ def time_turns(fns, reps):
     return {n: sum(v) / len(v) for n, v in acc.items()}
 
 
-def test_planes(vd, pair, k, gen, device):
+def test_planes(imgs0, pair, k, gen, device):
     """f32[2, K, H, W, 3]: candidate 0 converged-like (ground truth plus
     jitter, small slopes), candidate 1 random init planes; ~0.1% of the
     pixels of the last candidate get a wild near-zero-nz plane."""
@@ -73,7 +89,7 @@ def test_planes(vd, pair, k, gen, device):
 
     from crossscalepatchmatch_tpu_torch.ops import plane
 
-    _, h, w, _ = vd.imgs[0].shape
+    _, h, w, _ = imgs0.shape
     xs, ys = plane.pixel_grid(h, w, device)
     gt = torch.as_tensor(np.stack([pair.disp_left, pair.disp_right]),
                          device=device)
@@ -97,6 +113,50 @@ def test_planes(vd, pair, k, gen, device):
     return torch.stack(cands, dim=1).contiguous()
 
 
+def window_samples(abc, level_hw, half_wnd, max_dis):
+    """(in-image, in-range) window samples of K1 / K4 on these planes:
+    per level s (level_hw[s] = (Hs, Ws), max_dis >> s), every fine pixel's
+    (2*half_wnd+1)^2 level-s window; in range means 1 <= dq < max_dis_s."""
+    import torch
+
+    _, _, h, w, _ = abc.shape
+    dev = abc.device
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    a, b = abc[..., 0], abc[..., 1]
+    d0 = a * xs.float() + b * ys.float() + abc[..., 2]
+    n_img, n_rng = 0, torch.zeros((), dtype=torch.int64, device=dev)
+    md = max_dis
+    for s, (hs, ws) in enumerate(level_hw):
+        cy, cx = ys >> s, xs >> s
+        d_f = d0 * (1.0 / (1 << s))
+        for dy in range(-half_wnd, half_wnd + 1):
+            y_ok = (cy + dy >= 0) & (cy + dy < hs)
+            for dx in range(-half_wnd, half_wnd + 1):
+                ok = y_ok & (cx + dx >= 0) & (cx + dx < ws)
+                dq = d_f + a * dx + b * dy
+                n_rng += ((dq >= 1.0) & (dq < float(md)) & ok).sum()
+        ny = sum(min(hs, (y >> s) + half_wnd + 1) - max(0, (y >> s) - half_wnd)
+                 for y in range(h))
+        nx = sum(min(ws, (x >> s) + half_wnd + 1) - max(0, (x >> s) - half_wnd)
+                 for x in range(w))
+        n_img += abc.shape[0] * abc.shape[1] * ny * nx
+        md //= 2
+    return n_img, int(n_rng)
+
+
+def bound(bytes_, flops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
+    operations over the f32 peak."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def main() -> int:
     import torch
 
@@ -105,16 +165,23 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from crossscalepatchmatch_tpu.data import make_pair
-    from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
-    from crossscalepatchmatch_tpu_torch import CSPMConfig, README_DEMO
+    from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, CostMethod,
+                                                CSPMConfig, README_DEMO)
+    from crossscalepatchmatch_tpu_torch.data import make_pair
+    from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
+    from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
     from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                                 run_pair_np)
+    from crossscalepatchmatch_tpu_torch.models.postprocess import postprocess
     from crossscalepatchmatch_tpu_torch.ops import plane_cost, prescreen_volume
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
         build_volume_data)
-    from crossscalepatchmatch_tpu_torch.ops.cuda import (_build, quadrant_build,
+    from crossscalepatchmatch_tpu_torch.ops.cuda import (_build,
+                                                         cross_scale_cost,
+                                                         quadrant_build,
                                                          window_cost)
+    from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
+        scale_weights)
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
 
     dev = torch.device("cuda:0")
@@ -128,12 +195,13 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    path = _build.build(verbose=True)
+    paths = _build.build(verbose=True)
     _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {path}")
+    print(f"build: {time.perf_counter() - t0:.2f} s -> {paths}")
 
     cfg = README_DEMO
     hw, gamma, md = cfg.half_wnd, cfg.wgt_gamma, cfg.max_dis
@@ -145,6 +213,7 @@ def main() -> int:
     vols_bf16 = vols.to(torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
+    h, w = SHAPE["h"], SHAPE["w"]
 
     # -- 3. K1 --------------------------------------------------------------
     def k1_plain(abc):
@@ -158,7 +227,7 @@ def main() -> int:
 
     k1 = {"max_abs_err": 0.0, "max_rel_err": 0.0, "bf16_max_rel_err": 0.0}
     for k in (1, 2):
-        abc = test_planes(vd, pair, k, gen, dev)
+        abc = test_planes(imgs, pair, k, gen, dev)
         want = k1_plain(abc)
         got = k1_kernel(abc, vols)
         got_bf = k1_kernel(abc, vols_bf16)
@@ -176,18 +245,24 @@ def main() -> int:
         k1["max_rel_err"] = max(k1["max_rel_err"], rl)
         k1["bf16_max_rel_err"] = max(k1["bf16_max_rel_err"], rl_bf)
         t = time_turns({"plain": lambda: k1_plain(abc),
-                        "kernel": lambda: k1_kernel(abc, vols)},
-                       {"plain": 2, "kernel": 10})
-        t_bf = time_turns({"plain": lambda: k1_plain(abc),
-                           "kernel": lambda: k1_kernel(abc, vols_bf16)},
-                          {"plain": 1, "kernel": 10})
+                        "kernel_f32": lambda: k1_kernel(abc, vols),
+                        "kernel_bf16": lambda: k1_kernel(abc, vols_bf16)},
+                       {"plain": 1, "kernel_f32": 10, "kernel_bf16": 10})
         print(f"K1 K={k}: plain {t['plain']:.3f} ms | kernel f32 "
-              f"{t['kernel']:.3f} ms | kernel bf16 {t_bf['kernel']:.3f} ms")
+              f"{t['kernel_f32']:.3f} ms | kernel bf16 "
+              f"{t['kernel_bf16']:.3f} ms")
         if k == 1:
-            k1.update(ms=t_bf["kernel"], ms_f32=t["kernel"],
-                      plain_ms=t["plain"])
+            n_img, n_rng = window_samples(abc, [(h, w)], hw, md)
+            b_ms, b_by = bound(
+                nbytes(imgs, vols_bf16, mc, abc) + 2 * k * h * w * 4,
+                FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
+            print(f"K1 K=1: {n_img} in-image samples, {n_rng} in range; "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+            k1.update(ms=t["kernel_bf16"], ms_f32=t["kernel_f32"],
+                      plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
         else:
-            k1.update(ms_k2=t_bf["kernel"], plain_ms_k2=t["plain"])
+            k1.update(ms_k2=t["kernel_bf16"], ms_f32_k2=t["kernel_f32"],
+                      plain_ms_k2=t["plain"])
     rec["k1"] = k1
 
     # -- 4. K2 --------------------------------------------------------------
@@ -219,92 +294,231 @@ def main() -> int:
     if max(rl_b, rl_w) > F32_REL_TOL:
         raise RuntimeError(f"K2: f32 rel error {max(rl_b, rl_w)} > "
                            f"{F32_REL_TOL}")
+    out_bytes = nbytes(got_b, got_w)
     del want_b, want_w, got_b, got_w, bf_b, bf_w
-    t = time_turns({"plain": k2_plain, "kernel": lambda: k2_kernel(vols)},
-                   {"plain": 2, "kernel": 10})
-    t_bf = time_turns({"plain": k2_plain,
-                       "kernel": lambda: k2_kernel(vols_bf16)},
-                      {"plain": 1, "kernel": 10})
-    print(f"K2: plain {t['plain']:.3f} ms | kernel f32 {t['kernel']:.3f} ms "
-          f"| kernel bf16 {t_bf['kernel']:.3f} ms")
+    t = time_turns({"plain": k2_plain,
+                    "kernel_f32": lambda: k2_kernel(vols),
+                    "kernel_bf16": lambda: k2_kernel(vols_bf16)},
+                   {"plain": 2, "kernel_f32": 10, "kernel_bf16": 10})
+    print(f"K2: plain {t['plain']:.3f} ms | kernel f32 "
+          f"{t['kernel_f32']:.3f} ms | kernel bf16 {t['kernel_bf16']:.3f} ms")
+    # every in-image offset of a quadrant adds w * vol[q, :] (2 flops per
+    # slice) and w to the weight sum
+    neg, pos = prescreen_volume.quadrant_offsets(hw, stride)
+
+    def axis_samples(n, offs):
+        return sum(sum(0 <= i + o < n for o in offs) for i in range(n))
+
+    k2_samples = 2 * sum(axis_samples(h, oy) * axis_samples(w, ox)
+                         for oy in (neg, pos) for ox in (neg, pos))
+    d = vols.shape[-1]
+    b_ms, b_by = bound(nbytes(imgs, vols_bf16) + out_bytes,
+                       k2_samples * (2 * d + 1))
+    print(f"K2: {k2_samples} in-image samples; bound {b_ms:.4f} ms ({b_by})")
     rec["k2"] = dict(max_abs_err=max(ab_b, ab_w), max_rel_err=max(rl_b, rl_w),
-                     bf16_max_rel_err=rl_bf, ms=t_bf["kernel"],
-                     ms_f32=t["kernel"], plain_ms=t["plain"])
+                     bf16_max_rel_err=rl_bf, ms=t["kernel_bf16"],
+                     ms_f32=t["kernel_f32"], plain_ms=t["plain"],
+                     bound_ms=b_ms, bound_by=b_by)
     del vd, vols, vols_bf16
 
-    # -- 5. main path ---------------------------------------------------------
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    window_cost.launches = quadrant_build.launches = 0
-    plane_cost.launches = prescreen_volume.launches = 0
-    outs, times = {}, []
-    for seed in (0, 1, 2, 0):
-        t0 = time.perf_counter()
-        out = run_pair(l, r, seed, cfg, device=dev)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if seed in outs:
-            same = all(torch.equal(outs[seed][k], out[k]) for k in out)
-            print(f"pipeline: seed {seed} rerun bit-identical: {same}")
-            if not same:
-                raise RuntimeError("same seed gave different outputs")
-            continue
-        outs[seed] = out
-        dis = out["dis"].cpu().numpy()
-        if dis.shape != (2, SHAPE["h"], SHAPE["w"]):
-            raise RuntimeError(f"dis shape {dis.shape}")
-        if not bool(torch.isfinite(out["cost"]).all()):
-            raise RuntimeError("non-finite final costs")
-        bad = bad_pixel_rate(dis[0] / cfg.dis_scale, pair.disp_left,
-                             pair.valid_left, 1.0)
-        bad_r = bad_pixel_rate(dis[1] / cfg.dis_scale, pair.disp_right,
-                               pair.valid_right, 1.0)
-        print(f"pipeline: seed {seed} {times[-1]:.1f} ms bad-pixel(nonocc) "
-              f"@1px left {bad:.4f} right {bad_r:.4f}")
-        if bad > BAD_PIXEL_MAX:
-            raise RuntimeError(f"seed {seed}: bad-pixel {bad} > "
-                               f"{BAD_PIXEL_MAX}")
-    counts = {"k1": window_cost.launches, "k2": quadrant_build.launches,
-              "k1_plain": plane_cost.launches,
-              "k2_plain": prescreen_volume.launches}
-    peak = torch.cuda.max_memory_allocated(dev)
-    print(f"pipeline: launches {counts}")
-    if counts["k1"] == 0 or counts["k2"] == 0:
-        raise RuntimeError("a kernel of the main path never launched")
-    if counts["k1_plain"] or counts["k2_plain"]:
-        raise RuntimeError("the main path ran a plain version on the card")
-    print(f"pipeline: ms/pair per run {times}; median of runs 2-4 "
-          f"{sorted(times[1:])[1]:.1f}; peak device memory "
-          f"{peak / 2**20:.1f} MiB")
-    rec["k1"]["launches"] = counts["k1"]
-    rec["k2"]["launches"] = counts["k2"]
+    # -- 5. K4 --------------------------------------------------------------
+    ccfg = CEN_CS_PP
+    cvd = build_volume_data(l, r, ccfg)
+    cimgs, cvols, cmc = cvd.imgs, cvd.vols, cvd.max_costs
+    cvols_bf16 = [v.to(torch.bfloat16) for v in cvols]
+    wgts = [float(x) for x in scale_weights(ccfg.scale_num, ccfg.reg_lambda)]
+    chw = ccfg.half_wnd
+    print(f"K4: levels {[tuple(v.shape) for v in cvols]}, weights {wgts}")
 
-    # small pair: card (kernels) vs CPU (plain versions), same draws
+    def k4_plain(abc):
+        return torch.stack([plane_cost.cross_scale_plane_cost(
+            [im[v] for im in cimgs], [vo[v] for vo in cvols],
+            [m[v] for m in cmc], wgts, abc[v], half_wnd=chw,
+            max_dis=ccfg.max_dis, gamma=ccfg.wgt_gamma) for v in range(2)])
+
+    def k4_kernel(abc, v):
+        return cross_scale_cost.cross_scale_cost_cuda(
+            cimgs, v, cmc, wgts, abc, half_wnd=chw, max_dis=ccfg.max_dis,
+            gamma=ccfg.wgt_gamma)
+
+    k4 = {"max_abs_err": 0.0, "max_rel_err": 0.0, "bf16_max_abs_err": 0.0}
+    for k in (1, 2):
+        abc = test_planes(cimgs[0], pair, k, gen, dev)
+        want = k4_plain(abc)
+        got = k4_kernel(abc, cvols)
+        got_bf = k4_kernel(abc, cvols_bf16)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"K4 K={k}: bad output {tuple(got.shape)}")
+        ab, rl = rel_err(got, want)
+        ab_bf, _ = rel_err(got_bf, want)
+        print(f"K4 K={k}: f32 max|d| {ab:.3e} max rel {rl:.3e} | "
+              f"bf16 census volumes max|d| {ab_bf:.3e}")
+        if rl > F32_REL_TOL:
+            raise RuntimeError(f"K4 K={k}: f32 rel error {rl} > "
+                               f"{F32_REL_TOL}")
+        if ab_bf != 0.0:
+            raise RuntimeError(f"K4 K={k}: bf16 census volumes differ from "
+                               f"the f32 plain version by {ab_bf}")
+        k4["max_abs_err"] = max(k4["max_abs_err"], ab)
+        k4["max_rel_err"] = max(k4["max_rel_err"], rl)
+        k4["bf16_max_abs_err"] = max(k4["bf16_max_abs_err"], ab_bf)
+        t = time_turns({"plain": lambda: k4_plain(abc),
+                        "kernel_f32": lambda: k4_kernel(abc, cvols),
+                        "kernel_bf16": lambda: k4_kernel(abc, cvols_bf16)},
+                       {"plain": 1, "kernel_f32": 5, "kernel_bf16": 5})
+        print(f"K4 K={k}: plain {t['plain']:.3f} ms | kernel f32 "
+              f"{t['kernel_f32']:.3f} ms | kernel bf16 "
+              f"{t['kernel_bf16']:.3f} ms")
+        if k == 1:
+            n_img, n_rng = window_samples(
+                abc, [tuple(v.shape[1:3]) for v in cvols], chw, ccfg.max_dis)
+            b_ms, b_by = bound(
+                nbytes(*cimgs, *cvols_bf16, *cmc, abc) + 2 * k * h * w * 4,
+                FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
+            print(f"K4 K=1: {n_img} in-image samples, {n_rng} in range; "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+            k4.update(ms=t["kernel_bf16"], ms_f32=t["kernel_f32"],
+                      plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+        else:
+            k4.update(ms_k2=t["kernel_bf16"], ms_f32_k2=t["kernel_f32"],
+                      plain_ms_k2=t["plain"])
+    rec["k4"] = k4
+    del cvd, cvols, cvols_bf16
+    print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 7. main paths --------------------------------------------------------
+    def reset_counts():
+        window_cost.launches = quadrant_build.launches = 0
+        cross_scale_cost.launches = 0
+        plane_cost.launches = prescreen_volume.launches = 0
+        plane_cost.cross_scale_launches = 0
+
+    def read_counts():
+        return {"k1": window_cost.launches, "k2": quadrant_build.launches,
+                "k4": cross_scale_cost.launches,
+                "k1_plain": plane_cost.launches,
+                "k2_plain": prescreen_volume.launches,
+                "k4_plain": plane_cost.cross_scale_launches}
+
+    def main_path(name, pcfg, kernels):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        outs, times = {}, []
+        for seed in (0, 1, 2, 0):
+            t0 = time.perf_counter()
+            out = run_pair(l, r, seed, pcfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if seed in outs:
+                same = all(torch.equal(outs[seed][k], out[k]) for k in out)
+                print(f"{name}: seed {seed} rerun bit-identical: {same}")
+                if not same:
+                    raise RuntimeError(f"{name}: same seed gave different "
+                                       "outputs")
+                continue
+            outs[seed] = out
+            dis = out["dis"].cpu().numpy()
+            if dis.shape != (2, h, w):
+                raise RuntimeError(f"{name}: dis shape {dis.shape}")
+            if not bool(torch.isfinite(out["cost"]).all()):
+                raise RuntimeError(f"{name}: non-finite final costs")
+            bad = bad_pixel_rate(dis[0] / pcfg.dis_scale, pair.disp_left,
+                                 pair.valid_left, 1.0)
+            bad_r = bad_pixel_rate(dis[1] / pcfg.dis_scale, pair.disp_right,
+                                   pair.valid_right, 1.0)
+            print(f"{name}: seed {seed} {times[-1]:.1f} ms "
+                  f"bad-pixel(nonocc) @1px left {bad:.4f} right {bad_r:.4f}")
+            if bad > BAD_PIXEL_MAX:
+                raise RuntimeError(f"{name} seed {seed}: bad-pixel {bad} > "
+                                   f"{BAD_PIXEL_MAX}")
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"{name}: launches {counts}")
+        if any(counts[k] == 0 for k in kernels):
+            raise RuntimeError(f"{name}: a kernel of the path never "
+                               "launched")
+        if any(counts[k] for k in counts if k.endswith("_plain")):
+            raise RuntimeError(f"{name}: the path ran a plain version on "
+                               "the card")
+        print(f"{name}: ms/pair per run {times}; median of runs 2-4 "
+              f"{sorted(times[1:])[1]:.1f}; peak device memory "
+              f"{peak / 2**20:.1f} MiB")
+        return outs, counts
+
+    _, counts_demo = main_path("README_DEMO", README_DEMO, ("k1", "k2"))
+    outs_cs, counts_cs = main_path("CEN_CS_PP", CEN_CS_PP, ("k4", "k2"))
+
+    # postprocess alone on the seed-0 planes: time, launches, same output
+    from torch.profiler import ProfilerActivity, profile
+
+    abc0 = outs_cs[0]["abc"]
+    imgs0 = torch.stack([l, r])
+    dis0 = pm.plane_to_disp(abc0, CEN_CS_PP.dis_scale)
+    pp_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pp_dis, _ = postprocess(dis0, abc0, imgs0, CEN_CS_PP)
+        torch.cuda.synchronize()
+        pp_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(pp_dis, outs_cs[0]["dis"]):
+        raise RuntimeError("postprocess alone differs from the pipeline's")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        postprocess(dis0, abc0, imgs0, CEN_CS_PP)
+        torch.cuda.synchronize()
+    pp_launches = sum(1 for e in prof.events()
+                      if e.device_type.name == "CUDA")
+    n_invalid = int((~outs_cs[0]["valid"]).sum())
+    print(f"CEN_CS_PP postprocess: ms per call {pp_ms}; "
+          f"{pp_launches} kernel launches; {n_invalid} LR-invalid pixels")
+
+    # small pairs: card (kernels) vs CPU (plain versions), same draws
     small = make_pair(h=48, w=64, max_dis=12, seed=3)
-    scfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11, vol_dtype="f32")
-    o_gpu = run_pair_np(small.left, small.right, scfg, device=dev,
-                        draws=TorchDraws(0, "cpu"))
-    o_cpu = run_pair_np(small.left, small.right, scfg, device="cpu",
-                        draws=TorchDraws(0, "cpu"))
-    agree = float((np.abs(o_gpu["dis"].astype(int)
-                          - o_cpu["dis"].astype(int)) <= 1).mean())
-    print(f"small pair card vs CPU: {agree:.4f} of u8 pixels within 1")
-    if agree < SMALL_AGREE_MIN:
-        raise RuntimeError(f"card vs CPU agreement {agree} < "
-                           f"{SMALL_AGREE_MIN}")
+    for name, scfg in (
+            ("README_DEMO-like", CSPMConfig(max_dis=12, dis_scale=16,
+                                            wnd_size=11, vol_dtype="f32")),
+            ("CEN_CS_PP-like", CSPMConfig(
+                max_dis=12, dis_scale=16, wnd_size=11,
+                cost_method=CostMethod.CEN,
+                use_cs=True, use_pp=True, reg_lambda=0.3, scale_num=3,
+                vol_dtype="f32"))):
+        o_gpu = run_pair_np(small.left, small.right, scfg, device=dev,
+                            draws=TorchDraws(0, "cpu"))
+        o_cpu = run_pair_np(small.left, small.right, scfg, device="cpu",
+                            draws=TorchDraws(0, "cpu"))
+        agree = float((np.abs(o_gpu["dis"].astype(int)
+                              - o_cpu["dis"].astype(int)) <= 1).mean())
+        print(f"small pair {name} card vs CPU: {agree:.4f} of u8 pixels "
+              f"within 1")
+        if agree < SMALL_AGREE_MIN:
+            raise RuntimeError(f"{name}: card vs CPU agreement {agree} < "
+                               f"{SMALL_AGREE_MIN}")
 
     pkg = "crossscalepatchmatch_tpu_torch"
+    wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
     kernels = [
         dict(name="window_cost (K1)", route="cuda",
-             source=f"{pkg}/csrc/window_cost.cu",
-             replaces="crossscalepatchmatch_tpu/ops/pallas/window_cost.py:138",
-             **rec["k1"]),
+             source=f"{pkg}/csrc/window_cost.cu", replaces=f"{wc}:138",
+             launches=counts_demo["k1"] + counts_cs["k1"], library_ms=None,
+             launches_by_path={"README_DEMO": counts_demo["k1"],
+                               "CEN_CS_PP": counts_cs["k1"]}, **rec["k1"]),
         dict(name="quadrant_build (K2)", route="cuda",
              source=f"{pkg}/csrc/quadrant_build.cu",
              replaces=("crossscalepatchmatch_tpu/ops/pallas/"
                        "quadrant_build.py:45"),
-             **rec["k2"]),
+             launches=counts_demo["k2"] + counts_cs["k2"], library_ms=None,
+             launches_by_path={"README_DEMO": counts_demo["k2"],
+                               "CEN_CS_PP": counts_cs["k2"]}, **rec["k2"]),
+        dict(name="cross_scale_cost (K4)", route="cuda",
+             source=f"{pkg}/csrc/cross_scale_cost.cu", replaces=f"{wc}:138",
+             launches=counts_demo["k4"] + counts_cs["k4"], library_ms=None,
+             launches_by_path={"README_DEMO": counts_demo["k4"],
+                               "CEN_CS_PP": counts_cs["k4"]}, **rec["k4"]),
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          "card check")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

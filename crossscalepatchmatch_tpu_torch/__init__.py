@@ -2,17 +2,20 @@
 cross-scale PatchMatch stereo engine.
 
 The JAX package `crossscalepatchmatch_tpu` is the reference this port is
-held against; its jax-free modules (`config`, `data`, `metrics`, `io`) are
-imported by name, never copied.  Module names mirror the JAX package
-(`ops/...`, `models/...`) so each module's counterpart is easy to find.
+held against, in the tests only: this package imports neither jax nor
+anything of the JAX package, and keeps its own copies of the jax-free
+modules it needs (`config`, `data`, `metrics`).  Module names mirror the
+JAX package (`ops/...`, `models/...`) so each module's counterpart is easy
+to find.
 
-Kernels: the window plane cost and the quadrant-volume build run as
-hand-written CUDA kernels (`csrc/*.cu`, built at first use by
-`ops.cuda._build`) on CUDA tensors; CPU tensors take their plain PyTorch
-versions.  This package never imports jax.
+Kernels: the window plane cost (K1), the quadrant-volume build (K2) and the
+cross-scale window cost (K4) run as hand-written CUDA kernels (`csrc/*.cu`,
+built at first use by `ops.cuda._build`) on CUDA tensors; CPU tensors take
+their plain PyTorch versions.
 """
 
-from crossscalepatchmatch_tpu.config import (CostMethod, CSPMConfig,
-                                             README_DEMO)
+from .config import (CEN_CS_PP, KITTI, MIDDLEBURY, README_DEMO, Aggregator,
+                     CostMethod, CSPMConfig)
 
-__all__ = ["CostMethod", "CSPMConfig", "README_DEMO"]
+__all__ = ["Aggregator", "CEN_CS_PP", "CostMethod", "CSPMConfig", "KITTI",
+           "MIDDLEBURY", "README_DEMO"]

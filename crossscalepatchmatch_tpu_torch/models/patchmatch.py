@@ -7,10 +7,11 @@ per-pixel plane-cost evaluations through a CostFn:
 
     CostFn: f32[2, K, H, W, 3] candidate planes -> f32[2, K, H, W] costs
 
-The exact CostFn is kernel K1 on a CUDA tensor (ops.cuda.window_cost) and
-its plain version on a CPU tensor; the prescreen/rank CostFn reads the
-quadrant volumes that kernel K2 (or its plain version) builds once per
-pair.  Random draws come from an explicit draw source (utils.rng) keyed by
+The exact CostFn is kernel K1 (ops.cuda.window_cost), or K4
+(ops.cuda.cross_scale_cost) on cross-scale runs, on a CUDA tensor and its
+plain version on a CPU tensor; the prescreen/rank CostFn reads the quadrant
+volumes of the fine level that kernel K2 (or its plain version) builds once
+per pair.  Random draws come from an explicit draw source (utils.rng) keyed by
 (phase, iteration, view, round).  The JAX jit/scan structure becomes plain
 Python control flow.
 """
@@ -23,13 +24,14 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from crossscalepatchmatch_tpu.config import CSPMConfig
-
+from ..config import CSPMConfig
 from ..ops import plane
 from ..ops.cost_volume import VolumeData
+from ..ops.cuda.cross_scale_cost import cross_scale_cost
 from ..ops.cuda.quadrant_build import quadrant_volumes
 from ..ops.cuda.window_cost import window_cost
 from ..ops.prescreen_volume import quadrant_prescreen_cost
+from ..ops.scale_weights import scale_weights
 from ..support import check_supported
 
 CostFn = Callable[[torch.Tensor], torch.Tensor]
@@ -76,19 +78,30 @@ def _volume_sparse_fn(cfg: CSPMConfig, vd: VolumeData,
 def make_cost_fns(cfg: CSPMConfig,
                   vd: VolumeData) -> Tuple[CostFn, CostFn | None]:
     """Bind the per-view volume data into (cost_fn, sparse_fn): the exact
-    window-cost evaluator and the quadrant prescreen (None when
-    prescreening is off).  Which code runs follows the tensors' device."""
+    window-cost evaluator (single-scale, or the scale-weighted sum over the
+    pyramid when cfg.use_cs) and the quadrant prescreen (None when
+    prescreening is off).  Cross-scale runs rank on the fine level's
+    quadrant volumes, a ranking heuristic like the prescreen itself; their
+    exact costs are the cross-scale ones.  Which code runs follows the
+    tensors' device."""
     check_supported(cfg)
     volume_mode = cfg.prescreen_stride > 1 and cfg.prescreen_mode == "volume"
-    imgs, max_costs = vd.weight_imgs[0], vd.max_costs[0]
-    kvols = kernel_volumes(cfg, vd.vols[0])
+    kvols = [kernel_volumes(cfg, v) for v in vd.vols]
+    kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
+              gamma=cfg.wgt_gamma)
+    if cfg.use_cs:
+        wgts = tuple(float(x) for x in
+                     scale_weights(cfg.scale_num, cfg.reg_lambda))
 
-    def cost_fn(abc2: torch.Tensor) -> torch.Tensor:
-        return window_cost(imgs, kvols, max_costs, abc2,
-                           half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
-                           gamma=cfg.wgt_gamma)
+        def cost_fn(abc2: torch.Tensor) -> torch.Tensor:
+            return cross_scale_cost(vd.weight_imgs, kvols, vd.max_costs,
+                                    wgts, abc2, **kw)
+    else:
+        def cost_fn(abc2: torch.Tensor) -> torch.Tensor:
+            return window_cost(vd.weight_imgs[0], kvols[0], vd.max_costs[0],
+                               abc2, **kw)
 
-    sparse_fn = _volume_sparse_fn(cfg, vd, kvols) if volume_mode else None
+    sparse_fn = _volume_sparse_fn(cfg, vd, kvols[0]) if volume_mode else None
     return cost_fn, sparse_fn
 
 

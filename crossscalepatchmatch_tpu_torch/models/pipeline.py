@@ -1,9 +1,11 @@
 """End-to-end stereo pipeline: images -> u8 disparity maps
-(port of crossscalepatchmatch_tpu.models.pipeline, no post-processing).
+(port of crossscalepatchmatch_tpu.models.pipeline, precomputed volumes).
 
-Build the GRD volumes, run the PatchMatch optimizer, convert planes to
-scaled u8 disparity.  The device is an explicit argument; the inputs are
-moved there and every tensor of the run lives there.
+Build the volumes (one level, or the pyramid's when cfg.use_cs), run the
+PatchMatch optimizer, convert planes to scaled u8 disparity, and
+post-process when cfg.use_pp.  The run happens on `device` ("cuda" unless
+the caller asks for another); the inputs are moved there and every tensor
+of the run lives there.
 """
 
 from __future__ import annotations
@@ -13,35 +15,43 @@ from typing import Dict
 import numpy as np
 import torch
 
-from crossscalepatchmatch_tpu.config import CSPMConfig
-
+from ..config import CSPMConfig
 from ..ops.cost_volume import build_volume_data
 from ..utils.rng import TorchDraws
 from . import patchmatch as pm
+from .postprocess import postprocess
 
 
-def _finalize(state: pm.PMState, cfg: CSPMConfig) -> Dict[str, torch.Tensor]:
+def _finalize(state: pm.PMState, pp_imgs: torch.Tensor,
+              cfg: CSPMConfig) -> Dict[str, torch.Tensor]:
+    """Planes -> scaled u8 disparity (+ post-processing on the fine-level
+    images pp_imgs, u8[2, H, W, 3], when cfg.use_pp)."""
     _, h, w = state.cost.shape
-    return {"dis": pm.plane_to_disp(state.abc, cfg.dis_scale),
-            "abc": state.abc, "cost": state.cost,
-            "valid": torch.ones((2, h, w), dtype=torch.bool,
-                                device=state.abc.device)}
+    dis = pm.plane_to_disp(state.abc, cfg.dis_scale)
+    if cfg.use_pp:
+        dis, valid = postprocess(dis, state.abc, pp_imgs, cfg)
+    else:
+        valid = torch.ones((2, h, w), dtype=torch.bool,
+                           device=state.abc.device)
+    return {"dis": dis, "abc": state.abc, "cost": state.cost,
+            "valid": valid}
 
 
-def run_pair(l_bgr_u8, r_bgr_u8, seed: int, cfg: CSPMConfig, *, device,
-             draws=None) -> Dict[str, torch.Tensor]:
+def run_pair(l_bgr_u8, r_bgr_u8, seed: int, cfg: CSPMConfig, *,
+             device="cuda", draws=None) -> Dict[str, torch.Tensor]:
     """Compute left/right disparity for one rectified pair.
 
     Args:
       l_bgr_u8 / r_bgr_u8: u8[H, W, 3] views (tensors or arrays).
       seed: RNG seed of the default draw source.
-      device: where the run happens ("cuda", "cuda:0", "cpu", ...).
+      device: where the run happens ("cuda" by default, "cuda:1", "cpu",
+        ...).
       draws: draw source (utils.rng); TorchDraws(seed, device) if None.
 
     Returns:
       dict with "dis" u8[2, H, W] scaled disparity maps, "abc"
       f32[2, H, W, 3] plane fields, "cost" f32[2, H, W] final costs and
-      "valid" bool[2, H, W] (all true: no LR check in this slice).
+      "valid" bool[2, H, W] LR-check mask (all true when not cfg.use_pp).
     """
     device = torch.device(device)
     l = torch.as_tensor(l_bgr_u8).to(device)
@@ -53,11 +63,11 @@ def run_pair(l_bgr_u8, r_bgr_u8, seed: int, cfg: CSPMConfig, *, device,
     cost_fn, sparse_fn = pm.make_cost_fns(cfg, vd)
     state = pm.patchmatch(draws, (h, w), cost_fn, cfg, sparse_fn,
                           device=device)
-    return _finalize(state, cfg)
+    return _finalize(state, vd.imgs[0], cfg)
 
 
 def run_pair_np(l_bgr_u8, r_bgr_u8, cfg: CSPMConfig, seed: int = 0, *,
-                device, draws=None) -> Dict[str, np.ndarray]:
+                device="cuda", draws=None) -> Dict[str, np.ndarray]:
     """run_pair taking and returning NumPy arrays."""
     out = run_pair(np.asarray(l_bgr_u8), np.asarray(r_bgr_u8), seed, cfg,
                    device=device, draws=draws)
@@ -65,7 +75,7 @@ def run_pair_np(l_bgr_u8, r_bgr_u8, cfg: CSPMConfig, seed: int = 0, *,
 
 
 def run_pairs(l_bgr_u8, r_bgr_u8, seeds, cfg: CSPMConfig, *,
-              device) -> Dict[str, torch.Tensor]:
+              device="cuda") -> Dict[str, torch.Tensor]:
     """B pairs one after another (u8[B, H, W, 3] views, B seeds); returns
     run_pair's dict with a leading batch axis on every entry."""
     outs = [run_pair(l_bgr_u8[i], r_bgr_u8[i], int(seeds[i]), cfg,

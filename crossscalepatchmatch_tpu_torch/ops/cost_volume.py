@@ -1,8 +1,9 @@
-"""Cost-volume construction (port of the single-level GRD branch of
-crossscalepatchmatch_tpu.ops.cost_volume).
+"""Cost-volume construction (port of crossscalepatchmatch_tpu.ops.cost_volume
+without the aggregation filters and the Lab weight images).
 
-build_pyramid(img, 1) is just [img], so no pyramid is built here; the
-cross-scale levels come with ROADMAP queue 1 step 9.
+Left- and right-referenced GRD or census volumes at one level, or at
+scale_num pyramid levels for cross-scale runs (max_dis halves per level),
+with each level's per-view saturation value max(volume).
 """
 
 from __future__ import annotations
@@ -12,11 +13,12 @@ from typing import List
 
 import torch
 
-from crossscalepatchmatch_tpu.config import CSPMConfig
-
+from ..config import CostMethod, CSPMConfig
 from ..support import check_supported
-from .color import bgr_to_rgb
+from .census import census_cost_volume
+from .color import bgr_to_rgb, rgb_to_gray_u8
 from .grad_cost import grd_cost_volume
+from .pyramid import build_pyramid
 
 
 @dataclasses.dataclass
@@ -39,21 +41,44 @@ class VolumeData:
         return self.imgs if self.wimgs is None else self.wimgs
 
 
+def build_volume(l_rgb_u8: torch.Tensor, r_rgb_u8: torch.Tensor,
+                 max_dis: int, cfg: CSPMConfig, right: bool) -> torch.Tensor:
+    """One reference view's cost volume at one level: f32[H, W, max_dis+1].
+    Census re-quantizes to u8 gray (cen_cc.cc:12-17)."""
+    if cfg.cost_method == CostMethod.GRD:
+        return grd_cost_volume(
+            l_rgb_u8, r_rgb_u8, max_dis, alpha=cfg.cost_alpha,
+            tau_clr=cfg.tau_clr, tau_grd=cfg.tau_grd,
+            border_thres=cfg.border_thres, right=right)
+    if cfg.cost_method == CostMethod.CEN:
+        return census_cost_volume(
+            rgb_to_gray_u8(l_rgb_u8), rgb_to_gray_u8(r_rgb_u8), max_dis,
+            wnd=cfg.census_wnd, right=right)
+    raise ValueError(f"unknown cost method {cfg.cost_method}")
+
+
 def build_volume_data(l_bgr_u8: torch.Tensor, r_bgr_u8: torch.Tensor,
                       cfg: CSPMConfig) -> VolumeData:
-    """Left- and right-referenced GRD volumes of one pair at one level.
+    """All per-level per-view volumes of one pair: scale_num levels when
+    cfg.use_cs, else one.
 
     Args:
       l_bgr_u8 / r_bgr_u8: u8[H, W, 3] views in the loader's BGR order, on
         the device the volumes should live on.
     """
     check_supported(cfg)
-    l_rgb = bgr_to_rgb(l_bgr_u8)
-    r_rgb = bgr_to_rgb(r_bgr_u8)
-    kw = dict(alpha=cfg.cost_alpha, tau_clr=cfg.tau_clr,
-              tau_grd=cfg.tau_grd, border_thres=cfg.border_thres)
-    vol_l = grd_cost_volume(l_rgb, r_rgb, cfg.max_dis, right=False, **kw)
-    vol_r = grd_cost_volume(l_rgb, r_rgb, cfg.max_dis, right=True, **kw)
-    return VolumeData(imgs=[torch.stack([l_bgr_u8, r_bgr_u8])],
-                      vols=[torch.stack([vol_l, vol_r])],
-                      max_costs=[torch.stack([vol_l.max(), vol_r.max()])])
+    levels = cfg.scale_num if cfg.use_cs else 1
+    l_pyr = build_pyramid(l_bgr_u8, levels)
+    r_pyr = build_pyramid(r_bgr_u8, levels)
+    imgs, vols, max_costs = [], [], []
+    md = cfg.max_dis
+    for s in range(levels):
+        l_rgb = bgr_to_rgb(l_pyr[s])
+        r_rgb = bgr_to_rgb(r_pyr[s])
+        vol_l = build_volume(l_rgb, r_rgb, md, cfg, right=False)
+        vol_r = build_volume(l_rgb, r_rgb, md, cfg, right=True)
+        imgs.append(torch.stack([l_pyr[s], r_pyr[s]]))
+        vols.append(torch.stack([vol_l, vol_r]))
+        max_costs.append(torch.stack([vol_l.max(), vol_r.max()]))
+        md //= 2
+    return VolumeData(imgs=imgs, vols=vols, max_costs=max_costs)

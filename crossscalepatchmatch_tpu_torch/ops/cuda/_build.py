@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-The sources under crossscalepatchmatch_tpu_torch/csrc/ are compiled at
-first use with
+Each source under crossscalepatchmatch_tpu_torch/csrc/ is compiled at first
+use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/libcspm_kernels_<hash>.so
+         -Xcompiler -fPIC -o build/torch_kernels/<name>_<hash>.so
 
 into a shared library with a plain C interface, loaded with ctypes.  The
-file name carries a hash of the sources, so an edited source is rebuilt and
-a built library is reused.  Nothing here runs at import time.
+nvcc processes of all sources that have no library yet run at the same
+time.  A file name carries a hash of its source, so an edited source is
+rebuilt and a built library is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,26 +21,37 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("window_cost.cu", "quadrant_build.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argument types (every entry returns cudaError_t)
-SIGNATURES = {
-    # img, vol, vol_bf16, max_costs, abc, lut, out,
-    # K, H, W, D, half_wnd, max_dis, stream
-    "cspm_window_cost": (_P, _P, _I, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _P),
-    # img, vol, vol_bf16, lut, bq, wq, H, W, D, half_wnd, stride, stream
-    "cspm_quadrant_build": (_P, _P, _I, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _P),
+# source -> its C entry points: name -> argument types (every entry returns
+# cudaError_t)
+SOURCES = {
+    "window_cost.cu": {
+        # img, vol, vol_bf16, max_costs, abc, lut, out,
+        # K, H, W, D, half_wnd, max_dis, stream
+        "cspm_window_cost": (_P, _P, _I, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _P),
+    },
+    "quadrant_build.cu": {
+        # img, vol, vol_bf16, lut, bq, wq, H, W, D, half_wnd, stride, stream
+        "cspm_quadrant_build": (_P, _P, _I, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _P),
+    },
+    "cross_scale_cost.cu": {
+        # per-level host arrays: imgs, vols, max_costs, hs, ws, ds, max_dis,
+        # wgts; levels, vol_bf16, abc, lut, out, K, H, W, half_wnd, stream
+        "cspm_cross_scale_cost": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
 }
 
 _lib = None
@@ -53,59 +65,88 @@ def _nvcc() -> str:
     return found or "/usr/local/cuda/bin/nvcc"
 
 
-def library_path() -> str:
+def library_path(source: str) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
-        with open(os.path.join(SRC_DIR, name), "rb") as f:
-            h.update(f.read())
+    with open(os.path.join(SRC_DIR, source), "rb") as f:
+        h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libcspm_kernels_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels if the current sources have no library yet.
+def build(verbose: bool = False) -> list:
+    """Compile every source that has no library yet, all at once.
 
-    Returns the library path; raises RuntimeError with nvcc's output on a
+    Returns the library paths; raises RuntimeError with nvcc's output on a
     failed build.
     """
-    path = library_path()
-    if os.path.exists(path):
-        return path
+    paths = [library_path(src) for src in SOURCES]
+    todo = [(src, path) for src, path in zip(SOURCES, paths)
+            if not os.path.exists(path)]
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a temporary name and rename: concurrent builders never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[os.path.join(SRC_DIR, s) for s in SOURCES]]
+    jobs = []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc could not be started ({cmd[0]}): {e}")
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+        for src, path in todo:
+            # build to a temporary name and rename: concurrent builders
+            # never see a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+                   os.path.join(SRC_DIR, src)]
+            try:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+            except OSError as e:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc could not be started ({cmd[0]}): {e}")
+            jobs.append((src, path, tmp, cmd, proc))
+        failed = []
+        for src, path, tmp, cmd, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}\n{err}")
+                continue
+            if verbose:
+                print(f"nvcc {src}:")
+                print(err, end="")
+            os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     if verbose:
-        print(f"nvcc: {time.perf_counter() - t0:.2f} s")
-        print(res.stderr, end="")
-    os.replace(tmp, path)
-    return path
+        print(f"nvcc: {len(todo)} sources in parallel, "
+              f"{time.perf_counter() - t0:.2f} s")
+    return paths
 
 
 def load():
-    """The loaded kernel library (built first if needed)."""
+    """The kernels' C entry points, as attributes of one namespace (the
+    libraries are built first if needed)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        # the loaded libraries ride along, so they live as long as their
+        # entry points
+        fns = {"libraries": []}
+        for sigs, path in zip(SOURCES.values(), build()):
+            lib = ctypes.CDLL(path)
+            fns["libraries"].append(lib)
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        _lib = types.SimpleNamespace(**fns)
     return _lib
 
 

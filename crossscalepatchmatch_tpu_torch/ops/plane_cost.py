@@ -1,6 +1,6 @@
-"""Slanted-plane adaptive-support-weight window cost over a precomputed
-volume: the plain PyTorch version of kernel K1
-(port of crossscalepatchmatch_tpu.ops.plane_cost.window_plane_cost).
+"""Slanted-plane adaptive-support-weight window cost over precomputed
+volumes: the plain PyTorch versions of kernels K1 (window_plane_cost) and
+K4 (cross_scale_plane_cost) (port of crossscalepatchmatch_tpu.ops.plane_cost).
 
 Per center pixel c and candidate plane (a, b, c0), summed over the in-image
 window offsets o = (dy, dx) in dy-major order:
@@ -16,18 +16,21 @@ window offsets o = (dy, dx) in dy-major order:
 to an integer only inside that range: random planes with a near-zero nz
 give |dq| far beyond the int32 range.
 
-The CUDA kernel (ops.cuda.window_cost) computes the same function with the
-same rounding steps; this module is what it is held against, and what a CPU
-tensor runs.
+The CUDA kernels (ops.cuda.window_cost, ops.cuda.cross_scale_cost) compute
+the same functions with the same rounding steps; this module is what they
+are held against, and what a CPU tensor runs.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
-# Calls of the plain version (a plain count; chip_smoke reads it to show
-# the card's main path never came through here).
+# Calls of the plain versions of K1 and K4 (plain counts; chip_smoke reads
+# them to show the card's main paths never came through here).
 launches = 0
+cross_scale_launches = 0
 
 # Largest L1 distance between two u8 BGR pixels.
 L1_MAX = 3 * 255
@@ -86,24 +89,59 @@ def window_plane_cost(img_u8: torch.Tensor, vol: torch.Tensor,
     """
     global launches
     launches += 1
-    h, w, _ = img_u8.shape
+    return level_plane_cost(img_u8, vol, max_cost, abc, scale=0,
+                            half_wnd=half_wnd, max_dis=max_dis, gamma=gamma,
+                            wnd_stride=wnd_stride)
+
+
+def level_plane_cost(img_u8: torch.Tensor, vol: torch.Tensor,
+                     max_cost: torch.Tensor, abc: torch.Tensor, *,
+                     scale: int, half_wnd: int, max_dis: int, gamma: float,
+                     wnd_stride: int = 1) -> torch.Tensor:
+    """Window cost of fine-grid planes on pyramid level `scale`.
+
+    Every fine pixel (x, y) keeps its own plane; its window is
+    (2*half_wnd+1)^2 level-s pixels around (y >> s, x >> s), and the plane
+    is re-anchored through d0 / 2^s with the same (a, b)
+    (pre_cs_pc.cc:133-188):
+
+        dq = ((d0 * 2^-s) + a*dx) + b*dy,   d0 = a*x + b*y + c
+
+    A window pixel counts only inside level s; the weights come from the
+    level-s colours; the range test uses max_dis (the level's).  Scale 0
+    is the plain window cost.  Level s is indexed directly (the JAX
+    package's nearest upsampling was the TPU's way around gathers).
+
+    Args:
+      img_u8: u8[Hs, Ws, 3] level-s image; vol: f32[Hs, Ws, Ds] level-s
+        volume, Ds = max_dis + 1; abc: f32[K, H, W, 3] fine-grid planes.
+
+    Returns:
+      f32[K, H, W].
+    """
+    hs, ws, _ = img_u8.shape
+    _, h, w, _ = abc.shape
     dev = abc.device
+    d = vol.shape[-1]
     o_start = stride_start(half_wnd, wnd_stride)
     img = img_u8.to(torch.int32).reshape(-1, 3)
     vol = vol.to(torch.float32).contiguous()
     ys = torch.arange(h, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
+    cy, cx = ys >> scale, xs >> scale
     a, b = abc[..., 0], abc[..., 1]
     d_c = a * xs.float() + b * ys.float() + abc[..., 2]
-    img_c = img.reshape(h, w, 3)
+    if scale:
+        d_c = d_c * (1.0 / (1 << scale))
+    img_c = img[cy * ws + cx]                                      # [H, W, 3]
 
     acc = torch.zeros(abc.shape[:-1], dtype=torch.float32, device=dev)
     for dy in range(o_start, half_wnd + 1, wnd_stride):
-        qy = ys + dy
+        qy = cy + dy
         for dx in range(o_start, half_wnd + 1, wnd_stride):
-            qx = xs + dx
-            q_ok = (qy >= 0) & (qy < h) & (qx >= 0) & (qx < w)     # [H, W]
-            pos = qy.clamp(0, h - 1) * w + qx.clamp(0, w - 1)
+            qx = cx + dx
+            q_ok = (qy >= 0) & (qy < hs) & (qx >= 0) & (qx < ws)   # [H, W]
+            pos = qy.clamp(0, hs - 1) * ws + qx.clamp(0, ws - 1)
             l1 = (img[pos] - img_c).abs().sum(-1).to(torch.float32)
             wgt = asw_weight(l1, gamma)
 
@@ -111,9 +149,44 @@ def window_plane_cost(img_u8: torch.Tensor, vol: torch.Tensor,
             in_range = (dq >= 1.0) & (dq < float(max_dis))
             f = torch.where(in_range, dq, 0.0).trunc().to(torch.int64)
             v_f = take_depth(vol, pos, f)
-            v_c = take_depth(vol, pos, f + 1)
+            # f + 1 <= max_dis in range; the clamp only keeps the discarded
+            # out-of-range tap inside a one-slice volume
+            v_c = take_depth(vol, pos, torch.clamp(f + 1, max=d - 1))
             floor_wgt = (f + 1).to(torch.float32) - dq
             val = floor_wgt * v_f + (1.0 - floor_wgt) * v_c
             val = torch.where(in_range, val, max_cost)
             acc = acc + torch.where(q_ok, wgt * val, 0.0)
     return acc
+
+
+def cross_scale_plane_cost(pyr_imgs: Sequence[torch.Tensor],
+                           pyr_vols: Sequence[torch.Tensor],
+                           pyr_max_costs: Sequence[torch.Tensor],
+                           scale_wgts: Sequence[float], abc0: torch.Tensor,
+                           *, half_wnd: int, max_dis: int,
+                           gamma: float) -> torch.Tensor:
+    """Cross-scale aggregated plane cost of one view, the plain version of
+    kernel K4: ((w0*c0 + w1*c1) + w2*c2) + ... (pre_cs_pc.cc:182), c_s the
+    level-s window cost (level_plane_cost) with max_dis >> s.
+
+    Args:
+      pyr_imgs / pyr_vols / pyr_max_costs: per-level u8[Hs, Ws, 3],
+        f32[Hs, Ws, Ds] and f32 scalars, level 0 finest.
+      scale_wgts: inter-scale weights (ops.scale_weights).
+      abc0: f32[K, H, W, 3] fine-grid planes.
+
+    Returns:
+      f32[K, H, W].
+    """
+    global cross_scale_launches
+    cross_scale_launches += 1
+    total = None
+    md = max_dis
+    for s, (img_s, vol_s, mc_s) in enumerate(
+            zip(pyr_imgs, pyr_vols, pyr_max_costs)):
+        cost_s = level_plane_cost(img_s, vol_s, mc_s, abc0, scale=s,
+                                  half_wnd=half_wnd, max_dis=md, gamma=gamma)
+        term = float(scale_wgts[s]) * cost_s
+        total = term if total is None else total + term
+        md //= 2
+    return total

@@ -1,7 +1,10 @@
-"""Test-only draw source that replays the JAX engine's threefry key tree.
+"""Test-only helpers of the port's CPU tests: a config pair built from one
+keyword dict, and a draw source that replays the JAX engine's threefry key
+tree.
 
-Handed to the PyTorch port (crossscalepatchmatch_tpu_torch.utils.rng draw
-source interface), it makes the port draw exactly the random numbers the
+The draw source JaxDraws, handed to the PyTorch port
+(crossscalepatchmatch_tpu_torch.utils.rng draw source interface), makes
+the port draw exactly the random numbers the
 JAX engine draws for the same seed, so the two trajectories can be
 compared:
 
@@ -20,7 +23,24 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from crossscalepatchmatch_tpu import config as jconfig
 from crossscalepatchmatch_tpu.models import patchmatch as jpm
+from crossscalepatchmatch_tpu_torch import config as tconfig
+
+
+def config_pair(**kw):
+    """(JAX CSPMConfig, port CSPMConfig) from the same keywords; enum
+    fields may be given by value ("CEN", "GF") and become each package's
+    own enum member."""
+    def build(mod):
+        args = dict(kw)
+        if "cost_method" in args:
+            args["cost_method"] = mod.CostMethod(args["cost_method"])
+        if "aggregator" in args:
+            args["aggregator"] = mod.Aggregator(args["aggregator"])
+        return mod.CSPMConfig(**args)
+
+    return build(jconfig), build(tconfig)
 
 
 class JaxDraws:

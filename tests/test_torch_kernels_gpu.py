@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1 (window cost) and K2 (quadrant build) against
-their plain PyTorch versions, on the card.
+"""The port's CUDA kernels K1 (window cost), K2 (quadrant build) and K4
+(cross-scale window cost) against their plain PyTorch versions, on the
+card.
 
 Run on a machine with a CUDA device:
 
@@ -13,21 +14,24 @@ Tolerances: f32 volumes |kernel - plain| <= 2e-5 * max(1, |plain|) (the
 kernel keeps the plain version's rounding order, so the margin covers only
 the exp/sum-order freedom the contract allows); a bf16 volume is compared
 with the plain version on the same bf16-rounded values widened to f32, at
-the same tolerance.
+the same tolerance.  K4 is held tighter: bit-equal in f32, and bit-equal
+with bf16 census volumes (integer costs, exact in bf16).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu_torch import README_DEMO, CSPMConfig
+from crossscalepatchmatch_tpu_torch import CEN_CS_PP, README_DEMO, CSPMConfig
+from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
 from crossscalepatchmatch_tpu_torch.ops import plane_cost
 from crossscalepatchmatch_tpu_torch.ops import prescreen_volume
 from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
+from crossscalepatchmatch_tpu_torch.ops.cuda import cross_scale_cost
 from crossscalepatchmatch_tpu_torch.ops.cuda import quadrant_build
 from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost
+from crossscalepatchmatch_tpu_torch.ops.scale_weights import scale_weights
 
 pytestmark = pytest.mark.gpu
 
@@ -155,13 +159,127 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
             gamma=10.0, stride=1)
 
 
+def k4_both(imgs, vols, mcs, wgts, abc, hw, d, dtype):
+    kvols = [v.to(dtype) for v in vols]
+    got = cross_scale_cost.cross_scale_cost_cuda(
+        imgs, kvols, mcs, wgts, abc, half_wnd=hw, max_dis=d, gamma=10.0)
+    want = torch.stack([plane_cost.cross_scale_plane_cost(
+        [im[v] for im in imgs], [vo[v].float() for vo in kvols],
+        [m[v] for m in mcs], wgts, abc[v], half_wnd=hw, max_dis=d,
+        gamma=10.0) for v in range(2)])
+    return got, want
+
+
+def cen_levels(h, w, d, levels, cuda):
+    cfg = CSPMConfig(max_dis=d, dis_scale=4, cost_method=CEN_CS_PP.cost_method,
+                     use_cs=True, scale_num=levels, reg_lambda=0.3)
+    pair = make_pair(h=h, w=w, max_dis=d, seed=1)
+    vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
+                           torch.as_tensor(pair.right, device=cuda), cfg)
+    return vd, [float(x) for x in scale_weights(levels, 0.3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k4_cen_bit_equal(cuda, k, dtype):
+    """f32, and bf16 census volumes, bit-equal to the plain version; the
+    5-level pyramid of d=12 has max_dis_s 12, 6, 3, 1, 0 (D_s = 1)."""
+    h, w, d = 40, 56, 12
+    vd, wgts = cen_levels(h, w, d, 5, cuda)
+    abc = torch.as_tensor(random_planes(k, h, w, d, seed=20 + k),
+                          device=cuda)
+    got, want = k4_both(vd.imgs, vd.vols, vd.max_costs, wgts, abc, 3, d,
+                        dtype)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+
+
+def test_k4_ragged_levels(cuda):
+    """An odd-sized image: every coarse level is ceil-halved, so the last
+    row and column of a level serve a single fine row or column."""
+    h, w, d = 37, 53, 12
+    vd, wgts = cen_levels(h, w, d, 4, cuda)
+    assert [tuple(v.shape[1:3]) for v in vd.vols] == [(37, 53), (19, 27),
+                                                      (10, 14), (5, 7)]
+    abc = torch.as_tensor(random_planes(2, h, w, d, seed=31), device=cuda)
+    got, want = k4_both(vd.imgs, vd.vols, vd.max_costs, wgts, abc, 5, d,
+                        torch.float32)
+    assert torch.equal(got, want)
+
+
+def test_k4_grd_bf16(cuda):
+    """GRD volumes round in bf16; the kernel on bf16 volumes matches the
+    plain version on the same rounded values, and the f32 plain version
+    within bf16 rounding."""
+    h, w, d = 32, 48, 12
+    cfg = CSPMConfig(max_dis=d, dis_scale=4, use_cs=True, scale_num=3,
+                     reg_lambda=0.3)
+    pair = make_pair(h=h, w=w, max_dis=d, seed=2)
+    vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
+                           torch.as_tensor(pair.right, device=cuda), cfg)
+    wgts = [float(x) for x in scale_weights(3, 0.3)]
+    abc = torch.as_tensor(random_planes(1, h, w, d, seed=40, wild=False),
+                          device=cuda)
+    got, want = k4_both(vd.imgs, vd.vols, vd.max_costs, wgts, abc, 4, d,
+                        torch.bfloat16)
+    assert_close(got, want)
+    f32, _ = k4_both(vd.imgs, vd.vols, vd.max_costs, wgts, abc, 4, d,
+                     torch.float32)
+    rel = ((got - f32).abs() / f32.abs().clamp(min=1.0)).max().item()
+    assert rel <= 1e-2, rel
+
+
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    vd, wgts = cen_levels(24, 32, 12, 3, cuda)
+    abc = torch.as_tensor(random_planes(1, 24, 32, 12, seed=0), device=cuda)
+    kw = dict(half_wnd=2, max_dis=12, gamma=10.0)
+    with pytest.raises(ValueError):        # a level's depth off by one
+        cross_scale_cost.cross_scale_cost_cuda(
+            vd.imgs, vd.vols, vd.max_costs, wgts, abc, half_wnd=2,
+            max_dis=14, gamma=10.0)
+    with pytest.raises(ValueError):        # mixed volume dtypes
+        cross_scale_cost.cross_scale_cost_cuda(
+            vd.imgs, [vd.vols[0].bfloat16()] + vd.vols[1:], vd.max_costs,
+            wgts, abc, **kw)
+    with pytest.raises(ValueError):        # one weight short
+        cross_scale_cost.cross_scale_cost_cuda(
+            vd.imgs, vd.vols, vd.max_costs, wgts[:2], abc, **kw)
+    with pytest.raises(ValueError):        # nine levels
+        cross_scale_cost.cross_scale_cost_cuda(
+            vd.imgs * 3, vd.vols * 3, vd.max_costs * 3, wgts * 3, abc, **kw)
+
+
+def reset_counts():
+    window_cost.launches = quadrant_build.launches = 0
+    cross_scale_cost.launches = 0
+    plane_cost.launches = prescreen_volume.launches = 0
+    plane_cost.cross_scale_launches = 0
+
+
 def test_pipeline_runs_through_the_kernels(cuda):
     pair = make_pair(h=48, w=64, max_dis=12, seed=3)
     cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11)
-    window_cost.launches = quadrant_build.launches = 0
-    plane_cost.launches = prescreen_volume.launches = 0
+    reset_counts()
     out = run_pair(pair.left, pair.right, 0, cfg, device=cuda)
     torch.cuda.synchronize()
     assert out["dis"].shape == (2, 48, 64)
     assert window_cost.launches == 10 and quadrant_build.launches == 1
     assert plane_cost.launches == 0 and prescreen_volume.launches == 0
+
+
+def test_cross_scale_pipeline_runs_through_the_kernels(cuda):
+    """CEN + CS + PP on the default device: every exact evaluation is one
+    K4 launch, the ranking one K2 build, no plain version."""
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11,
+                     cost_method=CEN_CS_PP.cost_method, use_cs=True,
+                     use_pp=True, reg_lambda=0.3, scale_num=3)
+    reset_counts()
+    out = run_pair(pair.left, pair.right, 0, cfg)
+    torch.cuda.synchronize()
+    assert out["dis"].device.type == "cuda"
+    assert out["dis"].shape == (2, 48, 64) and out["valid"].dtype == torch.bool
+    assert cross_scale_cost.launches == 10 and quadrant_build.launches == 1
+    assert window_cost.launches == 0
+    assert (plane_cost.launches, plane_cost.cross_scale_launches,
+            prescreen_volume.launches) == (0, 0, 0)

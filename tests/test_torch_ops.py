@@ -8,8 +8,9 @@ its reason:
     differ between XLA:CPU and PyTorch);
   * plane algebra on the same draws: rtol 1e-6 / atol 1e-5 (divisions by
     max(|nz|, eps) amplify last-ulp differences);
-  * window cost, quadrant build and quadrant ranking:
-    |d| <= 2e-5 * max(1, |ref|) (exp and the summation order differ).
+  * window cost, cross-scale window cost, quadrant build and quadrant
+    ranking: |d| <= 2e-5 * max(1, |ref|) (exp and the summation order
+    differ).
 """
 
 import jax
@@ -18,8 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from crossscalepatchmatch_tpu import CSPMConfig
-from crossscalepatchmatch_tpu.data import make_pair
 from crossscalepatchmatch_tpu.ops import color as jcolor
 from crossscalepatchmatch_tpu.ops import cost_volume as jcv
 from crossscalepatchmatch_tpu.ops import gradient as jgrad
@@ -27,11 +26,15 @@ from crossscalepatchmatch_tpu.ops import grad_cost as jgc
 from crossscalepatchmatch_tpu.ops import plane as jplane
 from crossscalepatchmatch_tpu.ops import plane_cost as jpc
 from crossscalepatchmatch_tpu.ops import prescreen_volume as jpv
+from crossscalepatchmatch_tpu.ops import scale_weights as jsw
+from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.ops import color, cost_volume, gradient
 from crossscalepatchmatch_tpu_torch.ops import grad_cost, plane, plane_cost
 from crossscalepatchmatch_tpu_torch.ops import prescreen_volume
+from crossscalepatchmatch_tpu_torch.ops.cuda import cross_scale_cost
 from crossscalepatchmatch_tpu_torch.ops.cuda import quadrant_build
 from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost
+from jax_draws import config_pair
 
 # One intra-op thread: the suite runs several pytest-xdist workers on
 # a few cores, and per-worker OpenMP pools oversubscribe them (a 3-worker
@@ -92,10 +95,10 @@ def test_grd_cost_volume(right):
 
 def test_build_volume_data():
     pair = make_pair(**SMALL)
-    cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11)
+    jcfg, cfg = config_pair(max_dis=12, dis_scale=16, wnd_size=11)
     got = cost_volume.build_volume_data(t(pair.left), t(pair.right), cfg)
     want = jcv.build_volume_data(jnp.asarray(pair.left),
-                                 jnp.asarray(pair.right), cfg)
+                                 jnp.asarray(pair.right), jcfg)
     assert len(got.vols) == 1 and got.weight_imgs is got.imgs
     np.testing.assert_array_equal(got.imgs[0].numpy(),
                                   np.asarray(want.imgs[0]))
@@ -223,6 +226,64 @@ def test_stride_start():
     assert plane_cost.stride_start(17, 2) == jpc.stride_start(17, 2) == -17
 
 
+# -- cross-scale window cost (the plain version of K4) -----------------------
+
+def random_pyramid(h, w, max_dis, levels, seed):
+    """Per-level random u8 images, f32 volumes with (max_dis >> s) + 1
+    slices and their maxima, at the ceil-halved level shapes."""
+    rng = np.random.default_rng(seed)
+    imgs, vols, mcs = [], [], []
+    for s in range(levels):
+        hs, ws = ((h - 1) >> s) + 1, ((w - 1) >> s) + 1
+        imgs.append(rng.integers(0, 256, (hs, ws, 3), dtype=np.uint8))
+        vols.append(rng.uniform(0, 1, (hs, ws, (max_dis >> s) + 1))
+                    .astype(np.float32))
+        mcs.append(vols[-1].max())
+    return imgs, vols, mcs
+
+
+def cross_scale_planes(k, h, w, d, seed):
+    """Slanted candidates over the whole disparity range plus wild
+    near-zero-nz planes (|dq| far beyond int32) on a tenth of the pixels."""
+    rng = np.random.default_rng(seed)
+    ab = rng.uniform(-1, 1, (k, h, w, 2)).astype(np.float32)
+    wild = rng.uniform(size=(k, h, w)) < 0.1
+    ab[wild] *= np.float32(1e8)
+    return planes_from(ab, rng.uniform(-1, d + 1, (k, h, w))
+                       .astype(np.float32))
+
+
+@pytest.mark.parametrize("k,h,w,max_dis,levels,lam", [
+    (1, 21, 27, 12, 5, 0.3),    # 12 6 3 1 0: max_dis_s <= 1 and D_s = 1
+    (2, 24, 32, 6, 3, 0.3),     # 6 3 1
+    (2, 17, 19, 12, 3, 0.0),    # weights (1, 0, 0)
+])
+def test_cross_scale_plane_cost(k, h, w, max_dis, levels, lam):
+    hw = 3
+    imgs, vols, mcs = random_pyramid(h, w, max_dis, levels, seed=h)
+    wgts = jsw.scale_weights(levels, lam)
+    abc = cross_scale_planes(k, h, w, max_dis, seed=w)
+    got = plane_cost.cross_scale_plane_cost(
+        [t(x) for x in imgs], [t(x) for x in vols],
+        [torch.tensor(x) for x in mcs], wgts, t(abc), half_wnd=hw,
+        max_dis=max_dis, gamma=10.0)
+    want = jpc.cross_scale_plane_cost(
+        [jnp.asarray(x) for x in imgs], [jnp.asarray(x) for x in vols],
+        [jnp.float32(x) for x in mcs], wgts, jnp.asarray(abc), half_wnd=hw,
+        max_dis=max_dis, gamma=10.0)
+    assert got.shape == (k, h, w)
+    assert_rel(got.numpy(), want)
+
+
+def test_level_plane_cost_at_scale_zero_is_the_window_cost():
+    img, vol, mc = random_scene(16, 20, 6, seed=4)
+    abc = cross_scale_planes(2, 16, 20, 6, seed=5)
+    args = (t(img), t(vol), torch.tensor(mc), t(abc))
+    kw = dict(half_wnd=2, max_dis=6, gamma=10.0)
+    assert torch.equal(plane_cost.level_plane_cost(*args, scale=0, **kw),
+                       plane_cost.window_plane_cost(*args, **kw))
+
+
 # -- quadrant volumes (the plain version of K2) and the ranking cost ------------
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -280,6 +341,15 @@ def test_cpu_tensor_reaches_the_plain_versions():
     assert bq.shape == (2, 4, 12, 16, 7) and wq.shape == (2, 4, 12, 16)
     assert prescreen_volume.launches == k2_plain + 2
     assert quadrant_build.launches == k2_kernel
+    k4_kernel, k4_plain = (cross_scale_cost.launches,
+                           plane_cost.cross_scale_launches)
+    out = cross_scale_cost.cross_scale_cost(
+        [imgs, imgs[:, ::2, ::2].contiguous()],
+        [vols, vols[:, ::2, ::2, :4].contiguous()], [mcs, mcs], [0.7, 0.3],
+        abc, half_wnd=2, max_dis=6, gamma=10.0)
+    assert out.shape == (2, 1, 12, 16)
+    assert plane_cost.cross_scale_launches == k4_plain + 2
+    assert cross_scale_cost.launches == k4_kernel
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
@@ -289,11 +359,17 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     imgs = torch.empty((2, 8, 8, 3), dtype=torch.uint8, **meta)
     vols = torch.empty((2, 8, 8, 5), **meta)
     abc = torch.empty((2, 1, 8, 8, 3), **meta)
-    before = plane_cost.launches, prescreen_volume.launches
+    before = (plane_cost.launches, prescreen_volume.launches,
+              plane_cost.cross_scale_launches)
     with pytest.raises(ValueError):
         window_cost.window_cost(imgs, vols, torch.empty(2, **meta), abc,
                                 half_wnd=1, max_dis=4, gamma=10.0)
     with pytest.raises(ValueError):
         quadrant_build.quadrant_volumes(imgs, vols, half_wnd=1, gamma=10.0,
                                         stride=1)
-    assert (plane_cost.launches, prescreen_volume.launches) == before
+    with pytest.raises(ValueError):
+        cross_scale_cost.cross_scale_cost(
+            [imgs], [vols], [torch.empty(2, **meta)], [1.0], abc,
+            half_wnd=1, max_dis=4, gamma=10.0)
+    assert (plane_cost.launches, prescreen_volume.launches,
+            plane_cost.cross_scale_launches) == before

@@ -12,22 +12,23 @@ Tolerances, each with its reason:
   * plane_to_disp u8: exact;  adoption on crafted ties: exact.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from crossscalepatchmatch_tpu import Aggregator, CostMethod, CSPMConfig
-from crossscalepatchmatch_tpu.data import make_pair
 from crossscalepatchmatch_tpu.models import patchmatch as jpm
 from crossscalepatchmatch_tpu.ops.cost_volume import (
     build_volume_data as j_build_volume_data)
 from crossscalepatchmatch_tpu_torch import interop
+from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
 from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
 from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
-from jax_draws import JaxDraws
+from jax_draws import JaxDraws, config_pair
 
 # One intra-op thread: the suite runs several pytest-xdist workers on
 # a few cores, and per-worker OpenMP pools oversubscribe them (a 3-worker
@@ -38,32 +39,38 @@ SMALL = dict(h=48, w=64, max_dis=12, seed=3)
 HW = (48, 64)
 
 
-def small_cfg(**kw):
-    base = dict(max_dis=12, dis_scale=16, wnd_size=11,
-                cost_method=CostMethod.GRD, use_cs=False, use_pp=False)
+def small_cfgs(**kw):
+    """(JAX config, port config) of the small scene."""
+    base = dict(max_dis=12, dis_scale=16, wnd_size=11, cost_method="GRD",
+                use_cs=False, use_pp=False)
     base.update(kw)
-    return CSPMConfig(**base)
+    return config_pair(**base)
+
+
+def small_cfg(**kw):
+    """The port's config of the small scene."""
+    return small_cfgs(**kw)[1]
 
 
 @pytest.fixture(scope="module")
 def scene():
     """JAX volumes of the small scene, the same volumes in the port, and a
     partly converged JAX state (one rank iteration from random init)."""
-    cfg = small_cfg()
+    jcfg, cfg = small_cfgs()
     pair = make_pair(**SMALL)
     jvd = j_build_volume_data(jnp.asarray(pair.left),
-                              jnp.asarray(pair.right), cfg)
+                              jnp.asarray(pair.right), jcfg)
     tvd = interop.volume_data_from_numpy(jvd.imgs, jvd.vols, jvd.max_costs,
                                          device="cpu")
-    jcost, jsparse = jpm.make_cost_fns(cfg, jvd)
+    jcost, jsparse = jpm.make_cost_fns(jcfg, jvd)
     key = jax.random.PRNGKey(7)
     k_init, _ = jax.random.split(key)
-    st = jpm.init_state(k_init, HW, jsparse, cfg)
-    st = jpm.iteration_step(st, jpm.iteration_keys(key, cfg)[0], jsparse,
-                            cfg)
+    st = jpm.init_state(k_init, HW, jsparse, jcfg)
+    st = jpm.iteration_step(st, jpm.iteration_keys(key, jcfg)[0], jsparse,
+                            jcfg)
     st = jpm.PMState(abc=st.abc, cost=jcost(st.abc[:, None])[:, 0])
-    return dict(cfg=cfg, pair=pair, jvd=jvd, tvd=tvd, jcost=jcost,
-                jsparse=jsparse, jstate=st)
+    return dict(cfg=cfg, jcfg=jcfg, pair=pair, jvd=jvd, tvd=tvd,
+                jcost=jcost, jsparse=jsparse, jstate=st)
 
 
 def to_port(st):
@@ -108,6 +115,35 @@ def test_cost_and_sparse_fns(scene):
                             scene["tvd"])[1] is None
 
 
+@pytest.mark.parametrize("mode", ["volume", "window"])
+def test_cross_scale_cost_fns(mode):
+    """The cross-scale branch: the exact evaluator is the scale-weighted
+    pyramid cost; the volume prescreen ranks on the fine level, the window
+    prescreen is absent on cross-scale runs (as in the JAX engine)."""
+    jcfg, cfg = small_cfgs(cost_method="CEN", use_cs=True, scale_num=3,
+                           wnd_size=7, reg_lambda=0.3, prescreen_mode=mode)
+    pair = make_pair(h=24, w=32, max_dis=12, seed=4)
+    # census volumes are integers: the jitted build (one XLA compile
+    # instead of one per eager op) is the same
+    jvd = jax.jit(functools.partial(j_build_volume_data, cfg=jcfg))(
+        jnp.asarray(pair.left), jnp.asarray(pair.right))
+    tvd = interop.volume_data_from_numpy(jvd.imgs, jvd.vols, jvd.max_costs,
+                                         device="cpu")
+    jcost, jsparse = jpm.make_cost_fns(jcfg, jvd)
+    cost_fn, sparse_fn = pm.make_cost_fns(cfg, tvd)
+    rng = np.random.default_rng(8)
+    abc = np.concatenate([rng.uniform(-0.2, 0.2, (2, 2, 24, 32, 2)),
+                          rng.uniform(-2, 14, (2, 2, 24, 32, 1))],
+                         -1).astype(np.float32)
+    assert_rel(cost_fn(torch.from_numpy(abc)).numpy(),
+               jcost(jnp.asarray(abc)))
+    if mode == "volume":
+        assert_rel(sparse_fn(torch.from_numpy(abc)).numpy(),
+                   jsparse(jnp.asarray(abc)))
+    else:
+        assert sparse_fn is None and jsparse is None
+
+
 def test_adopt_strict_and_first_index_on_ties():
     rng = np.random.default_rng(1)
     abc = rng.normal(size=(2, 3, 4, 5, 3)).astype(np.float32)
@@ -124,20 +160,20 @@ def test_adopt_strict_and_first_index_on_ties():
 
 
 def test_stencil():
-    for cfg in (small_cfg(), small_cfg(far_offsets=())):
+    for jcfg, cfg in (small_cfgs(), small_cfgs(far_offsets=())):
         for sweep in range(3):
-            assert pm._stencil(cfg, sweep) == jpm._stencil(cfg, sweep)
+            assert pm._stencil(cfg, sweep) == jpm._stencil(jcfg, sweep)
 
 
 @pytest.mark.parametrize("include_current,extra", [(False, False),
                                                    (True, True)])
 def test_spatial_sweep(scene, include_current, extra):
-    cfg, jst = scene["cfg"], scene["jstate"]
+    cfg, jcfg, jst = scene["cfg"], scene["jcfg"], scene["jstate"]
     if include_current:
         jst = jpm.PMState(abc=jst.abc, cost=jnp.full_like(jst.cost, jnp.inf))
     cost_fn, sparse_fn = pm.make_cost_fns(cfg, scene["tvd"])
-    jex = jpm.view_candidates(jst, cfg) if extra else None
-    want = jpm.spatial_sweep(jst, scene["jcost"], cfg, sweep=1,
+    jex = jpm.view_candidates(jst, jcfg) if extra else None
+    want = jpm.spatial_sweep(jst, scene["jcost"], jcfg, sweep=1,
                              sparse_fn=scene["jsparse"], extra=jex,
                              include_current=include_current)
     st = to_port(jst)
@@ -148,47 +184,48 @@ def test_spatial_sweep(scene, include_current, extra):
 
 
 def test_view_candidates_and_propagation(scene):
-    cfg, jst = scene["cfg"], scene["jstate"]
+    cfg, jcfg, jst = scene["cfg"], scene["jcfg"], scene["jstate"]
     st = to_port(jst)
     np.testing.assert_allclose(pm.view_candidates(st, cfg).numpy(),
-                               np.asarray(jpm.view_candidates(jst, cfg)),
+                               np.asarray(jpm.view_candidates(jst, jcfg)),
                                rtol=1e-6, atol=1e-5)
     cost_fn, _ = pm.make_cost_fns(cfg, scene["tvd"])
     same_planes(pm.view_propagation(st, cost_fn, cfg),
-                jpm.view_propagation(jst, scene["jcost"], cfg))
+                jpm.view_propagation(jst, scene["jcost"], jcfg))
 
 
 @pytest.mark.parametrize("batch", [True, False])
 def test_plane_refinement(scene, batch):
-    cfg = small_cfg(batch_refine=batch)
+    jcfg, cfg = small_cfgs(batch_refine=batch)
     jst = scene["jstate"]
     cost_fn, sparse_fn = pm.make_cost_fns(cfg, scene["tvd"])
-    jcost, jsparse = jpm.make_cost_fns(cfg, scene["jvd"])
-    key = jpm.iteration_keys(jax.random.PRNGKey(2), cfg)[1]
-    want = jpm.plane_refinement(jst, key, jcost, cfg, sparse_fn=jsparse)
-    got = pm.plane_refinement(to_port(jst), JaxDraws(2, cfg), 1, cost_fn,
+    jcost, jsparse = jpm.make_cost_fns(jcfg, scene["jvd"])
+    key = jpm.iteration_keys(jax.random.PRNGKey(2), jcfg)[1]
+    want = jpm.plane_refinement(jst, key, jcost, jcfg, sparse_fn=jsparse)
+    got = pm.plane_refinement(to_port(jst), JaxDraws(2, jcfg), 1, cost_fn,
                               cfg, sparse_fn=sparse_fn)
     same_planes(got, want)
 
 
 def test_iteration_step(scene):
-    cfg, jst = scene["cfg"], scene["jstate"]
+    cfg, jcfg, jst = scene["cfg"], scene["jcfg"], scene["jstate"]
     cost_fn, sparse_fn = pm.make_cost_fns(cfg, scene["tvd"])
-    key = jpm.iteration_keys(jax.random.PRNGKey(3), cfg)[2]
-    want = jpm.iteration_step(jst, key, scene["jcost"], cfg,
+    key = jpm.iteration_keys(jax.random.PRNGKey(3), jcfg)[2]
+    want = jpm.iteration_step(jst, key, scene["jcost"], jcfg,
                               scene["jsparse"])
-    got = pm.iteration_step(to_port(jst), JaxDraws(3, cfg), 2, cost_fn, cfg,
+    got = pm.iteration_step(to_port(jst), JaxDraws(3, jcfg), 2, cost_fn, cfg,
                             sparse_fn)
     same_planes(got, want)
 
 
 @pytest.mark.parametrize("defer", [False, True])
 def test_init_state(scene, defer):
-    cfg = scene["cfg"]
+    cfg, jcfg = scene["cfg"], scene["jcfg"]
     cost_fn, _ = pm.make_cost_fns(cfg, scene["tvd"])
     k_init, _ = jax.random.split(jax.random.PRNGKey(4))
-    want = jpm.init_state(k_init, HW, None if defer else scene["jcost"], cfg)
-    got = pm.init_state(JaxDraws(4, cfg), HW, None if defer else cost_fn,
+    want = jpm.init_state(k_init, HW, None if defer else scene["jcost"],
+                          jcfg)
+    got = pm.init_state(JaxDraws(4, jcfg), HW, None if defer else cost_fn,
                         cfg, device="cpu")
     np.testing.assert_allclose(got.abc.numpy(), np.asarray(want.abc),
                                rtol=1e-6, atol=1e-5)
@@ -261,9 +298,9 @@ def test_torch_draws_deterministic():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cost_method=CostMethod.CEN), dict(use_cs=True),
-    dict(use_pp=True), dict(precompute_volume=False),
-    dict(use_lab_weights=True), dict(aggregator=Aggregator.BOX),
+    dict(aggregator="GF"), dict(aggregator="BF"),
+    dict(use_cs=True, precompute_volume=False), dict(precompute_volume=False),
+    dict(use_lab_weights=True), dict(aggregator="BOX"),
     dict(prescreen_mode="window", adopt_mode="exact")])
 def test_unsupported_configs_raise(scene, kw):
     cfg = small_cfg(**kw)

@@ -5,9 +5,11 @@ Tolerances: run_pair_np(device="cpu") fed the JAX engine's own draws
 (JaxDraws) must give u8 disparity maps within 1 level of JAX run_pair_np on
 >= 98 % of each view's pixels, and a bad-pixel(nonocc) @1px within 0.005
 of the JAX engine's -- the window costs agree to ~1e-6 relative, so only
-near-tie adoptions may differ and the trajectories stay together.
+near-tie adoptions (and, with post-processing, the weighted median's
+exp-ulp ties) may differ and the trajectories stay together.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -17,14 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from crossscalepatchmatch_tpu import CostMethod, CSPMConfig
-from crossscalepatchmatch_tpu.data import make_pair
-from crossscalepatchmatch_tpu.metrics import bad_pixel_rate
 from crossscalepatchmatch_tpu.models.pipeline import run_pair_np as j_run
+from crossscalepatchmatch_tpu_torch.data import make_pair
+from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
 from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                             run_pair_np,
                                                             run_pairs)
-from jax_draws import JaxDraws
+from jax_draws import JaxDraws, config_pair
 
 # One intra-op thread: the suite runs several pytest-xdist workers on
 # a few cores, and per-worker OpenMP pools oversubscribe them (a 3-worker
@@ -35,11 +36,17 @@ SMALL = dict(h=48, w=64, max_dis=12, seed=3)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def small_cfg(**kw):
-    base = dict(max_dis=12, dis_scale=16, wnd_size=11,
-                cost_method=CostMethod.GRD, use_cs=False, use_pp=False)
+def small_cfgs(**kw):
+    """(JAX config, port config) of the small scene."""
+    base = dict(max_dis=12, dis_scale=16, wnd_size=11, cost_method="GRD",
+                use_cs=False, use_pp=False)
     base.update(kw)
-    return CSPMConfig(**base)
+    return config_pair(**base)
+
+
+def small_cfg(**kw):
+    """The port's config of the small scene."""
+    return small_cfgs(**kw)[1]
 
 
 def bad_rates(dis, pair, scale):
@@ -53,13 +60,17 @@ def bad_rates(dis, pair, scale):
     dict(adopt_mode="exact"),
     dict(adopt_mode="rank"),
     dict(batch_refine=False, adopt_mode="exact", prescreen_stride=1),
+    # the census + cross-scale + post-processing slice (CEN_CS_PP, small)
+    dict(cost_method="CEN", use_cs=True, use_pp=True, reg_lambda=0.3,
+         scale_num=3),
+    dict(cost_method="CEN", use_pp=True),
 ])
 def test_run_pair_matches_jax(kw):
-    cfg = small_cfg(**kw)
+    jcfg, cfg = small_cfgs(**kw)
     pair = make_pair(**SMALL)
-    want = j_run(pair.left, pair.right, cfg, seed=0)
+    want = j_run(pair.left, pair.right, jcfg, seed=0)
     got = run_pair_np(pair.left, pair.right, cfg, seed=0, device="cpu",
-                      draws=JaxDraws(0, cfg))
+                      draws=JaxDraws(0, jcfg))
     assert got["dis"].dtype == np.uint8 and got["dis"].shape == (2, 48, 64)
     for v in range(2):
         d = np.abs(got["dis"][v].astype(int) - want["dis"][v].astype(int))
@@ -67,6 +78,8 @@ def test_run_pair_matches_jax(kw):
     for b_got, b_want in zip(bad_rates(got["dis"], pair, cfg.dis_scale),
                              bad_rates(want["dis"], pair, cfg.dis_scale)):
         assert abs(b_got - b_want) <= 0.005
+    if cfg.use_pp:
+        assert (got["valid"] == want["valid"]).mean() >= 0.98
 
 
 def test_run_pair_deterministic_and_converges():
@@ -94,7 +107,10 @@ def test_run_pairs_is_a_loop_over_run_pair():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke, import without jax."""
+    """Every module of the port, and chip_smoke, import without jax and
+    without any module of the JAX package; no source of the port, nor
+    chip_smoke.py, names the JAX package in an import statement (imports
+    inside chip_smoke.main() never run here)."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import crossscalepatchmatch_tpu_torch as p\n"
@@ -102,11 +118,34 @@ def test_port_imports_no_jax():
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "ref = [k for k in sys.modules if k == 'crossscalepatchmatch_tpu' "
+        "or k.startswith('crossscalepatchmatch_tpu.')]\n"
         "print(json.dumps([len(names), 'jax' in sys.modules, "
-        "any(k.startswith('jax') for k in sys.modules)]))\n")
+        "any(k.startswith('jax') for k in sys.modules), ref]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    n, has_jax, has_any = json.loads(res.stdout.strip().splitlines()[-1])
-    assert n >= 15 and not has_jax and not has_any
+    n, has_jax, has_any, ref = json.loads(
+        res.stdout.strip().splitlines()[-1])
+    assert n >= 20 and not has_jax and not has_any and ref == []
+
+    pkg = os.path.join(REPO, "crossscalepatchmatch_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) >= 20
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [(path, m) for m in mods
+                    if m.split(".")[0] in ("jax", "crossscalepatchmatch_tpu")]
+    assert bad == []

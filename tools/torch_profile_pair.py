@@ -1,13 +1,15 @@
 """Where one run_pair of the PyTorch port spends its time on a CUDA card.
 
-    python tools/torch_profile_pair.py [--h 375 --w 450 --max-dis 60]
+    python tools/torch_profile_pair.py [--config README_DEMO|CEN_CS_PP]
+                                       [--h 375 --w 450 --max-dis 60]
 
-Runs the port's README-demo main path once to warm up, then once under
-torch.profiler (CPU + CUDA activities), and prints: the wall time of the
-profiled pair, the summed device time, the device's idle share over the
-pair (1 - busy/wall, busy being the union of kernel intervals), the device
-time per top-level phase (record_function ranges, with a
-synchronise at each phase end), and the top CUDA
+Runs the port's main path at the named config once to warm up, then once
+under torch.profiler (CPU + CUDA activities), and prints: the wall time of
+the profiled pair, the summed device time, the device's idle share over the
+pair (1 - busy/wall, busy being the union of kernel intervals), the host
+time, device time and launches per top-level phase (record_function
+ranges, with a synchronise at each phase end; `postprocess` when the config
+post-processes), and the top CUDA
 kernels by device time.  Writes the Chrome trace to
 chiprun_out/torch_profile_pair.json.gz.  Needs a CUDA device.
 """
@@ -41,19 +43,22 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from crossscalepatchmatch_tpu.data import make_pair
-    from crossscalepatchmatch_tpu_torch import README_DEMO
+    from crossscalepatchmatch_tpu_torch import config
+    from crossscalepatchmatch_tpu_torch.data import make_pair
     from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
     from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
+    from crossscalepatchmatch_tpu_torch.models.postprocess import postprocess
     from crossscalepatchmatch_tpu_torch.ops import cost_volume
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=("README_DEMO", "CEN_CS_PP"),
+                    default="README_DEMO")
     ap.add_argument("--h", type=int, default=375)
     ap.add_argument("--w", type=int, default=450)
     ap.add_argument("--max-dis", type=int, default=60)
     args = ap.parse_args()
-    cfg = README_DEMO
+    cfg = getattr(config, args.config)
     dev = torch.device("cuda:0")
     pair = make_pair(h=args.h, w=args.w, max_dis=args.max_dis, seed=0)
     l = torch.as_tensor(pair.left, device=dev)
@@ -95,8 +100,11 @@ def main() -> int:
 
         st = phase("rank_phase", rank)
         st = phase("exact_phase", lambda: exact(st))
-        phase("plane_to_disp", lambda: pm.plane_to_disp(st.abc,
-                                                        cfg.dis_scale))
+        dis = phase("plane_to_disp", lambda: pm.plane_to_disp(st.abc,
+                                                              cfg.dis_scale))
+        if cfg.use_pp:
+            phase("postprocess",
+                  lambda: postprocess(dis, st.abc, vd.imgs[0], cfg))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -106,7 +114,7 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     names = ("volume_build", "quadrant_build_K2", "rank_phase",
-             "exact_phase", "plane_to_disp")
+             "exact_phase", "plane_to_disp", "postprocess")
     events = prof.events()
     # the phase ranges also appear on the device timeline as annotations;
     # they are not kernels
