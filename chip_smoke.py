@@ -10,31 +10,48 @@ Phases, each fatal on failure:
   3. K1, the window cost: kernel vs its plain PyTorch version on the card
      at the bench shape (375x450, max_dis=60, wnd=35, GRD) for K=1 and K=2
      candidates (converged-like, random and wild near-zero-nz planes), f32
-     and bf16 volumes; errors and CUDA-event times in turns;
-  4. K2, the quadrant-volume build: the same;
+     and bf16 volumes; K3's volume form (stride 2, K=8) the same;
+  4. K2, the quadrant-volume build: the same at the bench shape; K2 and K1
+     (K=1) again on the KITTI scene's 129 slices (375x1242, max_dis=128);
   5. K4, the cross-scale window cost: the same on the 5-level census
      pyramid of the bench scene (CEN_CS_PP); f32 within 2e-5 relative, and
      bf16 census volumes (integers, exact in bf16) bit-equal;
-  6. each kernel's bound: the larger of its bytes over the HBM rate and its
-     f32 operations, counted on this run's inputs, over the f32 peak;
+  6. the no-volume fly kernel on the bench scene: K5 (cost lerp) at K=1
+     and K=2, K3's fly form (stride 2, K=8), K6 (image lerp), K7 (Lab
+     weights) and the 5-level cross-scale fly at K=1; on the KITTI scene
+     (max_dis=128, the wider staged span) K5 at K=1 and K3's fly form;
+     each within 2e-5 relative of its plain version;
+  each kernel's bound: the larger of its bytes over the HBM rate and its
+  f32 operations, counted on this run's inputs, over the f32 peak; every
+  plain version is timed on its one comparison call, the kernels with
+  CUDA events in turns after a warm-up;
   7. the main paths, each with every launch counter reset just before and
-     read just after: run_pair at README_DEMO and at CEN_CS_PP on the bench
-     scene for seeds 0, 1, 2 and 0 again; the path's kernels must have
-     launched and no plain version; bad-pixel(nonocc) @1px <= 0.01 per seed
-     (left view); seed 0 bit-identical on rerun; ms/pair and peak device
-     memory; for CEN_CS_PP also the time and launch count of postprocess;
+     read just after: run_pair at README_DEMO, CEN_CS_PP and README_DEMO
+     without a volume (precompute_volume=False) on the bench scene for
+     seeds 0, 1, 2 and 0 again (bad-pixel(nonocc) @1px <= 0.01 per seed,
+     left view), KITTI without a volume on a 375x1242 max_dis=128 scene for
+     seeds 0 and 0 again (@3px <= 0.01, @1px printed) and KITTI with its
+     volumes for seed 0 (the K2 repair, and the memory comparison); the
+     path's kernels must have launched and no plain version; seed 0
+     bit-identical on rerun; ms/pair and peak device memory; for CEN_CS_PP
+     also the time and launch count of postprocess;
   8. small pairs run on the card and on the CPU (plain versions) from the
-     same draws must agree (README_DEMO-like and CEN_CS_PP-like).
+     same draws must agree (README_DEMO-like, CEN_CS_PP-like, the volume
+     path's window prescreen, and without a volume: cost lerp, image lerp
+     + cross-scale, Lab weights); each is a path of its own for the
+     launch counters.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 
 SHAPE = dict(h=375, w=450, max_dis=60)
+KITTI_SHAPE = dict(h=375, w=1242, max_dis=128)
 F32_REL_TOL = 2e-5          # |kernel - plain| <= tol * max(1, |plain|)
 BAD_PIXEL_MAX = 0.01
 SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level, card vs CPU
@@ -48,6 +65,13 @@ F32_FLOP_PER_S = 67e12
 # in-range one
 FLOPS_IN_IMAGE = 5
 FLOPS_IN_RANGE = 5
+# the fly kernel's in-range sample: K5 adds to the lerp two GRD slice costs
+# (the colour sum's multiply by 1/3, |grad diff| (a subtract and an abs),
+# two mins, two multiplies, an add: 8 each); K6 instead the warp (other_x,
+# fw, 1-fw), four channel lerps (3 each), three |q - lerp| (2 each), their
+# two adds and 1/3, |grad diff| (2) and the mix (5)
+FLY_FLOPS_IN_RANGE = {"cost": FLOPS_IN_RANGE + 16, "image": 3 + 12 + 6 + 3
+                      + 2 + 5}
 
 
 def rel_err(got, want):
@@ -80,19 +104,36 @@ def time_turns(fns, reps):
     return {n: sum(v) / len(v) for n, v in acc.items()}
 
 
-def test_planes(imgs0, pair, k, gen, device):
-    """f32[2, K, H, W, 3]: candidate 0 converged-like (ground truth plus
-    jitter, small slopes), candidate 1 random init planes; ~0.1% of the
-    pixels of the last candidate get a wild near-zero-nz plane."""
+def timed_once(fn):
+    """(fn(), ms): one call between CUDA events (a plain version's time is
+    its comparison call; plain versions cost most of the run)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def test_planes(pair, max_dis, k, gen, device):
+    """f32[2, K, H, W, 3] on the scene `pair`: candidate 0 converged-like
+    (ground truth plus jitter, small slopes), the others random init planes
+    over [0, max_dis); ~0.1% of the pixels of the last candidate get a wild
+    near-zero-nz plane."""
     import numpy as np
     import torch
 
     from crossscalepatchmatch_tpu_torch.ops import plane
 
-    _, h, w, _ = imgs0.shape
+    h, w = pair.disp_left.shape
     xs, ys = plane.pixel_grid(h, w, device)
     gt = torch.as_tensor(np.stack([pair.disp_left, pair.disp_right]),
                          device=device)
+    md = float(max_dis)
 
     def u(*shape, lo=-1.0, hi=1.0):
         return lo + (hi - lo) * torch.rand(shape, generator=gen,
@@ -100,26 +141,35 @@ def test_planes(imgs0, pair, k, gen, device):
 
     ab = u(2, h, w, 2, lo=-0.05, hi=0.05)
     dc = gt + u(2, h, w, lo=-0.5, hi=0.5)
-    conv = plane.reanchor(ab, xs, ys, dc)
-    rand = plane.random_planes(u(2, h, w, lo=1e-8, hi=60.0),
-                               torch.randn((2, h, w, 3), generator=gen,
-                                           device=device))
-    cands = [conv, rand][:k]
+    cands = [plane.reanchor(ab, xs, ys, dc)]
+    for _ in range(k - 1):
+        cands.append(plane.random_planes(
+            u(2, h, w, lo=1e-8, hi=md),
+            torch.randn((2, h, w, 3), generator=gen, device=device)))
     wild_n = torch.cat([u(2, h, w, 2), torch.full((2, h, w, 1), 1e-9,
                                                    device=device)], -1)
-    wild = plane.random_planes(u(2, h, w, lo=1e-8, hi=60.0), wild_n)
+    wild = plane.random_planes(u(2, h, w, lo=1e-8, hi=md), wild_n)
     pick = torch.rand((2, h, w), generator=gen, device=device) < 1e-3
     cands[-1] = torch.where(pick[..., None], wild, cands[-1])
     return torch.stack(cands, dim=1).contiguous()
 
 
-def window_samples(abc, level_hw, half_wnd, max_dis):
-    """(in-image, in-range) window samples of K1 / K4 on these planes:
-    per level s (level_hw[s] = (Hs, Ws), max_dis >> s), every fine pixel's
-    (2*half_wnd+1)^2 level-s window; in range means 1 <= dq < max_dis_s."""
+def axis_count(n, hw, stride, s):
+    """sum over the n fine positions of the in-level offsets of
+    range(-hw, hw + 1, stride) around (p >> s), level size ceil(n / 2^s)."""
+    ns = ((n - 1) >> s) + 1
+    return sum(sum(0 <= (p >> s) + o < ns
+                   for o in range(-hw, hw + 1, stride)) for p in range(n))
+
+
+def window_samples(abc, levels, half_wnd, max_dis, stride=1):
+    """(in-image, in-range) window samples of K1 / K3 / K4 / K5 on these
+    planes: per level s (`levels` of them, max_dis >> s), every fine
+    pixel's level-s window at the stride; in range means
+    1 <= dq < max_dis_s."""
     import torch
 
-    _, _, h, w, _ = abc.shape
+    nv, k, h, w, _ = abc.shape
     dev = abc.device
     ys = torch.arange(h, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
@@ -127,20 +177,18 @@ def window_samples(abc, level_hw, half_wnd, max_dis):
     d0 = a * xs.float() + b * ys.float() + abc[..., 2]
     n_img, n_rng = 0, torch.zeros((), dtype=torch.int64, device=dev)
     md = max_dis
-    for s, (hs, ws) in enumerate(level_hw):
+    for s in range(levels):
+        hs, ws = ((h - 1) >> s) + 1, ((w - 1) >> s) + 1
         cy, cx = ys >> s, xs >> s
         d_f = d0 * (1.0 / (1 << s))
-        for dy in range(-half_wnd, half_wnd + 1):
+        for dy in range(-half_wnd, half_wnd + 1, stride):
             y_ok = (cy + dy >= 0) & (cy + dy < hs)
-            for dx in range(-half_wnd, half_wnd + 1):
+            for dx in range(-half_wnd, half_wnd + 1, stride):
                 ok = y_ok & (cx + dx >= 0) & (cx + dx < ws)
                 dq = d_f + a * dx + b * dy
                 n_rng += ((dq >= 1.0) & (dq < float(md)) & ok).sum()
-        ny = sum(min(hs, (y >> s) + half_wnd + 1) - max(0, (y >> s) - half_wnd)
-                 for y in range(h))
-        nx = sum(min(ws, (x >> s) + half_wnd + 1) - max(0, (x >> s) - half_wnd)
-                 for x in range(w))
-        n_img += abc.shape[0] * abc.shape[1] * ny * nx
+        n_img += nv * k * (axis_count(h, half_wnd, stride, s)
+                           * axis_count(w, half_wnd, stride, s))
         md //= 2
     return n_img, int(n_rng)
 
@@ -157,6 +205,20 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def check_close(name, got, want):
+    """(max |d|, max rel); raises on a bad shape, a non-finite value or an
+    f32 error over the tolerance."""
+    import torch
+
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{name}: bad output {tuple(got.shape)}")
+    ab, rl = rel_err(got, want)
+    print(f"{name}: f32 max|d| {ab:.3e} max rel {rl:.3e}")
+    if rl > F32_REL_TOL:
+        raise RuntimeError(f"{name}: f32 rel error {rl} > {F32_REL_TOL}")
+    return ab, rl
+
+
 def main() -> int:
     import torch
 
@@ -165,7 +227,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, CostMethod,
+    from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, KITTI, CostMethod,
                                                 CSPMConfig, README_DEMO)
     from crossscalepatchmatch_tpu_torch.data import make_pair
     from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
@@ -173,11 +235,13 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                                 run_pair_np)
     from crossscalepatchmatch_tpu_torch.models.postprocess import postprocess
-    from crossscalepatchmatch_tpu_torch.ops import plane_cost, prescreen_volume
+    from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost, plane_cost,
+                                                    prescreen_volume)
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
         build_volume_data)
     from crossscalepatchmatch_tpu_torch.ops.cuda import (_build,
                                                          cross_scale_cost,
+                                                         fly_cost,
                                                          quadrant_build,
                                                          window_cost)
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
@@ -210,118 +274,127 @@ def main() -> int:
     r = torch.as_tensor(pair.right, device=dev)
     vd = build_volume_data(l, r, cfg)
     imgs, vols, mc = vd.imgs[0], vd.vols[0].contiguous(), vd.max_costs[0]
-    vols_bf16 = vols.to(torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
     h, w = SHAPE["h"], SHAPE["w"]
 
-    # -- 3. K1 --------------------------------------------------------------
-    def k1_plain(abc):
-        return torch.stack([plane_cost.window_plane_cost(
-            imgs[v], vols[v], mc[v], abc[v], half_wnd=hw, max_dis=md,
-            gamma=gamma) for v in range(2)])
+    # -- 3. K1 and K3's volume form ------------------------------------------
+    def volume_phase(name, k, stride, reps, scene=None):
+        """K1 (K3 at stride > 1) against its plain version on a scene's
+        fine-level volumes (the bench scene's by default)."""
+        p, v_imgs, v_vols, v_mc, v_md = scene or (pair, imgs, vols, mc, md)
+        v_bf16 = v_vols.to(torch.bfloat16)
+        ph, pw = p.disp_left.shape
 
-    def k1_kernel(abc, v):
-        return window_cost.window_cost_cuda(imgs, v, mc, abc, half_wnd=hw,
-                                            max_dis=md, gamma=gamma)
+        def plain():
+            return torch.stack([plane_cost.window_plane_cost(
+                v_imgs[v], v_vols[v], v_mc[v], abc[v], half_wnd=hw,
+                max_dis=v_md, gamma=gamma, wnd_stride=stride)
+                for v in range(2)])
 
-    k1 = {"max_abs_err": 0.0, "max_rel_err": 0.0, "bf16_max_rel_err": 0.0}
-    for k in (1, 2):
-        abc = test_planes(imgs, pair, k, gen, dev)
-        want = k1_plain(abc)
-        got = k1_kernel(abc, vols)
-        got_bf = k1_kernel(abc, vols_bf16)
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"K1 K={k}: bad output {tuple(got.shape)}")
-        ab, rl = rel_err(got, want)
-        _, rl_bf = rel_err(got_bf, want)
-        print(f"K1 K={k}: f32 max|d| {ab:.3e} max rel {rl:.3e} | "
-              f"bf16 volume max rel {rl_bf:.3e}")
-        if rl > F32_REL_TOL:
-            raise RuntimeError(f"K1 K={k}: f32 rel error {rl} > "
-                               f"{F32_REL_TOL}")
-        k1["max_abs_err"] = max(k1["max_abs_err"], ab)
-        k1["max_rel_err"] = max(k1["max_rel_err"], rl)
-        k1["bf16_max_rel_err"] = max(k1["bf16_max_rel_err"], rl_bf)
-        t = time_turns({"plain": lambda: k1_plain(abc),
-                        "kernel_f32": lambda: k1_kernel(abc, vols),
-                        "kernel_bf16": lambda: k1_kernel(abc, vols_bf16)},
-                       {"plain": 1, "kernel_f32": 10, "kernel_bf16": 10})
-        print(f"K1 K={k}: plain {t['plain']:.3f} ms | kernel f32 "
-              f"{t['kernel_f32']:.3f} ms | kernel bf16 "
-              f"{t['kernel_bf16']:.3f} ms")
-        if k == 1:
-            n_img, n_rng = window_samples(abc, [(h, w)], hw, md)
-            b_ms, b_by = bound(
-                nbytes(imgs, vols_bf16, mc, abc) + 2 * k * h * w * 4,
-                FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
-            print(f"K1 K=1: {n_img} in-image samples, {n_rng} in range; "
-                  f"bound {b_ms:.4f} ms ({b_by})")
-            k1.update(ms=t["kernel_bf16"], ms_f32=t["kernel_f32"],
-                      plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
-        else:
-            k1.update(ms_k2=t["kernel_bf16"], ms_f32_k2=t["kernel_f32"],
-                      plain_ms_k2=t["plain"])
-    rec["k1"] = k1
+        def kernel(vol):
+            return window_cost.window_cost_cuda(
+                v_imgs, vol, v_mc, abc, half_wnd=hw, max_dis=v_md,
+                gamma=gamma, wnd_stride=stride)
 
-    # -- 4. K2 --------------------------------------------------------------
+        abc = test_planes(p, v_md, k, gen, dev)
+        want, plain_ms = timed_once(plain)
+        ab, rl = check_close(f"{name} K={k}", kernel(v_vols), want)
+        _, rl_bf = rel_err(kernel(v_bf16), want)
+        del want
+        t = time_turns({"f32": lambda: kernel(v_vols),
+                        "bf16": lambda: kernel(v_bf16)},
+                       {"f32": reps, "bf16": reps})
+        print(f"{name} K={k}: plain {plain_ms:.3f} ms | kernel f32 "
+              f"{t['f32']:.3f} ms | kernel bf16 {t['bf16']:.3f} ms | bf16 "
+              f"volume max rel {rl_bf:.3e}")
+        n_img, n_rng = window_samples(abc, 1, hw, v_md, stride)
+        b_ms, b_by = bound(nbytes(v_imgs, v_bf16, v_mc, abc)
+                           + 2 * k * ph * pw * 4,
+                           FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
+        print(f"{name} K={k}: {n_img} in-image samples, {n_rng} in range; "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=ab, max_rel_err=rl, bf16_max_rel_err=rl_bf,
+                    ms=t["bf16"], ms_f32=t["f32"], plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by)
+
+    rec["k1"] = volume_phase("K1", 1, 1, 10)
+    k1_k2 = volume_phase("K1", 2, 1, 10)
+    rec["k1"].update(ms_k2=k1_k2["ms"], ms_f32_k2=k1_k2["ms_f32"],
+                     plain_ms_k2=k1_k2["plain_ms"],
+                     max_abs_err=max(rec["k1"]["max_abs_err"],
+                                     k1_k2["max_abs_err"]))
+    rec["k3_volume"] = volume_phase("K3 volume form, stride 2", 8, 2, 5)
+
+    # -- 4. K2 ----------------------------------------------------------------
     stride = max(cfg.prescreen_stride, 1)
 
-    def k2_plain():
-        parts = [prescreen_volume.build_quadrant_volumes(
-            imgs[v], vols[v], half_wnd=hw, gamma=gamma, stride=stride)
-            for v in range(2)]
-        return (torch.stack([p[0] for p in parts]),
-                torch.stack([p[1] for p in parts]))
+    def k2_phase(name, k2_imgs, k2_vols, reps):
+        k2_bf16 = k2_vols.to(torch.bfloat16)
 
-    def k2_kernel(v):
-        return quadrant_build.quadrant_volumes_cuda(
-            imgs, v, half_wnd=hw, gamma=gamma, stride=stride)
+        def plain():
+            parts = [prescreen_volume.build_quadrant_volumes(
+                k2_imgs[v], k2_vols[v], half_wnd=hw, gamma=gamma,
+                stride=stride) for v in range(2)]
+            return (torch.stack([p[0] for p in parts]),
+                    torch.stack([p[1] for p in parts]))
 
-    want_b, want_w = k2_plain()
-    got_b, got_w = k2_kernel(vols)
-    bf_b, bf_w = k2_kernel(vols_bf16)
-    torch.cuda.synchronize()
-    if not (bool(torch.isfinite(got_b).all())
-            and bool(torch.isfinite(got_w).all())):
-        raise RuntimeError("K2: non-finite output")
-    ab_b, rl_b = rel_err(got_b, want_b)
-    ab_w, rl_w = rel_err(got_w, want_w)
-    _, rl_bf = rel_err(bf_b, want_b)
-    print(f"K2: f32 bq max|d| {ab_b:.3e} rel {rl_b:.3e}, wq max|d| "
-          f"{ab_w:.3e} rel {rl_w:.3e} | bf16 volume bq max rel {rl_bf:.3e}")
-    if max(rl_b, rl_w) > F32_REL_TOL:
-        raise RuntimeError(f"K2: f32 rel error {max(rl_b, rl_w)} > "
-                           f"{F32_REL_TOL}")
-    out_bytes = nbytes(got_b, got_w)
-    del want_b, want_w, got_b, got_w, bf_b, bf_w
-    t = time_turns({"plain": k2_plain,
-                    "kernel_f32": lambda: k2_kernel(vols),
-                    "kernel_bf16": lambda: k2_kernel(vols_bf16)},
-                   {"plain": 2, "kernel_f32": 10, "kernel_bf16": 10})
-    print(f"K2: plain {t['plain']:.3f} ms | kernel f32 "
-          f"{t['kernel_f32']:.3f} ms | kernel bf16 {t['kernel_bf16']:.3f} ms")
-    # every in-image offset of a quadrant adds w * vol[q, :] (2 flops per
-    # slice) and w to the weight sum
-    neg, pos = prescreen_volume.quadrant_offsets(hw, stride)
+        def kernel(v):
+            return quadrant_build.quadrant_volumes_cuda(
+                k2_imgs, v, half_wnd=hw, gamma=gamma, stride=stride)
 
-    def axis_samples(n, offs):
-        return sum(sum(0 <= i + o < n for o in offs) for i in range(n))
+        (want_b, want_w), plain_ms = timed_once(plain)
+        got_b, got_w = kernel(k2_vols)
+        ab_b, rl_b = check_close(f"{name} bq", got_b, want_b)
+        ab_w, rl_w = check_close(f"{name} wq", got_w, want_w)
+        _, rl_bf = rel_err(kernel(k2_bf16)[0], want_b)
+        out_bytes = nbytes(got_b, got_w)
+        del want_b, want_w, got_b, got_w
+        t = time_turns({"f32": lambda: kernel(k2_vols),
+                        "bf16": lambda: kernel(k2_bf16)},
+                       {"f32": reps, "bf16": reps})
+        print(f"{name}: plain {plain_ms:.3f} ms | kernel f32 {t['f32']:.3f} "
+              f"ms | kernel bf16 {t['bf16']:.3f} ms | bf16 volume bq max rel "
+              f"{rl_bf:.3e}")
+        # every in-image offset of a quadrant adds w * vol[q, :] (2 flops
+        # per slice) and w to the weight sum
+        neg, pos = prescreen_volume.quadrant_offsets(hw, stride)
+        _, kh, kw_, d = k2_vols.shape
 
-    k2_samples = 2 * sum(axis_samples(h, oy) * axis_samples(w, ox)
-                         for oy in (neg, pos) for ox in (neg, pos))
-    d = vols.shape[-1]
-    b_ms, b_by = bound(nbytes(imgs, vols_bf16) + out_bytes,
-                       k2_samples * (2 * d + 1))
-    print(f"K2: {k2_samples} in-image samples; bound {b_ms:.4f} ms ({b_by})")
-    rec["k2"] = dict(max_abs_err=max(ab_b, ab_w), max_rel_err=max(rl_b, rl_w),
-                     bf16_max_rel_err=rl_bf, ms=t["kernel_bf16"],
-                     ms_f32=t["kernel_f32"], plain_ms=t["plain"],
-                     bound_ms=b_ms, bound_by=b_by)
-    del vd, vols, vols_bf16
+        def axis_samples(n, offs):
+            return sum(sum(0 <= i + o < n for o in offs) for i in range(n))
 
-    # -- 5. K4 --------------------------------------------------------------
+        samples = 2 * sum(axis_samples(kh, oy) * axis_samples(kw_, ox)
+                          for oy in (neg, pos) for ox in (neg, pos))
+        b_ms, b_by = bound(nbytes(k2_imgs, k2_bf16) + out_bytes,
+                           samples * (2 * d + 1))
+        print(f"{name}: D={d}, {samples} in-image samples; bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=max(ab_b, ab_w), max_rel_err=max(rl_b, rl_w),
+                    bf16_max_rel_err=rl_bf, ms=t["bf16"], ms_f32=t["f32"],
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    rec["k2"] = k2_phase("K2", imgs, vols, 10)
+    del vd, vols
+    kpair = make_pair(seed=0, **KITTI_SHAPE)
+    kl = torch.as_tensor(kpair.left, device=dev)
+    kr = torch.as_tensor(kpair.right, device=dev)
+    kvd = build_volume_data(kl, kr, KITTI)
+    k2_129 = k2_phase("K2 KITTI D=129", kvd.imgs[0], kvd.vols[0], 2)
+    rec["k2"].update({f"{key}_d129": val for key, val in k2_129.items()
+                      if key != "bound_by"})
+    rec["k2"]["max_abs_err"] = max(rec["k2"]["max_abs_err"],
+                                   k2_129["max_abs_err"])
+    k1_129 = volume_phase("K1 KITTI D=129", 1, 1, 3,
+                          (kpair, kvd.imgs[0], kvd.vols[0].contiguous(),
+                           kvd.max_costs[0], KITTI.max_dis))
+    rec["k1"].update({f"{key}_d129": val for key, val in k1_129.items()
+                      if key != "bound_by"})
+    rec["k1"]["max_abs_err"] = max(rec["k1"]["max_abs_err"],
+                                   k1_129["max_abs_err"])
+    del kvd
+
+    # -- 5. K4 ----------------------------------------------------------------
     ccfg = CEN_CS_PP
     cvd = build_volume_data(l, r, ccfg)
     cimgs, cvols, cmc = cvd.imgs, cvd.vols, cvd.max_costs
@@ -343,72 +416,151 @@ def main() -> int:
 
     k4 = {"max_abs_err": 0.0, "max_rel_err": 0.0, "bf16_max_abs_err": 0.0}
     for k in (1, 2):
-        abc = test_planes(cimgs[0], pair, k, gen, dev)
-        want = k4_plain(abc)
-        got = k4_kernel(abc, cvols)
-        got_bf = k4_kernel(abc, cvols_bf16)
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-            raise RuntimeError(f"K4 K={k}: bad output {tuple(got.shape)}")
-        ab, rl = rel_err(got, want)
-        ab_bf, _ = rel_err(got_bf, want)
-        print(f"K4 K={k}: f32 max|d| {ab:.3e} max rel {rl:.3e} | "
-              f"bf16 census volumes max|d| {ab_bf:.3e}")
-        if rl > F32_REL_TOL:
-            raise RuntimeError(f"K4 K={k}: f32 rel error {rl} > "
-                               f"{F32_REL_TOL}")
+        abc = test_planes(pair, md, k, gen, dev)
+        want, plain_ms = timed_once(lambda: k4_plain(abc))
+        ab, rl = check_close(f"K4 K={k}", k4_kernel(abc, cvols), want)
+        ab_bf, _ = rel_err(k4_kernel(abc, cvols_bf16), want)
+        print(f"K4 K={k}: bf16 census volumes max|d| {ab_bf:.3e}")
         if ab_bf != 0.0:
             raise RuntimeError(f"K4 K={k}: bf16 census volumes differ from "
                                f"the f32 plain version by {ab_bf}")
         k4["max_abs_err"] = max(k4["max_abs_err"], ab)
         k4["max_rel_err"] = max(k4["max_rel_err"], rl)
-        k4["bf16_max_abs_err"] = max(k4["bf16_max_abs_err"], ab_bf)
-        t = time_turns({"plain": lambda: k4_plain(abc),
-                        "kernel_f32": lambda: k4_kernel(abc, cvols),
-                        "kernel_bf16": lambda: k4_kernel(abc, cvols_bf16)},
-                       {"plain": 1, "kernel_f32": 5, "kernel_bf16": 5})
-        print(f"K4 K={k}: plain {t['plain']:.3f} ms | kernel f32 "
-              f"{t['kernel_f32']:.3f} ms | kernel bf16 "
-              f"{t['kernel_bf16']:.3f} ms")
+        t = time_turns({"f32": lambda: k4_kernel(abc, cvols),
+                        "bf16": lambda: k4_kernel(abc, cvols_bf16)},
+                       {"f32": 5, "bf16": 5})
+        print(f"K4 K={k}: plain {plain_ms:.3f} ms | kernel f32 "
+              f"{t['f32']:.3f} ms | kernel bf16 {t['bf16']:.3f} ms")
         if k == 1:
-            n_img, n_rng = window_samples(
-                abc, [tuple(v.shape[1:3]) for v in cvols], chw, ccfg.max_dis)
+            n_img, n_rng = window_samples(abc, len(cvols), chw, ccfg.max_dis)
             b_ms, b_by = bound(
                 nbytes(*cimgs, *cvols_bf16, *cmc, abc) + 2 * k * h * w * 4,
                 FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
             print(f"K4 K=1: {n_img} in-image samples, {n_rng} in range; "
                   f"bound {b_ms:.4f} ms ({b_by})")
-            k4.update(ms=t["kernel_bf16"], ms_f32=t["kernel_f32"],
-                      plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+            k4.update(ms=t["bf16"], ms_f32=t["f32"], plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by)
         else:
-            k4.update(ms_k2=t["kernel_bf16"], ms_f32_k2=t["kernel_f32"],
-                      plain_ms_k2=t["plain"])
+            k4.update(ms_k2=t["bf16"], ms_f32_k2=t["f32"],
+                      plain_ms_k2=plain_ms)
     rec["k4"] = k4
     del cvd, cvols, cvols_bf16
+
+    # -- 6. the fly kernel: K5, K3 (fly form), K6, K7 -------------------------
+    def fly_phase(name, fcfg, k, lerp, stride, reps, scene=None):
+        """The fly kernel against its plain version on a scene (the bench
+        scene by default)."""
+        p, pl, pr = scene or (pair, l, r)
+        ph, pw = p.disp_left.shape
+        fd = onthefly_cost.build_fly_data(pl, pr, fcfg)
+        levels = len(fd.imgs)
+        wg = ([float(x) for x in scale_weights(fcfg.scale_num,
+                                               fcfg.reg_lambda)]
+              if levels > 1 else None)
+        kw = dict(half_wnd=fcfg.half_wnd, max_dis=fcfg.max_dis, lerp=lerp,
+                  wnd_stride=stride, gamma=fcfg.wgt_gamma,
+                  alpha=fcfg.cost_alpha, tau_clr=fcfg.tau_clr,
+                  tau_grd=fcfg.tau_grd, border_thres=fcfg.border_thres)
+        abc = test_planes(p, fcfg.max_dis, k, gen, dev)
+        want, plain_ms = timed_once(
+            lambda: onthefly_cost.fly_plane_cost(fd, wg, abc, **kw))
+        ab, rl = check_close(f"{name} K={k}",
+                             fly_cost.fly_cost_cuda(fd, wg, abc, **kw), want)
+        del want
+        t = time_turns({"kernel": lambda: fly_cost.fly_cost_cuda(
+            fd, wg, abc, **kw)}, {"kernel": reps})
+        n_img, n_rng = window_samples(abc, levels, fcfg.half_wnd,
+                                      fcfg.max_dis, stride)
+        inputs = [*fd.imgs, *fd.grds, *(fd.wimgs or []), abc]
+        b_ms, b_by = bound(nbytes(*inputs) + 2 * k * ph * pw * 4,
+                           FLOPS_IN_IMAGE * n_img
+                           + FLY_FLOPS_IN_RANGE[lerp] * n_rng)
+        print(f"{name} K={k}: plain {plain_ms:.3f} ms | kernel "
+              f"{t['kernel']:.3f} ms | {n_img} in-image samples, {n_rng} in "
+              f"range; bound {b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=ab, max_rel_err=rl, ms=t["kernel"],
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    fcfg = dataclasses.replace(README_DEMO, precompute_volume=False)
+    kitti_fly = dataclasses.replace(KITTI, precompute_volume=False)
+    kitti = (kpair, kl, kr)
+    rec["k5"] = fly_phase("K5", fcfg, 1, "cost", 1, 10)
+    k5_k2 = fly_phase("K5", fcfg, 2, "cost", 1, 10)
+    k5_cs = fly_phase("K5 cross-scale (5 levels)",
+                      CSPMConfig(max_dis=md, precompute_volume=False,
+                                 use_cs=True, reg_lambda=0.3),
+                      1, "cost", 1, 5)
+    rec["k5"].update(ms_k2=k5_k2["ms"], plain_ms_k2=k5_k2["plain_ms"],
+                     ms_cross_scale=k5_cs["ms"],
+                     plain_ms_cross_scale=k5_cs["plain_ms"],
+                     bound_ms_cross_scale=k5_cs["bound_ms"],
+                     max_abs_err=max(rec["k5"]["max_abs_err"],
+                                     k5_k2["max_abs_err"],
+                                     k5_cs["max_abs_err"]),
+                     max_rel_err=max(rec["k5"]["max_rel_err"],
+                                     k5_k2["max_rel_err"],
+                                     k5_cs["max_rel_err"]))
+    rec["k3_fly"] = fly_phase("K3 fly form, stride 2", fcfg, 8, "cost", 2, 5)
+    # KITTI: the other view's staged span is tile + 128 columns wide
+    k5_kitti = fly_phase("K5 KITTI d=128", kitti_fly, 1, "cost", 1, 3,
+                         kitti)
+    k3_kitti = fly_phase("K3 fly form KITTI d=128, stride 2", kitti_fly, 8,
+                         "cost", 2, 3, kitti)
+    for key, sub in (("k5", k5_kitti), ("k3_fly", k3_kitti)):
+        rec[key].update({f"{f}_kitti": val for f, val in sub.items()
+                         if f != "bound_by"})
+        rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"],
+                                      sub["max_abs_err"])
+        rec[key]["max_rel_err"] = max(rec[key]["max_rel_err"],
+                                      sub["max_rel_err"])
+    rec["k6"] = fly_phase("K6 image lerp", fcfg, 1, "image", 1, 5)
+    rec["k7"] = fly_phase("K7 Lab weights",
+                          CSPMConfig(max_dis=md, precompute_volume=False,
+                                     use_lab_weights=True), 1, "cost", 1, 5)
     print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. main paths --------------------------------------------------------
     def reset_counts():
-        window_cost.launches = quadrant_build.launches = 0
-        cross_scale_cost.launches = 0
+        window_cost.launches = window_cost.strided_launches = 0
+        quadrant_build.launches = cross_scale_cost.launches = 0
+        fly_cost.launches.clear()
         plane_cost.launches = prescreen_volume.launches = 0
-        plane_cost.cross_scale_launches = 0
+        plane_cost.cross_scale_launches = onthefly_cost.launches = 0
 
     def read_counts():
-        return {"k1": window_cost.launches, "k2": quadrant_build.launches,
+        return {"k1": window_cost.launches - window_cost.strided_launches,
+                "k3_volume": window_cost.strided_launches,
+                "k2": quadrant_build.launches,
                 "k4": cross_scale_cost.launches,
+                "k3_fly": fly_cost.count(strided=True),
+                "k5": fly_cost.count(lerp="cost"),
+                "k6": fly_cost.count(lerp="image"),
+                "k7": fly_cost.count(lab=True),
+                "fly": fly_cost.count(),
                 "k1_plain": plane_cost.launches,
                 "k2_plain": prescreen_volume.launches,
-                "k4_plain": plane_cost.cross_scale_launches}
+                "k4_plain": plane_cost.cross_scale_launches,
+                "fly_plain": onthefly_cost.launches}
 
-    def main_path(name, pcfg, kernels):
+    def check_counts(name, counts, kernels):
+        print(f"{name}: launches {counts}")
+        if any(counts[k] == 0 for k in kernels):
+            raise RuntimeError(f"{name}: a kernel of the path never "
+                               "launched")
+        if any(counts[k] for k in counts if k.endswith("_plain")):
+            raise RuntimeError(f"{name}: the path ran a plain version on "
+                               "the card")
+
+    def main_path(name, pcfg, kernels, scene, seeds, px):
+        p, pl, pr = scene
+        ph, pw = p.left.shape[:2]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         outs, times = {}, []
-        for seed in (0, 1, 2, 0):
+        for seed in seeds:
             t0 = time.perf_counter()
-            out = run_pair(l, r, seed, pcfg)
+            out = run_pair(pl, pr, seed, pcfg)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             if seed in outs:
@@ -420,35 +572,44 @@ def main() -> int:
                 continue
             outs[seed] = out
             dis = out["dis"].cpu().numpy()
-            if dis.shape != (2, h, w):
+            if dis.shape != (2, ph, pw):
                 raise RuntimeError(f"{name}: dis shape {dis.shape}")
             if not bool(torch.isfinite(out["cost"]).all()):
                 raise RuntimeError(f"{name}: non-finite final costs")
-            bad = bad_pixel_rate(dis[0] / pcfg.dis_scale, pair.disp_left,
-                                 pair.valid_left, 1.0)
-            bad_r = bad_pixel_rate(dis[1] / pcfg.dis_scale, pair.disp_right,
-                                   pair.valid_right, 1.0)
+            bad = {t: bad_pixel_rate(dis[0] / pcfg.dis_scale, p.disp_left,
+                                     p.valid_left, t) for t in (1.0, px)}
+            bad_r = bad_pixel_rate(dis[1] / pcfg.dis_scale, p.disp_right,
+                                   p.valid_right, px)
             print(f"{name}: seed {seed} {times[-1]:.1f} ms "
-                  f"bad-pixel(nonocc) @1px left {bad:.4f} right {bad_r:.4f}")
-            if bad > BAD_PIXEL_MAX:
-                raise RuntimeError(f"{name} seed {seed}: bad-pixel {bad} > "
-                                   f"{BAD_PIXEL_MAX}")
+                  f"bad-pixel(nonocc) @{px:g}px left {bad[px]:.4f} right "
+                  f"{bad_r:.4f}; @1px left {bad[1.0]:.4f}")
+            if bad[px] > BAD_PIXEL_MAX:
+                raise RuntimeError(f"{name} seed {seed}: bad-pixel "
+                                   f"{bad[px]} > {BAD_PIXEL_MAX}")
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated(dev)
-        print(f"{name}: launches {counts}")
-        if any(counts[k] == 0 for k in kernels):
-            raise RuntimeError(f"{name}: a kernel of the path never "
-                               "launched")
-        if any(counts[k] for k in counts if k.endswith("_plain")):
-            raise RuntimeError(f"{name}: the path ran a plain version on "
-                               "the card")
-        print(f"{name}: ms/pair per run {times}; median of runs 2-4 "
-              f"{sorted(times[1:])[1]:.1f}; peak device memory "
+        check_counts(name, counts, kernels)
+        mid = ""
+        if len(times) > 1:
+            later = sorted(times[1:])
+            mid = f"; median of runs 2+ {later[len(later) // 2]:.1f}"
+        print(f"{name}: ms/pair per run {times}{mid}; peak device memory "
               f"{peak / 2**20:.1f} MiB")
         return outs, counts
 
-    _, counts_demo = main_path("README_DEMO", README_DEMO, ("k1", "k2"))
-    outs_cs, counts_cs = main_path("CEN_CS_PP", CEN_CS_PP, ("k4", "k2"))
+    bench = (pair, l, r)
+    paths = {}
+    _, paths["README_DEMO"] = main_path("README_DEMO", README_DEMO,
+                                        ("k1", "k2"), bench, (0, 1, 2, 0), 1.0)
+    outs_cs, paths["CEN_CS_PP"] = main_path("CEN_CS_PP", CEN_CS_PP,
+                                            ("k4", "k2"), bench,
+                                            (0, 1, 2, 0), 1.0)
+    _, paths["README_DEMO-fly"] = main_path(
+        "README_DEMO-fly", fcfg, ("k5", "k3_fly"), bench, (0, 1, 2, 0), 1.0)
+    _, paths["KITTI-fly"] = main_path("KITTI-fly", kitti_fly,
+                                      ("k5", "k3_fly"), kitti, (0, 0), 3.0)
+    _, paths["KITTI"] = main_path("KITTI", KITTI, ("k1", "k2"), kitti, (0,),
+                                  3.0)
 
     # postprocess alone on the seed-0 planes: time, launches, same output
     from torch.profiler import ProfilerActivity, profile
@@ -474,18 +635,29 @@ def main() -> int:
     print(f"CEN_CS_PP postprocess: ms per call {pp_ms}; "
           f"{pp_launches} kernel launches; {n_invalid} LR-invalid pixels")
 
-    # small pairs: card (kernels) vs CPU (plain versions), same draws
+    # -- 8. small pairs: card (kernels) vs CPU (plain versions), same draws -----
     small = make_pair(h=48, w=64, max_dis=12, seed=3)
-    for name, scfg in (
-            ("README_DEMO-like", CSPMConfig(max_dis=12, dis_scale=16,
-                                            wnd_size=11, vol_dtype="f32")),
-            ("CEN_CS_PP-like", CSPMConfig(
-                max_dis=12, dis_scale=16, wnd_size=11,
-                cost_method=CostMethod.CEN,
-                use_cs=True, use_pp=True, reg_lambda=0.3, scale_num=3,
-                vol_dtype="f32"))):
+    base = dict(max_dis=12, dis_scale=16, wnd_size=11, vol_dtype="f32")
+    for name, kernels, scfg in (
+            ("README_DEMO-like", ("k1", "k2"), CSPMConfig(**base)),
+            ("CEN_CS_PP-like", ("k4", "k2"), CSPMConfig(
+                cost_method=CostMethod.CEN, use_cs=True, use_pp=True,
+                reg_lambda=0.3, scale_num=3, **base)),
+            ("window-prescreen", ("k1", "k3_volume"), CSPMConfig(
+                prescreen_mode="window", **base)),
+            ("fly-cost", ("k5", "k3_fly"), CSPMConfig(
+                precompute_volume=False, **base)),
+            ("fly-image-CS", ("k6",), CSPMConfig(
+                precompute_volume=False, fly_lerp="image", use_cs=True,
+                reg_lambda=0.3, scale_num=3, **{**base, "wnd_size": 7})),
+            ("fly-Lab", ("k5", "k7", "k3_fly"), CSPMConfig(
+                precompute_volume=False, use_lab_weights=True, **base))):
+        reset_counts()
         o_gpu = run_pair_np(small.left, small.right, scfg, device=dev,
                             draws=TorchDraws(0, "cpu"))
+        torch.cuda.synchronize()
+        paths[name] = read_counts()
+        check_counts(f"small pair {name}", paths[name], kernels)
         o_cpu = run_pair_np(small.left, small.right, scfg, device="cpu",
                             draws=TorchDraws(0, "cpu"))
         agree = float((np.abs(o_gpu["dis"].astype(int)
@@ -498,24 +670,26 @@ def main() -> int:
 
     pkg = "crossscalepatchmatch_tpu_torch"
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
+
+    def entry(name, key, source, replaces):
+        by_path = {p: c[key] for p, c in paths.items() if c[key]}
+        return dict(name=name, route="cuda", source=f"{pkg}/csrc/{source}",
+                    replaces=replaces, launches=sum(by_path.values()),
+                    library_ms=None, launches_by_path=by_path, **rec[key])
+
     kernels = [
-        dict(name="window_cost (K1)", route="cuda",
-             source=f"{pkg}/csrc/window_cost.cu", replaces=f"{wc}:138",
-             launches=counts_demo["k1"] + counts_cs["k1"], library_ms=None,
-             launches_by_path={"README_DEMO": counts_demo["k1"],
-                               "CEN_CS_PP": counts_cs["k1"]}, **rec["k1"]),
-        dict(name="quadrant_build (K2)", route="cuda",
-             source=f"{pkg}/csrc/quadrant_build.cu",
-             replaces=("crossscalepatchmatch_tpu/ops/pallas/"
-                       "quadrant_build.py:45"),
-             launches=counts_demo["k2"] + counts_cs["k2"], library_ms=None,
-             launches_by_path={"README_DEMO": counts_demo["k2"],
-                               "CEN_CS_PP": counts_cs["k2"]}, **rec["k2"]),
-        dict(name="cross_scale_cost (K4)", route="cuda",
-             source=f"{pkg}/csrc/cross_scale_cost.cu", replaces=f"{wc}:138",
-             launches=counts_demo["k4"] + counts_cs["k4"], library_ms=None,
-             launches_by_path={"README_DEMO": counts_demo["k4"],
-                               "CEN_CS_PP": counts_cs["k4"]}, **rec["k4"]),
+        entry("window_cost (K1)", "k1", "window_cost.cu", f"{wc}:138"),
+        entry("quadrant_build (K2)", "k2", "quadrant_build.cu",
+              "crossscalepatchmatch_tpu/ops/pallas/quadrant_build.py:45"),
+        entry("strided window, volume form (K3)", "k3_volume",
+              "window_cost.cu", f"{wc}:331"),
+        entry("strided window, fly form (K3)", "k3_fly", "fly_cost.cu",
+              f"{wc}:331"),
+        entry("cross_scale_cost (K4)", "k4", "cross_scale_cost.cu",
+              f"{wc}:138"),
+        entry("fly cost, cost lerp (K5)", "k5", "fly_cost.cu", f"{wc}:74"),
+        entry("fly cost, image lerp (K6)", "k6", "fly_cost.cu", f"{wc}:50"),
+        entry("fly cost, Lab weights (K7)", "k7", "fly_cost.cu", f"{wc}:316"),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "card check")

@@ -8,10 +8,12 @@ modules it needs (`config`, `data`, `metrics`).  Module names mirror the
 JAX package (`ops/...`, `models/...`) so each module's counterpart is easy
 to find.
 
-Kernels: the window plane cost (K1), the quadrant-volume build (K2) and the
-cross-scale window cost (K4) run as hand-written CUDA kernels (`csrc/*.cu`,
-built at first use by `ops.cuda._build`) on CUDA tensors; CPU tensors take
-their plain PyTorch versions.
+Kernels: the window plane cost (K1) and its strided prescreen form (K3),
+the quadrant-volume build (K2), the cross-scale window cost (K4) and the
+no-volume fly cost (K5 cost lerp, K6 image lerp, K7 Lab weights, K3
+strided) run as hand-written CUDA kernels (`csrc/*.cu`, built at first use
+by `ops.cuda._build`) on CUDA tensors; CPU tensors take their plain
+PyTorch versions.
 """
 
 from .config import (CEN_CS_PP, KITTI, MIDDLEBURY, README_DEMO, Aggregator,

@@ -15,7 +15,9 @@
 // 324 offsets x 61 slices = 6.7 G multiply-adds reading vol[q, :] rows.
 // The design: one warp per output pixel with D across the lanes, so every
 // vol[q, :] read and every bq[.., c, :] write is one contiguous, coalesced
-// row; the four quadrant sums of a lane stay in registers until a single
+// row; a lane holds slices lane, lane + 32, ... in ceil(D / 32) <= 8
+// accumulators (any D up to 256: KITTI's 129 slices take 5); the quadrant
+// sums of a lane stay in registers until a single
 // write at the end (no accumulator round trip through device memory, which
 // is what the plain version pays per offset); neighbouring warps of a block
 // read overlapping windows, which the L1/L2 caches serve.  The weight comes
@@ -119,6 +121,10 @@ cudaError_t dispatch(const void* img, const void* vol, const void* lut,
     case 2: return launch<VT, 2>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
     case 3: return launch<VT, 3>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
     case 4: return launch<VT, 4>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
+    case 5: return launch<VT, 5>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
+    case 6: return launch<VT, 6>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
+    case 7: return launch<VT, 7>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
+    case 8: return launch<VT, 8>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
     default: return cudaErrorInvalidValue;
   }
 }

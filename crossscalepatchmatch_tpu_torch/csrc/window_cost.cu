@@ -1,10 +1,13 @@
 // Kernel K1: slanted-plane ASW window cost over a precomputed volume.
 //
 // Replaces the Pallas TPU kernel crossscalepatchmatch_tpu/ops/pallas/
-// window_cost.py `_kernel` (launched by `_invoke`, volume form, scale 0,
-// wnd_stride 1).  Plain version: ops/plane_cost.py window_plane_cost.
+// window_cost.py `_kernel` (launched by `_invoke`, volume form, scale 0):
+// K1 at wnd_stride 1, and K3's volume form, the strided-window prescreen
+// (`wnd_stride` > 1, :331-343; prescreen_mode="window").  Plain version:
+// ops/plane_cost.py window_plane_cost.
 //
-// out[v, k, y, x] = sum over in-image window offsets (dy, dx), dy-major, of
+// out[v, k, y, x] = sum over in-image window offsets (dy, dx) in
+// range(-hw, hw + 1, stride) each, dy-major, of
 //   lut[L1(img[v, y, x], img[v, y+dy, x+dx])] * val
 // with dq = d_c + a*dx + b*dy (d_c = a*x + b*y + c of candidate k) and
 // val = lerp(vol[v, q, f], vol[v, q, f+1]) at dq for f = trunc(dq) when
@@ -52,7 +55,8 @@ window_cost_kernel(const uint32_t* __restrict__ img,      // [2, H, W] packed
                    const float* __restrict__ abc,         // [2, K, H, W, 3]
                    const float* __restrict__ lut,         // [766]
                    float* __restrict__ out,               // [2, K, H, W]
-                   int K, int H, int W, int D, int hw, int max_dis) {
+                   int K, int H, int W, int D, int hw, int max_dis,
+                   int stride) {
   extern __shared__ uint32_t smem[];
   float* s_lut = reinterpret_cast<float*>(smem);
   uint32_t* s_img = smem + kLutN;
@@ -91,14 +95,14 @@ window_cost_kernel(const uint32_t* __restrict__ img,      // [2, H, W] packed
   const VT* vol_v = vol + (size_t)v * H * W * D;
 
   float acc = 0.f;
-  for (int dy = -hw; dy <= hw; ++dy) {
+  for (int dy = -hw; dy <= hw; dy += stride) {
     const int qy = y + dy;
     if (qy < 0 || qy >= H) continue;
     const float bdy = __fmul_rn(b, (float)dy);
     const uint32_t* s_row =
         s_img + (threadIdx.y + hw + dy) * tile_w + threadIdx.x + hw;
     const VT* vol_row = vol_v + (size_t)qy * W * D;
-    for (int dx = -hw; dx <= hw; ++dx) {
+    for (int dx = -hw; dx <= hw; dx += stride) {
       const int qx = x + dx;
       if (qx < 0 || qx >= W) continue;
       const float wgt = s_lut[__vsadu4(col_c, s_row[dx])];
@@ -120,7 +124,8 @@ window_cost_kernel(const uint32_t* __restrict__ img,      // [2, H, W] packed
 template <typename VT>
 cudaError_t launch(const void* img, const void* vol, const void* max_costs,
                    const void* abc, const void* lut, void* out, int K, int H,
-                   int W, int D, int hw, int max_dis, cudaStream_t stream) {
+                   int W, int D, int hw, int max_dis, int stride,
+                   cudaStream_t stream) {
   const size_t smem =
       (kLutN + (size_t)(kTX + 2 * hw) * (kTY + 2 * hw)) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
@@ -135,7 +140,7 @@ cudaError_t launch(const void* img, const void* vol, const void* max_costs,
       static_cast<const uint32_t*>(img), static_cast<const VT*>(vol),
       static_cast<const float*>(max_costs), static_cast<const float*>(abc),
       static_cast<const float*>(lut), static_cast<float*>(out), K, H, W, D,
-      hw, max_dis);
+      hw, max_dis, stride);
   return cudaGetLastError();
 }
 
@@ -145,11 +150,12 @@ extern "C" int cspm_window_cost(const void* img, const void* vol, int vol_bf16,
                                 const void* max_costs, const void* abc,
                                 const void* lut, void* out, int K, int H,
                                 int W, int D, int half_wnd, int max_dis,
-                                void* stream) {
+                                int stride, void* stream) {
+  if (stride < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vol_bf16)
     return (int)launch<__nv_bfloat16>(img, vol, max_costs, abc, lut, out, K,
-                                      H, W, D, half_wnd, max_dis, s);
+                                      H, W, D, half_wnd, max_dis, stride, s);
   return (int)launch<float>(img, vol, max_costs, abc, lut, out, K, H, W, D,
-                            half_wnd, max_dis, s);
+                            half_wnd, max_dis, stride, s);
 }

@@ -1,4 +1,4 @@
-"""PatchMatch optimizer over slanted-plane fields, volume branch
+"""PatchMatch optimizer over slanted-plane fields
 (port of crossscalepatchmatch_tpu.models.patchmatch).
 
 Random init, then max_iter outer iterations of {dense propagation sweeps,
@@ -7,11 +7,13 @@ per-pixel plane-cost evaluations through a CostFn:
 
     CostFn: f32[2, K, H, W, 3] candidate planes -> f32[2, K, H, W] costs
 
-The exact CostFn is kernel K1 (ops.cuda.window_cost), or K4
-(ops.cuda.cross_scale_cost) on cross-scale runs, on a CUDA tensor and its
-plain version on a CPU tensor; the prescreen/rank CostFn reads the quadrant
-volumes of the fine level that kernel K2 (or its plain version) builds once
-per pair.  Random draws come from an explicit draw source (utils.rng) keyed by
+On the volume path the exact CostFn is kernel K1 (ops.cuda.window_cost),
+or K4 (ops.cuda.cross_scale_cost) on cross-scale runs, on a CUDA tensor and
+its plain version on a CPU tensor; the prescreen/rank CostFn reads the
+quadrant volumes of the fine level that kernel K2 (or its plain version)
+builds once per pair, or is K1 at a window stride (K3,
+prescreen_mode="window").  On the no-volume path (make_fly_cost_fns) both
+are the fly kernel (ops.cuda.fly_cost: K5/K6/K7, K3 strided).  Random draws come from an explicit draw source (utils.rng) keyed by
 (phase, iteration, view, round).  The JAX jit/scan structure becomes plain
 Python control flow.
 """
@@ -19,6 +21,7 @@ Python control flow.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Tuple
 
 import numpy as np
@@ -28,8 +31,10 @@ from ..config import CSPMConfig
 from ..ops import plane
 from ..ops.cost_volume import VolumeData
 from ..ops.cuda.cross_scale_cost import cross_scale_cost
+from ..ops.cuda.fly_cost import fly_cost
 from ..ops.cuda.quadrant_build import quadrant_volumes
 from ..ops.cuda.window_cost import window_cost
+from ..ops.onthefly_cost import FlyData
 from ..ops.prescreen_volume import quadrant_prescreen_cost
 from ..ops.scale_weights import scale_weights
 from ..support import check_supported
@@ -79,13 +84,16 @@ def make_cost_fns(cfg: CSPMConfig,
                   vd: VolumeData) -> Tuple[CostFn, CostFn | None]:
     """Bind the per-view volume data into (cost_fn, sparse_fn): the exact
     window-cost evaluator (single-scale, or the scale-weighted sum over the
-    pyramid when cfg.use_cs) and the quadrant prescreen (None when
-    prescreening is off).  Cross-scale runs rank on the fine level's
-    quadrant volumes, a ranking heuristic like the prescreen itself; their
-    exact costs are the cross-scale ones.  Which code runs follows the
-    tensors' device."""
+    pyramid when cfg.use_cs) and the prescreen (None when prescreening is
+    off): the quadrant ranking (prescreen_mode="volume"), or, single-scale
+    only, the window cost at stride prescreen_stride ("window", K3).
+    Cross-scale runs rank on the fine level's quadrant volumes, a ranking
+    heuristic like the prescreen itself; their exact costs are the
+    cross-scale ones.  Which code runs follows the tensors' device."""
     check_supported(cfg)
     volume_mode = cfg.prescreen_stride > 1 and cfg.prescreen_mode == "volume"
+    window_mode = (cfg.prescreen_stride > 1 and cfg.prescreen_mode == "window"
+                   and not cfg.use_cs)
     kvols = [kernel_volumes(cfg, v) for v in vd.vols]
     kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
               gamma=cfg.wgt_gamma)
@@ -97,11 +105,44 @@ def make_cost_fns(cfg: CSPMConfig,
             return cross_scale_cost(vd.weight_imgs, kvols, vd.max_costs,
                                     wgts, abc2, **kw)
     else:
-        def cost_fn(abc2: torch.Tensor) -> torch.Tensor:
+        def cost_fn(abc2: torch.Tensor,
+                    stride: int = 1) -> torch.Tensor:
             return window_cost(vd.weight_imgs[0], kvols[0], vd.max_costs[0],
-                               abc2, **kw)
+                               abc2, wnd_stride=stride, **kw)
 
-    sparse_fn = _volume_sparse_fn(cfg, vd, kvols[0]) if volume_mode else None
+    if volume_mode:
+        sparse_fn = _volume_sparse_fn(cfg, vd, kvols[0])
+    elif window_mode:
+        sparse_fn = functools.partial(cost_fn, stride=cfg.prescreen_stride)
+    else:
+        sparse_fn = None
+    return cost_fn, sparse_fn
+
+
+def make_fly_cost_fns(cfg: CSPMConfig,
+                      fd: FlyData) -> Tuple[CostFn, CostFn | None]:
+    """No-volume (cost_fn, sparse_fn), the semantics of the JAX engine's
+    fused kernel path (make_fused_fly_cost_fns) on every device: the exact
+    evaluator is the fly cost over one level, or the scale-weighted sum
+    over the pyramid when cfg.use_cs, in cfg.fly_lerp's mode, with the Lab
+    weights per level when cfg.use_lab_weights; sparse_fn is the same cost
+    at stride prescreen_stride (K3) when prescreen_stride > 1 and not
+    cfg.use_cs, else None.  There is no quadrant ranking (it needs a
+    volume), so rank adoption is off and the run is all-exact."""
+    check_supported(cfg)
+    wgts = (tuple(float(x) for x in
+                  scale_weights(cfg.scale_num, cfg.reg_lambda))
+            if cfg.use_cs else None)
+    kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
+              gamma=cfg.wgt_gamma, alpha=cfg.cost_alpha,
+              tau_clr=cfg.tau_clr, tau_grd=cfg.tau_grd,
+              border_thres=cfg.border_thres, lerp=cfg.fly_lerp)
+
+    def cost_fn(abc2: torch.Tensor, stride: int = 1) -> torch.Tensor:
+        return fly_cost(fd, wgts, abc2, wnd_stride=stride, **kw)
+
+    sparse_fn = (functools.partial(cost_fn, stride=cfg.prescreen_stride)
+                 if cfg.prescreen_stride > 1 and not cfg.use_cs else None)
     return cost_fn, sparse_fn
 
 

@@ -1,9 +1,10 @@
 """End-to-end stereo pipeline: images -> u8 disparity maps
-(port of crossscalepatchmatch_tpu.models.pipeline, precomputed volumes).
+(port of crossscalepatchmatch_tpu.models.pipeline).
 
-Build the volumes (one level, or the pyramid's when cfg.use_cs), run the
-PatchMatch optimizer, convert planes to scaled u8 disparity, and
-post-process when cfg.use_pp.  The run happens on `device` ("cuda" unless
+Build the volumes (one level, or the pyramid's when cfg.use_cs), or with
+cfg.precompute_volume=False only the views' O(H*W) channel planes (the
+no-volume path), run the PatchMatch optimizer, convert planes to scaled u8
+disparity, and post-process when cfg.use_pp.  The run happens on `device` ("cuda" unless
 the caller asks for another); the inputs are moved there and every tensor
 of the run lives there.
 """
@@ -17,9 +18,22 @@ import torch
 
 from ..config import CSPMConfig
 from ..ops.cost_volume import build_volume_data
+from ..ops.onthefly_cost import build_fly_data
 from ..utils.rng import TorchDraws
 from . import patchmatch as pm
 from .postprocess import postprocess
+
+
+def _make_cost_fns(l: torch.Tensor, r: torch.Tensor, cfg: CSPMConfig):
+    """Bind the configured plane-cost backend: (cost_fn, sparse_fn,
+    pp_imgs), pp_imgs the fine-level u8[2, H, W, 3] views.  The no-volume
+    path follows the JAX engine's fused-kernel semantics on every device
+    (models.patchmatch.make_fly_cost_fns)."""
+    if cfg.precompute_volume:
+        vd = build_volume_data(l, r, cfg)
+        return (*pm.make_cost_fns(cfg, vd), vd.imgs[0])
+    fd = build_fly_data(l, r, cfg)
+    return (*pm.make_fly_cost_fns(cfg, fd), fd.imgs[0])
 
 
 def _finalize(state: pm.PMState, pp_imgs: torch.Tensor,
@@ -59,11 +73,10 @@ def run_pair(l_bgr_u8, r_bgr_u8, seed: int, cfg: CSPMConfig, *,
     if draws is None:
         draws = TorchDraws(seed, device)
     h, w, _ = l.shape
-    vd = build_volume_data(l, r, cfg)
-    cost_fn, sparse_fn = pm.make_cost_fns(cfg, vd)
+    cost_fn, sparse_fn, pp_imgs = _make_cost_fns(l, r, cfg)
     state = pm.patchmatch(draws, (h, w), cost_fn, cfg, sparse_fn,
                           device=device)
-    return _finalize(state, vd.imgs[0], cfg)
+    return _finalize(state, pp_imgs, cfg)
 
 
 def run_pair_np(l_bgr_u8, r_bgr_u8, cfg: CSPMConfig, seed: int = 0, *,

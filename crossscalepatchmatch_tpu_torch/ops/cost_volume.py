@@ -1,9 +1,10 @@
 """Cost-volume construction (port of crossscalepatchmatch_tpu.ops.cost_volume
-without the aggregation filters and the Lab weight images).
+without the aggregation filters).
 
 Left- and right-referenced GRD or census volumes at one level, or at
 scale_num pyramid levels for cross-scale runs (max_dis halves per level),
-with each level's per-view saturation value max(volume).
+with each level's per-view saturation value max(volume), and per level
+the Lab weight images when cfg.use_lab_weights.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from ..config import CostMethod, CSPMConfig
 from ..support import check_supported
 from .census import census_cost_volume
-from .color import bgr_to_rgb, rgb_to_gray_u8
+from .color import bgr_to_lab_u8, bgr_to_rgb, rgb_to_gray_u8
 from .grad_cost import grd_cost_volume
 from .pyramid import build_pyramid
 
@@ -28,7 +29,8 @@ class VolumeData:
     imgs[s]: u8[2, Hs, Ws, 3] per-view level-s images (original channel order)
     vols[s]: f32[2, Hs, Ws, Ds] per-view level-s cost volumes
     max_costs[s]: f32[2] per-view saturation values max(volume)
-    wimgs[s]: optional ASW weight images (None: weights read imgs)
+    wimgs[s]: optional u8[2, Hs, Ws, 3] ASW weight images (the level's Lab
+      conversions with cfg.use_lab_weights; None: weights read imgs)
     """
 
     imgs: List[torch.Tensor]
@@ -71,6 +73,7 @@ def build_volume_data(l_bgr_u8: torch.Tensor, r_bgr_u8: torch.Tensor,
     l_pyr = build_pyramid(l_bgr_u8, levels)
     r_pyr = build_pyramid(r_bgr_u8, levels)
     imgs, vols, max_costs = [], [], []
+    wimgs = [] if cfg.use_lab_weights else None
     md = cfg.max_dis
     for s in range(levels):
         l_rgb = bgr_to_rgb(l_pyr[s])
@@ -80,5 +83,9 @@ def build_volume_data(l_bgr_u8: torch.Tensor, r_bgr_u8: torch.Tensor,
         imgs.append(torch.stack([l_pyr[s], r_pyr[s]]))
         vols.append(torch.stack([vol_l, vol_r]))
         max_costs.append(torch.stack([vol_l.max(), vol_r.max()]))
+        if wimgs is not None:
+            # per-level Lab like CSPC's per-level conversion (cspc.cc:48-49)
+            wimgs.append(bgr_to_lab_u8(imgs[-1]))
         md //= 2
-    return VolumeData(imgs=imgs, vols=vols, max_costs=max_costs)
+    return VolumeData(imgs=imgs, vols=vols, max_costs=max_costs,
+                      wimgs=wimgs)

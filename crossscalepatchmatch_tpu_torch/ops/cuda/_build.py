@@ -37,9 +37,9 @@ _I = ctypes.c_int
 SOURCES = {
     "window_cost.cu": {
         # img, vol, vol_bf16, max_costs, abc, lut, out,
-        # K, H, W, D, half_wnd, max_dis, stream
+        # K, H, W, D, half_wnd, max_dis, stride, stream
         "cspm_window_cost": (_P, _P, _I, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _P),
+                             _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "quadrant_build.cu": {
         # img, vol, vol_bf16, lut, bq, wq, H, W, D, half_wnd, stride, stream
@@ -51,6 +51,13 @@ SOURCES = {
         # wgts; levels, vol_bf16, abc, lut, out, K, H, W, half_wnd, stream
         "cspm_cross_scale_cost": (_P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "fly_cost.cu": {
+        # per-level host arrays: cols, grds, wgt imgs, hs, ws, max_dis,
+        # scale wgts; levels, image, lab, coef[6] (host), abc, lut, out,
+        # K, H, W, half_wnd, stride, stream
+        "cspm_fly_cost": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                          _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -16,6 +16,9 @@ from . import _build, check_tensor, pack_bgr
 # Kernel launches (a plain count; chip_smoke resets and reads it).
 launches = 0
 
+# Slices the kernel takes: eight 32-lane chunks of accumulators.
+MAX_DEPTH = 256
+
 
 def quadrant_volumes(imgs_u8: torch.Tensor, vols: torch.Tensor, *,
                      half_wnd: int, gamma: float, stride: int):
@@ -46,8 +49,8 @@ def quadrant_volumes_cuda(imgs_u8: torch.Tensor, vols: torch.Tensor, *,
     _, h, w, d = vols.shape
     check_tensor("vols", vols, (torch.float32, torch.bfloat16), (2, h, w, d))
     check_tensor("imgs_u8", imgs_u8, (torch.uint8,), (2, h, w, 3))
-    if not 1 <= d <= 128:
-        raise ValueError(f"depth {d} outside the kernel's [1, 128]")
+    if not 1 <= d <= MAX_DEPTH:
+        raise ValueError(f"depth {d} outside the kernel's [1, {MAX_DEPTH}]")
     if half_wnd < 0 or stride < 1:
         raise ValueError(f"half_wnd {half_wnd} / stride {stride} invalid")
     lib = _build.load()

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels K1 (window cost), K2 (quadrant build) and K4
-(cross-scale window cost) against their plain PyTorch versions, on the
-card.
+"""The port's CUDA kernels K1 (window cost), K2 (quadrant build), K3 (the
+strided window, volume and fly forms), K4 (cross-scale window cost), K5
+(the no-volume fly cost), K6 (its image-space lerp) and K7 (its Lab
+weights) against their plain PyTorch versions, on the card.
 
 Run on a machine with a CUDA device:
 
@@ -15,7 +16,8 @@ kernel keeps the plain version's rounding order, so the margin covers only
 the exp/sum-order freedom the contract allows); a bf16 volume is compared
 with the plain version on the same bf16-rounded values widened to f32, at
 the same tolerance.  K4 is held tighter: bit-equal in f32, and bit-equal
-with bf16 census volumes (integer costs, exact in bf16).
+with bf16 census volumes (integer costs, exact in bf16).  The fly kernel
+(f32 throughout) is held at the f32 tolerance.
 """
 
 import numpy as np
@@ -25,10 +27,11 @@ import torch
 from crossscalepatchmatch_tpu_torch import CEN_CS_PP, README_DEMO, CSPMConfig
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
-from crossscalepatchmatch_tpu_torch.ops import plane_cost
+from crossscalepatchmatch_tpu_torch.ops import onthefly_cost, plane_cost
 from crossscalepatchmatch_tpu_torch.ops import prescreen_volume
 from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
 from crossscalepatchmatch_tpu_torch.ops.cuda import cross_scale_cost
+from crossscalepatchmatch_tpu_torch.ops.cuda import fly_cost
 from crossscalepatchmatch_tpu_torch.ops.cuda import quadrant_build
 from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost
 from crossscalepatchmatch_tpu_torch.ops.scale_weights import scale_weights
@@ -119,7 +122,8 @@ def k2_both(imgs, vols, hw, stride, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,stride", [(8, 1), (40, 2), (70, 2)])
+@pytest.mark.parametrize("d,stride", [(8, 1), (40, 2), (70, 2), (128, 2),
+                                      (199, 2)])
 def test_k2_small(cuda, d, stride, dtype):
     imgs, vols, _ = (torch.as_tensor(x, device=cuda)
                      for x in random_scene(20, 28, d, seed=d))
@@ -153,10 +157,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                      max_dis=5, gamma=10.0)
     with pytest.raises(ValueError):        # f64 volume
         window_cost.window_cost_cuda(imgs, vols.double(), mc, abc, **kw)
-    with pytest.raises(ValueError):        # depth beyond the kernel's 128
+    with pytest.raises(ValueError):        # depth beyond the kernel's 256
         quadrant_build.quadrant_volumes_cuda(
-            imgs, torch.zeros((2, 8, 12, 129), device=cuda), half_wnd=1,
+            imgs, torch.zeros((2, 8, 12, 257), device=cuda), half_wnd=1,
             gamma=10.0, stride=1)
+    with pytest.raises(ValueError):        # stride 0
+        window_cost.window_cost_cuda(imgs, vols, mc, abc, wnd_stride=0, **kw)
+
+
+@pytest.mark.parametrize("k,stride", [(1, 2), (3, 3)])
+def test_k3_volume_form(cuda, k, stride):
+    h, w, d, hw = 24, 40, 8, 3
+    imgs, vols, mc = (torch.as_tensor(x, device=cuda)
+                      for x in random_scene(h, w, d, seed=k))
+    abc = torch.as_tensor(random_planes(k, h, w, d, seed=60 + k),
+                          device=cuda)
+    n = window_cost.strided_launches
+    got = window_cost.window_cost_cuda(imgs, vols, mc, abc, half_wnd=hw,
+                                       max_dis=d, gamma=10.0,
+                                       wnd_stride=stride)
+    assert window_cost.strided_launches == n + 1
+    want = torch.stack([plane_cost.window_plane_cost(
+        imgs[v], vols[v], mc[v], abc[v], half_wnd=hw, max_dis=d, gamma=10.0,
+        wnd_stride=stride) for v in range(2)])
+    assert_close(got, want)
 
 
 def k4_both(imgs, vols, mcs, wgts, abc, hw, d, dtype):
@@ -249,11 +273,90 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
             vd.imgs * 3, vd.vols * 3, vd.max_costs * 3, wgts * 3, abc, **kw)
 
 
+FLY_KW = dict(gamma=10.0, alpha=0.1, tau_clr=10.0, tau_grd=2.0,
+              border_thres=3.0)
+
+
+def fly_scene(h, w, d, levels, lab, seed, cuda):
+    cfg = CSPMConfig(max_dis=d, use_cs=levels > 1, scale_num=max(levels, 2),
+                     use_lab_weights=lab, precompute_volume=False)
+    pair = make_pair(h=h, w=w, max_dis=d, seed=seed)
+    fd = onthefly_cost.build_fly_data(torch.as_tensor(pair.left, device=cuda),
+                                      torch.as_tensor(pair.right, device=cuda),
+                                      cfg)
+    wgts = ([float(x) for x in scale_weights(levels, 0.3)] if levels > 1
+            else None)
+    return fd, wgts
+
+
+def fly_both(fd, wgts, abc, hw, d, lerp, stride):
+    kw = dict(half_wnd=hw, max_dis=d, lerp=lerp, wnd_stride=stride, **FLY_KW)
+    got = fly_cost.fly_cost_cuda(fd, wgts, abc, **kw)
+    want = onthefly_cost.fly_plane_cost(fd, wgts, abc, **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("lerp", ["cost", "image"])
+@pytest.mark.parametrize("lab", [False, True])
+@pytest.mark.parametrize("k,stride", [(1, 1), (2, 1), (4, 2)])
+def test_fly_kernel_one_level(cuda, lerp, lab, k, stride):
+    """K5 (cost), K6 (image), K7 (Lab) and K3's fly form (stride 2) on one
+    level, with candidates that leave the range, warp past either border
+    and (wild) overflow int32."""
+    h, w, d, hw = 28, 44, 12, 3
+    fd, _ = fly_scene(h, w, d, 1, lab, 5, cuda)
+    abc = torch.as_tensor(random_planes(k, h, w, d, seed=70 + k), device=cuda)
+    assert_close(*fly_both(fd, None, abc, hw, d, lerp, stride))
+
+
+@pytest.mark.parametrize("lerp,lab", [("cost", False), ("image", True)])
+def test_fly_kernel_cross_scale(cuda, lerp, lab):
+    """All levels in one launch on a ragged image (ceil-halved levels);
+    levels 3 and 4 have max_dis 2 and 1."""
+    h, w, d, hw = 37, 53, 16, 2
+    fd, wgts = fly_scene(h, w, d, 5, lab, 6, cuda)
+    abc = torch.as_tensor(random_planes(2, h, w, d, seed=80), device=cuda)
+    assert_close(*fly_both(fd, wgts, abc, hw, d, lerp, 1))
+
+
+def test_fly_kernel_bench_shape(cuda):
+    cfg = README_DEMO
+    fd, _ = fly_scene(375, 450, cfg.max_dis, 1, False, 0, cuda)
+    abc = torch.as_tensor(random_planes(2, 375, 450, cfg.max_dis, seed=5),
+                          device=cuda)
+    assert_close(*fly_both(fd, None, abc, cfg.half_wnd, cfg.max_dis, "cost",
+                           1))
+
+
+def test_fly_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    fd, _ = fly_scene(16, 24, 8, 1, False, 0, cuda)
+    abc = torch.as_tensor(random_planes(1, 16, 24, 8, seed=0), device=cuda)
+    kw = dict(half_wnd=2, max_dis=8, **FLY_KW)
+    with pytest.raises(ValueError):        # image lerp with max_dis >= W
+        fly_cost.fly_cost_cuda(fd, None, abc, half_wnd=2, max_dis=30,
+                               lerp="image", **FLY_KW)
+    with pytest.raises(ValueError):        # unknown lerp mode
+        fly_cost.fly_cost_cuda(fd, None, abc, lerp="tent", **kw)
+    with pytest.raises(ValueError):        # stride 0
+        fly_cost.fly_cost_cuda(fd, None, abc, lerp="cost", wnd_stride=0,
+                               **kw)
+    with pytest.raises(ValueError):        # weights given for one level
+        fly_cost.fly_cost_cuda(fd, [1.0], abc, lerp="cost", **kw)
+    with pytest.raises(ValueError):        # gradients of the wrong dtype
+        bad = onthefly_cost.FlyData(fd.imgs, [g.double() for g in fd.grds])
+        fly_cost.fly_cost_cuda(bad, None, abc, lerp="cost", **kw)
+    with pytest.raises(RuntimeError):      # over the shared-memory limit
+        fly_cost.fly_cost_cuda(fd, None, abc, half_wnd=64, max_dis=8000,
+                               lerp="cost", **FLY_KW)
+
+
 def reset_counts():
     window_cost.launches = quadrant_build.launches = 0
+    window_cost.strided_launches = 0
     cross_scale_cost.launches = 0
+    fly_cost.launches.clear()
     plane_cost.launches = prescreen_volume.launches = 0
-    plane_cost.cross_scale_launches = 0
+    plane_cost.cross_scale_launches = onthefly_cost.launches = 0
 
 
 def test_pipeline_runs_through_the_kernels(cuda):
@@ -283,3 +386,28 @@ def test_cross_scale_pipeline_runs_through_the_kernels(cuda):
     assert window_cost.launches == 0
     assert (plane_cost.launches, plane_cost.cross_scale_launches,
             prescreen_volume.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("kw,n_fly,n_strided", [
+    (dict(), 27, 12),
+    (dict(use_cs=True, scale_num=3, reg_lambda=0.3, fly_lerp="image",
+          use_lab_weights=True, use_pp=True), 15, 0),
+])
+def test_no_volume_pipeline_runs_through_the_kernels(cuda, kw, n_fly,
+                                                     n_strided):
+    """precompute_volume=False on the default device: 15 exact evaluations
+    per pair, 12 strided prescreens single-scale (none cross-scale), all
+    on the fly kernel, no plain version, no volume kernel."""
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11,
+                     precompute_volume=False, **kw)
+    reset_counts()
+    out = run_pair(pair.left, pair.right, 0, cfg)
+    torch.cuda.synchronize()
+    assert out["dis"].device.type == "cuda" and out["dis"].shape == (2, 48, 64)
+    assert fly_cost.count() == n_fly
+    assert fly_cost.count(strided=True) == n_strided
+    assert fly_cost.count(lab=True) == (n_fly if cfg.use_lab_weights else 0)
+    assert (window_cost.launches, quadrant_build.launches,
+            cross_scale_cost.launches) == (0, 0, 0)
+    assert onthefly_cost.launches == 0 and plane_cost.launches == 0

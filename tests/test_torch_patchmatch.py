@@ -299,10 +299,13 @@ def test_torch_draws_deterministic():
 
 @pytest.mark.parametrize("kw", [
     dict(aggregator="GF"), dict(aggregator="BF"),
-    dict(use_cs=True, precompute_volume=False), dict(precompute_volume=False),
-    dict(use_lab_weights=True), dict(aggregator="BOX"),
-    dict(prescreen_mode="window", adopt_mode="exact")])
+    dict(aggregator="BOX", use_cs=True), dict(aggregator="GF", use_pp=True),
+    dict(aggregator="BF", use_lab_weights=True), dict(aggregator="BOX"),
+    dict(aggregator="GF", prescreen_mode="window", adopt_mode="exact")])
 def test_unsupported_configs_raise(scene, kw):
+    """Only the aggregation filters remain unported (the no-volume path,
+    Lab weights and the window prescreen run: tests/test_torch_onthefly.py
+    checks that check_supported accepts them)."""
     cfg = small_cfg(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pm.make_cost_fns(cfg, scene["tvd"])

@@ -1,6 +1,7 @@
 """Where one run_pair of the PyTorch port spends its time on a CUDA card.
 
-    python tools/torch_profile_pair.py [--config README_DEMO|CEN_CS_PP]
+    python tools/torch_profile_pair.py [--config README_DEMO|CEN_CS_PP|
+                                                 README_DEMO-fly|KITTI-fly]
                                        [--h 375 --w 450 --max-dis 60]
 
 Runs the port's main path at the named config once to warm up, then once
@@ -8,13 +9,16 @@ under torch.profiler (CPU + CUDA activities), and prints: the wall time of
 the profiled pair, the summed device time, the device's idle share over the
 pair (1 - busy/wall, busy being the union of kernel intervals), the host
 time, device time and launches per top-level phase (record_function
-ranges, with a synchronise at each phase end; `postprocess` when the config
-post-processes), and the top CUDA
+ranges, with a synchronise at each phase end: the volume build (or, without
+a volume, the channel planes' build `fly_data`), the cost functions (the K2
+build on the volume path), the rank phase, the exact phase, plane_to_disp
+and `postprocess` when the config post-processes), and the top CUDA
 kernels by device time.  Writes the Chrome trace to
 chiprun_out/torch_profile_pair.json.gz.  Needs a CUDA device.
 """
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -48,17 +52,29 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
     from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
     from crossscalepatchmatch_tpu_torch.models.postprocess import postprocess
-    from crossscalepatchmatch_tpu_torch.ops import cost_volume
+    from crossscalepatchmatch_tpu_torch.ops import cost_volume, onthefly_cost
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
 
+    configs = {
+        "README_DEMO": config.README_DEMO, "CEN_CS_PP": config.CEN_CS_PP,
+        "README_DEMO-fly": dataclasses.replace(config.README_DEMO,
+                                               precompute_volume=False),
+        "KITTI-fly": dataclasses.replace(config.KITTI,
+                                         precompute_volume=False)}
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("README_DEMO", "CEN_CS_PP"),
+    ap.add_argument("--config", choices=tuple(configs),
                     default="README_DEMO")
-    ap.add_argument("--h", type=int, default=375)
-    ap.add_argument("--w", type=int, default=450)
-    ap.add_argument("--max-dis", type=int, default=60)
+    ap.add_argument("--h", type=int, default=None,
+                    help="default 375")
+    ap.add_argument("--w", type=int, default=None,
+                    help="default 450, 1242 for KITTI-fly")
+    ap.add_argument("--max-dis", type=int, default=None,
+                    help="default the config's max_dis")
     args = ap.parse_args()
-    cfg = getattr(config, args.config)
+    cfg = configs[args.config]
+    args.h = args.h or 375
+    args.w = args.w or (1242 if args.config == "KITTI-fly" else 450)
+    args.max_dis = args.max_dis or cfg.max_dis
     dev = torch.device("cuda:0")
     pair = make_pair(h=args.h, w=args.w, max_dis=args.max_dis, seed=0)
     l = torch.as_tensor(pair.left, device=dev)
@@ -78,13 +94,21 @@ def main() -> int:
         draws = TorchDraws(1, dev)
         hw = (args.h, args.w)
         n_rank = cfg.rank_iters
-        vd = phase("volume_build",
-                   lambda: cost_volume.build_volume_data(l, r, cfg))
-        cost_fn, sparse_fn = phase("quadrant_build_K2",
-                                   lambda: pm.make_cost_fns(cfg, vd))
+        if cfg.precompute_volume:
+            vd = phase("volume_build",
+                       lambda: cost_volume.build_volume_data(l, r, cfg))
+            cost_fn, sparse_fn = phase("quadrant_build_K2",
+                                       lambda: pm.make_cost_fns(cfg, vd))
+            pp_imgs = vd.imgs[0]
+        else:
+            fd = phase("fly_data",
+                       lambda: onthefly_cost.build_fly_data(l, r, cfg))
+            cost_fn, sparse_fn = pm.make_fly_cost_fns(cfg, fd)
+            pp_imgs = fd.imgs[0]
 
         def rank():
-            st = pm.init_state(draws, hw, sparse_fn, cfg, device=dev)
+            st = pm.init_state(draws, hw, sparse_fn if n_rank else None,
+                               cfg, device=dev)
             for it in range(n_rank):
                 st = pm.iteration_step(st, draws, it, sparse_fn, cfg)
             return st
@@ -104,7 +128,7 @@ def main() -> int:
                                                               cfg.dis_scale))
         if cfg.use_pp:
             phase("postprocess",
-                  lambda: postprocess(dis, st.abc, vd.imgs[0], cfg))
+                  lambda: postprocess(dis, st.abc, pp_imgs, cfg))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -113,7 +137,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    names = ("volume_build", "quadrant_build_K2", "rank_phase",
+    names = ("volume_build", "fly_data", "quadrant_build_K2", "rank_phase",
              "exact_phase", "plane_to_disp", "postprocess")
     events = prof.events()
     # the phase ranges also appear on the device timeline as annotations;
