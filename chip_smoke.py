@@ -15,12 +15,18 @@ Phases, each fatal on failure:
      (K=1) again on the KITTI scene's 129 slices (375x1242, max_dis=128);
   5. K4, the cross-scale window cost: the same on the 5-level census
      pyramid of the bench scene (CEN_CS_PP); f32 within 2e-5 relative, and
-     bf16 census volumes (integers, exact in bf16) bit-equal;
+     bf16 census volumes (integers, exact in bf16) bit-equal; K = 2, 3, 5,
+     8 against one K=8 plain call, another window (half_wnd 8), and the
+     kernel's pair-layout volume (pair_volume against the plain layout's
+     taps);
   6. the no-volume fly kernel on the bench scene: K5 (cost lerp) at K=1
-     and K=2, K3's fly form (stride 2, K=8), K6 (image lerp), K7 (Lab
-     weights) and the 5-level cross-scale fly at K=1; on the KITTI scene
-     (max_dis=128, the wider staged span) K5 at K=1 and K3's fly form;
-     each within 2e-5 relative of its plain version;
+     and, against one K=8 plain call, K = 2, 3, 5, 8; K3's fly form
+     (stride 2, K=8 and its first 3 and 5 candidates), K6 (image lerp), K7
+     (Lab weights), the 5-level cross-scale fly at K=1 and another window
+     (half_wnd 8, strides 1 and 3); on the KITTI scene (max_dis=128, the
+     wider staged span) K5 at K=1 and K3's fly form; each within 2e-5
+     relative of its plain version; K4 and the fly kernel are timed on
+     prepared pairs (packing and layout copies outside the timed region);
   each kernel's bound: the larger of its bytes over the HBM rate and its
   f32 operations, counted on this run's inputs, over the f32 peak; every
   plain version is timed on its one comparison call, the kernels with
@@ -54,6 +60,9 @@ SHAPE = dict(h=375, w=450, max_dis=60)
 KITTI_SHAPE = dict(h=375, w=1242, max_dis=128)
 F32_REL_TOL = 2e-5          # |kernel - plain| <= tol * max(1, |plain|)
 BAD_PIXEL_MAX = 0.01
+# candidate counts of the optimizer's batches (exact 1-3, prescreen 4-8)
+MANY_KS = (1, 2, 3, 5, 8)
+OTHER_HALF_WND = 8          # a window other than the presets' half_wnd 17
 SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level, card vs CPU
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores
@@ -409,47 +418,104 @@ def main() -> int:
             [m[v] for m in cmc], wgts, abc[v], half_wnd=chw,
             max_dis=ccfg.max_dis, gamma=ccfg.wgt_gamma) for v in range(2)])
 
-    def k4_kernel(abc, v):
-        return cross_scale_cost.cross_scale_cost_cuda(
-            cimgs, v, cmc, wgts, abc, half_wnd=chw, max_dis=ccfg.max_dis,
+    k4_kw = dict(half_wnd=chw, max_dis=ccfg.max_dis, levels=len(cvols))
+
+    def k4_prepare(v):
+        return cross_scale_cost.prepare_cross_scale(
+            cimgs, v, cmc, wgts, half_wnd=chw, max_dis=ccfg.max_dis,
             gamma=ccfg.wgt_gamma)
 
-    k4 = {"max_abs_err": 0.0, "max_rel_err": 0.0, "bf16_max_abs_err": 0.0}
-    for k in (1, 2):
-        abc = test_planes(pair, md, k, gen, dev)
-        want, plain_ms = timed_once(lambda: k4_plain(abc))
-        ab, rl = check_close(f"K4 K={k}", k4_kernel(abc, cvols), want)
-        ab_bf, _ = rel_err(k4_kernel(abc, cvols_bf16), want)
-        print(f"K4 K={k}: bf16 census volumes max|d| {ab_bf:.3e}")
-        if ab_bf != 0.0:
-            raise RuntimeError(f"K4 K={k}: bf16 census volumes differ from "
-                               f"the f32 plain version by {ab_bf}")
+    def k4_kernel(abc, prep):
+        return cross_scale_cost.cross_scale_cost_prepared(prep, abc, **k4_kw)
+
+    k4_f32, k4_bf16 = k4_prepare(cvols), k4_prepare(cvols_bf16)
+    # the kernel's pair layout: pair_volume against the plain layout's taps
+    pos = torch.randint(0, h * w, (1 << 20,), generator=gen, device=dev)
+    f = torch.randint(0, ccfg.max_dis, (1 << 20,), generator=gen, device=dev)
+    for v in range(2):
+        t0, t1 = cross_scale_cost.take_pair(
+            cross_scale_cost.pair_volume(cvols[0][v]), pos, f)
+        if not (torch.equal(t0, plane_cost.take_depth(cvols[0][v], pos, f))
+                and torch.equal(t1, plane_cost.take_depth(cvols[0][v], pos,
+                                                          f + 1))):
+            raise RuntimeError("K4: pair-layout volume differs from the "
+                               "plain layout's taps")
+    k4 = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+
+    def k4_check(name, got, want):
+        ab, rl = check_close(name, got, want)
         k4["max_abs_err"] = max(k4["max_abs_err"], ab)
         k4["max_rel_err"] = max(k4["max_rel_err"], rl)
-        t = time_turns({"f32": lambda: k4_kernel(abc, cvols),
-                        "bf16": lambda: k4_kernel(abc, cvols_bf16)},
+
+    def k4_exact_bf16(name, abc, want):
+        ab_bf, _ = rel_err(k4_kernel(abc, k4_bf16), want)
+        print(f"{name}: bf16 census volumes max|d| {ab_bf:.3e}")
+        if ab_bf != 0.0:
+            raise RuntimeError(f"{name}: bf16 census volumes differ from "
+                               f"the f32 plain version by {ab_bf}")
+
+    def k4_times(name, abc):
+        t = time_turns({"f32": lambda: k4_kernel(abc, k4_f32),
+                        "bf16": lambda: k4_kernel(abc, k4_bf16)},
                        {"f32": 5, "bf16": 5})
-        print(f"K4 K={k}: plain {plain_ms:.3f} ms | kernel f32 "
-              f"{t['f32']:.3f} ms | kernel bf16 {t['bf16']:.3f} ms")
-        if k == 1:
-            n_img, n_rng = window_samples(abc, len(cvols), chw, ccfg.max_dis)
-            b_ms, b_by = bound(
-                nbytes(*cimgs, *cvols_bf16, *cmc, abc) + 2 * k * h * w * 4,
-                FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
-            print(f"K4 K=1: {n_img} in-image samples, {n_rng} in range; "
-                  f"bound {b_ms:.4f} ms ({b_by})")
-            k4.update(ms=t["bf16"], ms_f32=t["f32"], plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by)
-        else:
-            k4.update(ms_k2=t["bf16"], ms_f32_k2=t["f32"],
-                      plain_ms_k2=plain_ms)
+        print(f"{name}: kernel f32 {t['f32']:.3f} ms | kernel bf16 "
+              f"{t['bf16']:.3f} ms")
+        return t
+
+    abc = test_planes(pair, md, 1, gen, dev)
+    want, plain_ms = timed_once(lambda: k4_plain(abc))
+    k4_check("K4 K=1", k4_kernel(abc, k4_f32), want)
+    k4_exact_bf16("K4 K=1", abc, want)
+    del want
+    print(f"K4 K=1: plain {plain_ms:.3f} ms")
+    t = k4_times("K4 K=1", abc)
+    n_img, n_rng = window_samples(abc, len(cvols), chw, ccfg.max_dis)
+    b_ms, b_by = bound(nbytes(*cimgs, *cvols_bf16, *cmc, abc) + 2 * h * w * 4,
+                       FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
+    print(f"K4 K=1: {n_img} in-image samples, {n_rng} in range; "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    k4.update(ms=t["bf16"], ms_f32=t["f32"], plain_ms=plain_ms,
+              bound_ms=b_ms, bound_by=b_by)
+    # more candidates, against one K=8 plain call (the plain version treats
+    # each candidate on its own, so its first k results are those of a
+    # K=k call)
+    abc8 = test_planes(pair, md, 8, gen, dev)
+    want, plain_ms = timed_once(lambda: k4_plain(abc8))
+    for k in MANY_KS[1:]:
+        k4_check(f"K4 first {k} of 8 candidates",
+                 k4_kernel(abc8[:, :k].contiguous(), k4_f32), want[:, :k])
+    abc = abc8[:, :2].contiguous()
+    k4_exact_bf16("K4 K=2", abc, want[:, :2])
+    del want
+    t = k4_times("K4 K=2", abc)
+    k4.update(ms_k2=t["bf16"], ms_f32_k2=t["f32"], plain_ms_k8=plain_ms,
+              ms_k8=time_turns({"k": lambda: k4_kernel(abc8, k4_bf16)},
+                               {"k": 3})["k"])
+    print(f"K4 K=8: plain {plain_ms:.3f} ms | kernel bf16 "
+          f"{k4['ms_k8']:.3f} ms")
+    del abc8, k4_f32, k4_bf16
+    # a window other than the presets'
+    abc = test_planes(pair, md, 2, gen, dev)
+    kw8 = dict(half_wnd=OTHER_HALF_WND, max_dis=ccfg.max_dis,
+               gamma=ccfg.wgt_gamma)
+    want = torch.stack([plane_cost.cross_scale_plane_cost(
+        [im[v] for im in cimgs], [vo[v] for vo in cvols],
+        [m[v] for m in cmc], wgts, abc[v], **kw8) for v in range(2)])
+    k4_check(f"K4 half_wnd={OTHER_HALF_WND} K=2",
+             cross_scale_cost.cross_scale_cost_cuda(cimgs, cvols, cmc, wgts,
+                                                    abc, **kw8), want)
     rec["k4"] = k4
-    del cvd, cvols, cvols_bf16
+    del want, cvd, cvols, cvols_bf16
 
     # -- 6. the fly kernel: K5, K3 (fly form), K6, K7 -------------------------
-    def fly_phase(name, fcfg, k, lerp, stride, reps, scene=None):
+    def fly_phase(name, fcfg, k, lerp, stride, reps, scene=None,
+                  first_ks=(), time_first=0):
         """The fly kernel against its plain version on a scene (the bench
-        scene by default)."""
+        scene by default), K candidates; first_ks: also its first k
+        candidates for each k given, against the same plain call (the
+        plain version treats each candidate on its own); time_first: also
+        time the kernel on the first time_first candidates.  reps = 0: the
+        check only."""
         p, pl, pr = scene or (pair, l, r)
         ph, pw = p.disp_left.shape
         fd = onthefly_cost.build_fly_data(pl, pr, fcfg)
@@ -458,17 +524,36 @@ def main() -> int:
                                                fcfg.reg_lambda)]
               if levels > 1 else None)
         kw = dict(half_wnd=fcfg.half_wnd, max_dis=fcfg.max_dis, lerp=lerp,
-                  wnd_stride=stride, gamma=fcfg.wgt_gamma,
-                  alpha=fcfg.cost_alpha, tau_clr=fcfg.tau_clr,
-                  tau_grd=fcfg.tau_grd, border_thres=fcfg.border_thres)
+                  gamma=fcfg.wgt_gamma, alpha=fcfg.cost_alpha,
+                  tau_clr=fcfg.tau_clr, tau_grd=fcfg.tau_grd,
+                  border_thres=fcfg.border_thres)
+        prep = fly_cost.prepare_fly(fd, wg, **kw)
+
+        def kernel(planes):
+            return fly_cost.fly_cost_prepared(
+                prep, planes, half_wnd=fcfg.half_wnd, max_dis=fcfg.max_dis,
+                levels=levels, wnd_stride=stride)
+
         abc = test_planes(p, fcfg.max_dis, k, gen, dev)
         want, plain_ms = timed_once(
-            lambda: onthefly_cost.fly_plane_cost(fd, wg, abc, **kw))
-        ab, rl = check_close(f"{name} K={k}",
-                             fly_cost.fly_cost_cuda(fd, wg, abc, **kw), want)
+            lambda: onthefly_cost.fly_plane_cost(fd, wg, abc,
+                                                 wnd_stride=stride, **kw))
+        ab, rl = check_close(f"{name} K={k}", kernel(abc), want)
+        for kk in first_ks:
+            ab_k, rl_k = check_close(f"{name} first {kk} of {k} candidates",
+                                     kernel(abc[:, :kk].contiguous()),
+                                     want[:, :kk])
+            ab, rl = max(ab, ab_k), max(rl, rl_k)
         del want
-        t = time_turns({"kernel": lambda: fly_cost.fly_cost_cuda(
-            fd, wg, abc, **kw)}, {"kernel": reps})
+        if not reps:
+            return dict(max_abs_err=ab, max_rel_err=rl)
+        fns = {"kernel": lambda: kernel(abc)}
+        if time_first:
+            head = abc[:, :time_first].contiguous()
+            fns["first"] = lambda: kernel(head)
+        t = time_turns(fns, dict.fromkeys(fns, reps))
+        if time_first:
+            print(f"{name} K={time_first}: kernel {t['first']:.3f} ms")
         n_img, n_rng = window_samples(abc, levels, fcfg.half_wnd,
                                       fcfg.max_dis, stride)
         inputs = [*fd.imgs, *fd.grds, *(fd.wimgs or []), abc]
@@ -478,29 +563,46 @@ def main() -> int:
         print(f"{name} K={k}: plain {plain_ms:.3f} ms | kernel "
               f"{t['kernel']:.3f} ms | {n_img} in-image samples, {n_rng} in "
               f"range; bound {b_ms:.4f} ms ({b_by})")
-        return dict(max_abs_err=ab, max_rel_err=rl, ms=t["kernel"],
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        out = dict(max_abs_err=ab, max_rel_err=rl, ms=t["kernel"],
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if time_first:
+            out["ms_first"] = t["first"]
+        return out
 
     fcfg = dataclasses.replace(README_DEMO, precompute_volume=False)
     kitti_fly = dataclasses.replace(KITTI, precompute_volume=False)
     kitti = (kpair, kl, kr)
     rec["k5"] = fly_phase("K5", fcfg, 1, "cost", 1, 10)
-    k5_k2 = fly_phase("K5", fcfg, 2, "cost", 1, 10)
     k5_cs = fly_phase("K5 cross-scale (5 levels)",
                       CSPMConfig(max_dis=md, precompute_volume=False,
                                  use_cs=True, reg_lambda=0.3),
                       1, "cost", 1, 5)
-    rec["k5"].update(ms_k2=k5_k2["ms"], plain_ms_k2=k5_k2["plain_ms"],
+    # more candidates (stride 1) against one K=8 plain call, and a window
+    # other than the presets'
+    k5_k8 = fly_phase("K5", fcfg, 8, "cost", 1, 3, first_ks=(2, 3, 5),
+                      time_first=2)
+    k5_gen = fly_phase(
+        f"K5 half_wnd={OTHER_HALF_WND}",
+        dataclasses.replace(fcfg, wnd_size=2 * OTHER_HALF_WND + 1), 2,
+        "cost", 1, 0)
+    k3_gen = fly_phase(
+        f"K3 fly form half_wnd={OTHER_HALF_WND}, stride 3",
+        dataclasses.replace(fcfg, wnd_size=2 * OTHER_HALF_WND + 1), 5,
+        "cost", 3, 0)
+    k5_parts = (rec["k5"], k5_cs, k5_k8, k5_gen)
+    rec["k5"].update(ms_k2=k5_k8["ms_first"], ms_k8=k5_k8["ms"],
+                     plain_ms_k8=k5_k8["plain_ms"],
                      ms_cross_scale=k5_cs["ms"],
                      plain_ms_cross_scale=k5_cs["plain_ms"],
                      bound_ms_cross_scale=k5_cs["bound_ms"],
-                     max_abs_err=max(rec["k5"]["max_abs_err"],
-                                     k5_k2["max_abs_err"],
-                                     k5_cs["max_abs_err"]),
-                     max_rel_err=max(rec["k5"]["max_rel_err"],
-                                     k5_k2["max_rel_err"],
-                                     k5_cs["max_rel_err"]))
-    rec["k3_fly"] = fly_phase("K3 fly form, stride 2", fcfg, 8, "cost", 2, 5)
+                     max_abs_err=max(p["max_abs_err"] for p in k5_parts),
+                     max_rel_err=max(p["max_rel_err"] for p in k5_parts))
+    k3_fly = fly_phase("K3 fly form, stride 2", fcfg, 8, "cost", 2, 5,
+                       first_ks=(3, 5))
+    k3_fly.update(
+        max_abs_err=max(k3_fly["max_abs_err"], k3_gen["max_abs_err"]),
+        max_rel_err=max(k3_fly["max_rel_err"], k3_gen["max_rel_err"]))
+    rec["k3_fly"] = k3_fly
     # KITTI: the other view's staged span is tile + 128 columns wide
     k5_kitti = fly_phase("K5 KITTI d=128", kitti_fly, 1, "cost", 1, 3,
                          kitti)

@@ -14,79 +14,80 @@
 // vol_s[v, q, f+1]) at dq for f = trunc(dq) when 1 <= dq < max_dis_s, else
 // max_costs_s[v].  A window pixel counts only inside level s.
 //
-// What bounds it on the H100: the same per-sample ALU work and two-tap
-// volume gather as K1, times the number of levels (every level sums a full
-// wnd x wnd window per fine pixel: 5 x 413 M samples per K=1 launch at the
-// bench shape).  The design follows K1: the weight from the 766-entry
-// table in shared memory, the L1 as one __vsadu4 of packed pixels, the two
-// lerp taps adjacent in the D-minor level volume; the block's level-s tile
-// plus its half_wnd halo (in level-s pixels) is restaged in shared memory
-// for each level.  Level s is indexed directly: no nearest-upsampled
+// What bounds it on the H100: instruction issue, not the f32 peak (the
+// kernel's useful operations are a few percent of it) and not bytes: every
+// level sums a full wnd x wnd window per fine pixel (5 x 413 M samples per
+// K=1 launch at the bench shape), each sample a chain of two shared loads
+// (pixel, weight table), the range test and a two-tap gather from the level
+// volume.  The design (see window_common.cuh for the shared parts) cuts the
+// instructions of a sample from about 70 to 33:
+//   * the in-image interval of a row is found once per level instead of
+//     two tests per sample;
+//   * the staged pixel, the depth row's 32-bit offset and dx advance as
+//     running values (the 64-bit index arithmetic of a gather was 9 of a
+//     sample's instructions);
+//   * no F2I / I2F: trunc(dq) by a round-toward-zero add of 2^23, dx as a
+//     running float;
+//   * no branch: the taps' load is predicated on the range test, so the
+//     loads of neighbouring samples overlap;
+//   * the pair layout: element f of a pixel's depth row holds (vol[f],
+//     vol[f+1]), so both taps are one aligned load (4 bytes bf16, 8 f32)
+//     where the plain D-minor layout needs two: a tenth of the kernel's
+//     time at twice the volume's memory;
+//   * a 32 x 16 tile, 512 threads, two blocks an SM (32 resident warps).
+// Measured and dropped: 2 or 4 candidates per thread sharing the weight
+// (no gain, see window_common.cuh) and an instance with half_wnd 17 fixed
+// at compile time and its row loop unrolled (slower than the runtime loop,
+// which the compiler unrolls by 4 itself).
+// Level s is indexed directly at (y >> s, x >> s): no nearest-upsampled
 // arrays, no tent contraction (both TPU workarounds).  One launch covers
-// every level, so an evaluation costs one launch, not one per level plus
-// the adds.  Every rounding step, the weighted level sum included, is an
-// explicit _rn intrinsic in the plain version's order: f32 results match
-// it on the card bit for bit.
-// One thread per (view, candidate, fine pixel); no inter-block state.
+// every level; the block's level-s tile plus its half_wnd halo is restaged
+// in shared memory for each level.  Every rounding step, the weighted level
+// sum included, is an explicit _rn intrinsic in the plain version's order:
+// f32 results match it on the card bit for bit.  No inter-block state, no
+// atomics.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "window_common.cuh"
 
 namespace {
 
-constexpr int kTX = 32;
-constexpr int kTY = 8;
-constexpr int kLutN = 766;  // 3 * 255 + 1
-constexpr int kMaxLevels = 8;
+using namespace cspm;
 
 struct Levels {
-  const uint32_t* img[kMaxLevels];   // [2, Hs, Ws] packed BGR
-  const void* vol[kMaxLevels];       // [2, Hs, Ws, Ds]
+  const uint32_t* img[kMaxLevels];     // [2, Hs, Ws] packed BGR
+  const void* vol[kMaxLevels];         // [2, Hs, Ws, Ds] of pairs
   const float* max_costs[kMaxLevels];  // [2]
   int h[kMaxLevels], w[kMaxLevels], d[kMaxLevels], max_dis[kMaxLevels];
   float wgt[kMaxLevels];
   int n;
 };
 
-__device__ __forceinline__ float load_vol(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_vol(const __nv_bfloat16* p) {
-  return __bfloat162float(p[0]);
-}
-
 template <typename VT>
-__global__ void __launch_bounds__(kTX * kTY)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 cross_scale_kernel(const Levels lv,
-                   const float* __restrict__ abc,   // [2, K, H, W, 3]
-                   const float* __restrict__ lut,   // [766]
-                   float* __restrict__ out,         // [2, K, H, W]
+                   const float* __restrict__ abc,  // [2, K, H, W, 3]
+                   const float* __restrict__ lut,  // [766]
+                   float* __restrict__ out,        // [2, K, H, W]
                    int K, int H, int W, int hw) {
+  using E = typename PairOf<VT>::type;
   extern __shared__ uint32_t smem[];
   float* s_lut = reinterpret_cast<float*>(smem);
   uint32_t* s_img = smem + kLutN;
   const int vk = blockIdx.z;  // v * K + k
   const int v = vk / K;
   const int x0 = blockIdx.x * kTX;
-  const int y0 = blockIdx.y * kTY;
+  const int y0 = blockIdx.y * kMaxTY;
   const int tid = threadIdx.y * kTX + threadIdx.x;
   const int x = x0 + threadIdx.x;
   const int y = y0 + threadIdx.y;
   const bool active = x < W && y < H;
   // last fine column / row of the block inside the image
   const int x_last = min(x0 + kTX, W) - 1;
-  const int y_last = min(y0 + kTY, H) - 1;
+  const int y_last = min(y0 + kMaxTY, H) - 1;
 
-  for (int i = tid; i < kLutN; i += kTX * kTY) s_lut[i] = lut[i];
-
-  float a = 0.f, b = 0.f, d0 = 0.f;
-  size_t pix = 0;
-  if (active) {
-    pix = ((size_t)vk * H + y) * W + x;
-    a = abc[pix * 3];
-    b = abc[pix * 3 + 1];
-    d0 = __fadd_rn(__fadd_rn(__fmul_rn(a, (float)x), __fmul_rn(b, (float)y)),
-                   abc[pix * 3 + 2]);
-  }
+  for (int i = tid; i < kLutN; i += kThreads) s_lut[i] = lut[i];
+  const size_t pix = active ? ((size_t)vk * H + y) * W + x : 0;
+  const Plane p = load_plane(abc, pix, x, y);
 
   float total = 0.f;
   for (int s = 0; s < lv.n; ++s) {
@@ -97,11 +98,10 @@ cross_scale_kernel(const Levels lv,
     const int tile_h = (y_last >> s) - cy0 + 1 + 2 * hw;
     const uint32_t* img_v = lv.img[s] + (size_t)v * hs * ws;
     __syncthreads();  // the previous level's tile is no longer read
-    for (int i = tid; i < tile_w * tile_h; i += kTX * kTY) {
-      const int ty = i / tile_w;
-      const int tx = i - ty * tile_w;
-      const int gy = cy0 - hw + ty;
-      const int gx = cx0 - hw + tx;
+    for (int i = tid; i < tile_w * tile_h; i += kThreads) {
+      const int r = i / tile_w;
+      const int gy = cy0 - hw + r;
+      const int gx = cx0 - hw + (i - r * tile_w);
       s_img[i] = (gy >= 0 && gy < hs && gx >= 0 && gx < ws)
                      ? img_v[(size_t)gy * ws + gx] : 0u;
     }
@@ -109,37 +109,13 @@ cross_scale_kernel(const Levels lv,
     if (!active) continue;
 
     const int cy = y >> s, cx = x >> s;
-    const float d_f = __fmul_rn(d0, 1.f / (float)(1 << s));  // exact scale
-    const float maxc = lv.max_costs[s][v];
-    const float fmax = (float)lv.max_dis[s];
-    const int ly = cy - cy0 + hw;  // center in tile coordinates
-    const int lx = cx - cx0 + hw;
-    const uint32_t col_c = s_img[ly * tile_w + lx];
-    const VT* vol_v = static_cast<const VT*>(lv.vol[s]) + (size_t)v * hs * ws * ds;
-
-    float acc = 0.f;
-    for (int dy = -hw; dy <= hw; ++dy) {
-      const int qy = cy + dy;
-      if (qy < 0 || qy >= hs) continue;
-      const float bdy = __fmul_rn(b, (float)dy);
-      const uint32_t* s_row = s_img + (ly + dy) * tile_w + lx;
-      const VT* vol_row = vol_v + (size_t)qy * ws * ds;
-      for (int dx = -hw; dx <= hw; ++dx) {
-        const int qx = cx + dx;
-        if (qx < 0 || qx >= ws) continue;
-        const float wgt = s_lut[__vsadu4(col_c, s_row[dx])];
-        const float dq = __fadd_rn(__fadd_rn(d_f, __fmul_rn(a, (float)dx)), bdy);
-        float val = maxc;
-        if (dq >= 1.f && dq < fmax) {  // NaN fails both: saturates
-          const int f = (int)dq;        // in range: trunc is defined
-          const VT* p = vol_row + (size_t)qx * ds + f;
-          const float fw = __fsub_rn((float)(f + 1), dq);
-          val = __fadd_rn(__fmul_rn(fw, load_vol(p)),
-                          __fmul_rn(__fsub_rn(1.f, fw), load_vol(p + 1)));
-        }
-        acc = __fadd_rn(acc, __fmul_rn(wgt, val));
-      }
-    }
+    const float d_f = __fmul_rn(p.d0, 1.f / (float)(1 << s));  // exact scale
+    const E* vol_v =
+        static_cast<const E*>(lv.vol[s]) + (size_t)v * hs * ws * ds;
+    const float acc = volume_level_cost<E>(
+        s_img, tile_w, cx - cx0 + hw, cy - cy0 + hw, s_lut, vol_v, hs, ws,
+        ds, cx, cy, hw, 1, lv.max_costs[s][v], (float)lv.max_dis[s], p.a,
+        p.b, d_f);
     const float term = __fmul_rn(lv.wgt[s], acc);
     total = s == 0 ? term : __fadd_rn(total, term);
   }
@@ -150,18 +126,18 @@ template <typename VT>
 cudaError_t launch(const Levels& lv, const void* abc, const void* lut,
                    void* out, int K, int H, int W, int hw,
                    cudaStream_t stream) {
-  // level 0's tile is the largest: a coarser level's block spans fewer
-  // centers
+  // level 0's tile is the largest (a coarser level's block spans fewer
+  // centers): 95 KB at half_wnd 64, always inside a block's 227 KB
   const size_t smem =
-      (kLutN + (size_t)(kTX + 2 * hw) * (kTY + 2 * hw)) * sizeof(uint32_t);
+      (kLutN + (size_t)(kTX + 2 * hw) * (kMaxTY + 2 * hw)) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         cross_scale_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 block(kTX, kTY);
-  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, 2 * K);
+  const dim3 block(kTX, kMaxTY);
+  const dim3 grid((W + kTX - 1) / kTX, (H + kMaxTY - 1) / kMaxTY, 2 * K);
   cross_scale_kernel<VT><<<grid, block, smem, stream>>>(
       lv, static_cast<const float*>(abc), static_cast<const float*>(lut),
       static_cast<float*>(out), K, H, W, hw);
@@ -171,36 +147,33 @@ cudaError_t launch(const Levels& lv, const void* abc, const void* lut,
 }  // namespace
 
 // Per-level arrays (host memory, `levels` entries each): packed images,
-// volumes, saturation values (device pointers), shapes, the levels'
-// max_dis and the scale weights.
+// pair-layout volumes ([2, Hs, Ws, Ds, 2]), saturation values (device
+// pointers), shapes, the levels' max_dis and the scale weights.
 extern "C" int cspm_cross_scale_cost(
     const void* const* imgs, const void* const* vols,
     const void* const* max_costs, const int* hs, const int* ws,
     const int* ds, const int* max_dis, const float* wgts, int levels,
     int vol_bf16, const void* abc, const void* lut, void* out, int K, int H,
     int W, int half_wnd, void* stream) {
-  if (levels < 1 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (levels < 1 || levels > kMaxLevels || K < 1 || half_wnd < 0 ||
+      half_wnd > 64)
+    return (int)cudaErrorInvalidValue;
   Levels lv;
   lv.n = levels;
-  for (int s = 0; s < levels; ++s) {
-    lv.img[s] = static_cast<const uint32_t*>(imgs[s]);
-    lv.vol[s] = vols[s];
-    lv.max_costs[s] = static_cast<const float*>(max_costs[s]);
-    lv.h[s] = hs[s];
-    lv.w[s] = ws[s];
-    lv.d[s] = ds[s];
-    lv.max_dis[s] = max_dis[s];
-    lv.wgt[s] = wgts[s];
+  for (int s = 0; s < kMaxLevels; ++s) {
+    const bool on = s < levels;
+    lv.img[s] = on ? static_cast<const uint32_t*>(imgs[s]) : nullptr;
+    lv.vol[s] = on ? vols[s] : nullptr;
+    lv.max_costs[s] = on ? static_cast<const float*>(max_costs[s]) : nullptr;
+    lv.h[s] = on ? hs[s] : 0;
+    lv.w[s] = on ? ws[s] : 0;
+    lv.d[s] = on ? ds[s] : 0;
+    lv.max_dis[s] = on ? max_dis[s] : 0;
+    lv.wgt[s] = on ? wgts[s] : 0.f;
   }
-  for (int s = levels; s < kMaxLevels; ++s) {
-    lv.img[s] = nullptr;
-    lv.vol[s] = nullptr;
-    lv.max_costs[s] = nullptr;
-    lv.h[s] = lv.w[s] = lv.d[s] = lv.max_dis[s] = 0;
-    lv.wgt[s] = 0.f;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vol_bf16)
-    return (int)launch<__nv_bfloat16>(lv, abc, lut, out, K, H, W, half_wnd, s);
-  return (int)launch<float>(lv, abc, lut, out, K, H, W, half_wnd, s);
+    return (int)launch<__nv_bfloat16>(lv, abc, lut, out, K, H, W, half_wnd,
+                                      st);
+  return (int)launch<float>(lv, abc, lut, out, K, H, W, half_wnd, st);
 }

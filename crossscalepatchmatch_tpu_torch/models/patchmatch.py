@@ -30,8 +30,9 @@ import torch
 from ..config import CSPMConfig
 from ..ops import plane
 from ..ops.cost_volume import VolumeData
-from ..ops.cuda.cross_scale_cost import cross_scale_cost
-from ..ops.cuda.fly_cost import fly_cost
+from ..ops.cuda.cross_scale_cost import (cross_scale_cost_prepared,
+                                         prepare_cross_scale)
+from ..ops.cuda.fly_cost import fly_cost_prepared, prepare_fly
 from ..ops.cuda.quadrant_build import quadrant_volumes
 from ..ops.cuda.window_cost import window_cost
 from ..ops.onthefly_cost import FlyData
@@ -98,12 +99,16 @@ def make_cost_fns(cfg: CSPMConfig,
     kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
               gamma=cfg.wgt_gamma)
     if cfg.use_cs:
-        wgts = tuple(float(x) for x in
-                     scale_weights(cfg.scale_num, cfg.reg_lambda))
+        # packed images, kernel-layout volumes and the weight table are
+        # made once per pair; an evaluation only launches
+        prep = prepare_cross_scale(
+            vd.weight_imgs, kvols, vd.max_costs,
+            scale_weights(cfg.scale_num, cfg.reg_lambda), **kw)
 
         def cost_fn(abc2: torch.Tensor) -> torch.Tensor:
-            return cross_scale_cost(vd.weight_imgs, kvols, vd.max_costs,
-                                    wgts, abc2, **kw)
+            return cross_scale_cost_prepared(
+                prep, abc2, half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
+                levels=cfg.scale_num)
     else:
         def cost_fn(abc2: torch.Tensor,
                     stride: int = 1) -> torch.Tensor:
@@ -130,16 +135,20 @@ def make_fly_cost_fns(cfg: CSPMConfig,
     cfg.use_cs, else None.  There is no quadrant ranking (it needs a
     volume), so rank adoption is off and the run is all-exact."""
     check_supported(cfg)
-    wgts = (tuple(float(x) for x in
-                  scale_weights(cfg.scale_num, cfg.reg_lambda))
-            if cfg.use_cs else None)
-    kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
-              gamma=cfg.wgt_gamma, alpha=cfg.cost_alpha,
-              tau_clr=cfg.tau_clr, tau_grd=cfg.tau_grd,
-              border_thres=cfg.border_thres, lerp=cfg.fly_lerp)
+    # packed images and the weight table are made once per pair; an
+    # evaluation only launches
+    prep = prepare_fly(
+        fd, scale_weights(cfg.scale_num, cfg.reg_lambda) if cfg.use_cs
+        else None, half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
+        gamma=cfg.wgt_gamma, alpha=cfg.cost_alpha, tau_clr=cfg.tau_clr,
+        tau_grd=cfg.tau_grd, border_thres=cfg.border_thres,
+        lerp=cfg.fly_lerp)
+    levels = cfg.scale_num if cfg.use_cs else 1
 
     def cost_fn(abc2: torch.Tensor, stride: int = 1) -> torch.Tensor:
-        return fly_cost(fd, wgts, abc2, wnd_stride=stride, **kw)
+        return fly_cost_prepared(prep, abc2, half_wnd=cfg.half_wnd,
+                                 max_dis=cfg.max_dis, levels=levels,
+                                 wnd_stride=stride)
 
     sparse_fn = (functools.partial(cost_fn, stride=cfg.prescreen_stride)
                  if cfg.prescreen_stride > 1 and not cfg.use_cs else None)

@@ -8,8 +8,9 @@ use with
 
 into a shared library with a plain C interface, loaded with ctypes.  The
 nvcc processes of all sources that have no library yet run at the same
-time.  A file name carries a hash of its source, so an edited source is
-rebuilt and a built library is reused.  Nothing here runs at import time.
+time.  A file name carries a hash of its source and of the headers
+(csrc/*.cuh), so an edited source is rebuilt and a built library is reused.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -53,10 +54,10 @@ SOURCES = {
                                   _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "fly_cost.cu": {
-        # per-level host arrays: cols, grds, wgt imgs, hs, ws, max_dis,
-        # scale wgts; levels, image, lab, coef[6] (host), abc, lut, out,
-        # K, H, W, half_wnd, stride, stream
-        "cspm_fly_cost": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+        # per-level host arrays: refs (colour, gradient), wgt imgs, hs, ws,
+        # max_dis, scale wgts; levels, image, lab, coef[6] (host), abc,
+        # lut, out, K, H, W, half_wnd, stride, stream
+        "cspm_fly_cost": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                           _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
@@ -74,8 +75,11 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(SRC_DIR, source), "rb") as f:
-        h.update(f.read())
+    # the source and every header beside it (a source may include any)
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(SRC_DIR, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")

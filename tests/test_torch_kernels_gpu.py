@@ -350,6 +350,180 @@ def test_fly_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                lerp="cost", **FLY_KW)
 
 
+def nan_planes(k, h, w, d, seed):
+    """random_planes (out-of-range and wild candidates included) with a NaN
+    plane on about 2 % of the pixels of every candidate."""
+    abc = random_planes(k, h, w, d, seed)
+    m = np.random.default_rng(seed + 1).uniform(size=abc.shape[:-1]) < 0.02
+    abc[m] = np.nan
+    return abc
+
+
+MANY_KS = [1, 2, 3, 5, 8]       # candidate counts of the optimizer's batches
+
+
+@pytest.mark.parametrize("levels", [1, 5])
+@pytest.mark.parametrize("hw", [3, 17])
+@pytest.mark.parametrize("k", MANY_KS)
+def test_k4_candidates_windows_levels(cuda, k, hw, levels):
+    """1 to 8 candidates, the production window and a small one, 1 and 5
+    levels on a ragged image (not a multiple of the 32 x 16 tile), planes
+    with NaN, out-of-range and wild dq: bit-equal to the plain version, and
+    the same on a rerun."""
+    h, w, d = 37, 53, 12
+    vd, wgts = cen_levels(h, w, d, max(levels, 2), cuda)
+    imgs, vols, mcs = (x[:levels] for x in (vd.imgs, vd.vols, vd.max_costs))
+    wgts = wgts[:levels]
+    abc = torch.as_tensor(nan_planes(k, h, w, d, seed=100 + k), device=cuda)
+    got, want = k4_both(imgs, vols, mcs, wgts, abc, hw, d, torch.float32)
+    assert_close(got, want)
+    assert torch.equal(got, want)
+    again, _ = k4_both(imgs, vols, mcs, wgts, abc, hw, d, torch.float32)
+    assert torch.equal(got, again)
+
+
+def test_pair_volume_on_the_card(cuda):
+    vol = torch.rand((2, 5, 7, 9), device=cuda).to(torch.bfloat16)
+    pv = cross_scale_cost.pair_volume(vol)
+    assert pv.shape == (2, 5, 7, 9, 2) and pv.dtype == vol.dtype
+    assert torch.equal(pv[..., 0], vol)
+    assert torch.equal(pv[..., :-1, 1], vol[..., 1:])
+
+
+# (half_wnd, stride, levels): the production window and a small one at
+# strides 1-3, 1 and 5 levels
+FLY_WINDOWS = [(3, 1, 1), (3, 2, 5), (3, 3, 1), (17, 1, 5), (17, 2, 1),
+               (17, 3, 1)]
+FLY_CASES = [
+    (lerp, lab, k, *FLY_WINDOWS[(2 * (2 * li + bi) + 5 * ki + j) % 6])
+    for li, lerp in enumerate(["cost", "image"])
+    for bi, lab in enumerate([False, True])
+    for ki, k in enumerate(MANY_KS) for j in (0, 3)]
+
+
+@pytest.mark.parametrize("lerp,lab,k,hw,stride,levels", FLY_CASES)
+def test_fly_candidates_windows_levels(cuda, lerp, lab, k, hw, stride,
+                                        levels):
+    """Each fly template (K5 cost, K6 image, K7 Lab) at 1 to 8 candidates,
+    two window sizes, strides 1-3, 1 and 5 levels on a ragged image, planes
+    with NaN, out-of-range and wild dq: within 2e-5 of the plain version,
+    and the same bits on a rerun."""
+    h, w, d = 37, 53, 16
+    fd, wgts = fly_scene(h, w, d, levels, lab, 6, cuda)
+    abc = torch.as_tensor(nan_planes(k, h, w, d, seed=200 + k), device=cuda)
+    got, want = fly_both(fd, wgts, abc, hw, d, lerp, stride)
+    assert_close(got, want)
+    again, _ = fly_both(fd, wgts, abc, hw, d, lerp, stride)
+    assert torch.equal(got, again)
+
+
+def test_fly_cases_cover_the_grid():
+    for i, name in enumerate(("lerp", "lab", "k", "hw", "stride", "levels")):
+        seen = {c[i] for c in FLY_CASES}
+        want = {"lerp": {"cost", "image"}, "lab": {False, True},
+                "k": set(MANY_KS), "hw": {3, 17}, "stride": {1, 2, 3},
+                "levels": {1, 5}}[name]
+        assert seen == want, name
+    for lerp in ("cost", "image"):
+        for lab in (False, True):
+            assert {c[2] for c in FLY_CASES
+                    if c[:2] == (lerp, lab)} == set(MANY_KS)
+
+
+@pytest.mark.parametrize("lerp,lab,hw", [("cost", False, 36),
+                                         ("image", True, 32)])
+def test_fly_eight_row_tile(cuda, lerp, lab, hw):
+    """At max_dis 128, half_wnd 36 (32 with the Lab word): 16 tile rows of
+    staging pass a block's 227 KB of shared memory, 8 rows fit, so the
+    launch takes the 8-row tile."""
+    h, w, d = 20, 150, 128
+    fd, _ = fly_scene(h, w, d, 1, lab, 8, cuda)
+    abc = torch.as_tensor(nan_planes(2, h, w, d, seed=9), device=cuda)
+    assert_close(*fly_both(fd, None, abc, hw, d, lerp, 2))
+
+
+def test_prepared_objects_raise_on_a_mismatch(cuda):
+    fd, _ = fly_scene(16, 24, 8, 1, False, 0, cuda)
+    abc = torch.as_tensor(random_planes(1, 16, 24, 8, seed=0), device=cuda)
+    prep = fly_cost.prepare_fly(fd, None, half_wnd=2, max_dis=8, lerp="cost",
+                                **FLY_KW)
+    ok = dict(half_wnd=2, max_dis=8, levels=1)
+    assert fly_cost.fly_cost_prepared(prep, abc, **ok).shape == (2, 1, 16, 24)
+    for bad in (dict(ok, half_wnd=3), dict(ok, max_dis=9),
+                dict(ok, levels=2)):
+        with pytest.raises(ValueError):
+            fly_cost.fly_cost_prepared(prep, abc, **bad)
+    with pytest.raises(ValueError):        # planes of another image size
+        fly_cost.fly_cost_prepared(prep, abc[:, :, :8].contiguous(), **ok)
+    with pytest.raises(ValueError):        # planes on the CPU
+        fly_cost.fly_cost_prepared(prep, abc.cpu(), **ok)
+    vd, wgts = cen_levels(24, 32, 12, 3, cuda)
+    abc = torch.as_tensor(random_planes(1, 24, 32, 12, seed=0), device=cuda)
+    prep = cross_scale_cost.prepare_cross_scale(
+        vd.imgs, vd.vols, vd.max_costs, wgts, half_wnd=2, max_dis=12,
+        gamma=10.0)
+    ok = dict(half_wnd=2, max_dis=12, levels=3)
+    assert cross_scale_cost.cross_scale_cost_prepared(
+        prep, abc, **ok).shape == (2, 1, 24, 32)
+    for bad in (dict(ok, half_wnd=3), dict(ok, max_dis=6),
+                dict(ok, levels=2)):
+        with pytest.raises(ValueError):
+            cross_scale_cost.cross_scale_cost_prepared(prep, abc, **bad)
+    with pytest.raises(ValueError):
+        cross_scale_cost.cross_scale_cost_prepared(
+            prep, abc[:, :, :, :16].contiguous(), **ok)
+
+
+def random_levels(h, w, d, levels, seed, cuda):
+    """Per-level random u8 images, f32 volumes, the images' gray gradients
+    and saturation values on ceil-halved level shapes (max_dis halves down
+    to 0)."""
+    rng = np.random.default_rng(seed)
+    imgs, vols, mcs = [], [], []
+    md = d
+    for s in range(levels):
+        hs, ws = ((h - 1) >> s) + 1, ((w - 1) >> s) + 1
+        imgs.append(rng.integers(0, 256, (2, hs, ws, 3), dtype=np.uint8))
+        vols.append(rng.uniform(0, 1, (2, hs, ws, md + 1)).astype(np.float32))
+        mcs.append(vols[-1].max(axis=(1, 2, 3)))
+        md //= 2
+    imgs, vols, mcs = ([torch.as_tensor(x, device=cuda) for x in xs]
+                       for xs in (imgs, vols, mcs))
+    # the cost-lerp plain version takes the gradient from the images
+    grds = [onthefly_cost.gray_gradient(im) for im in imgs]
+    return imgs, vols, grds, mcs
+
+
+@pytest.mark.parametrize("hw,levels,k", [(0, 1, 1), (40, 2, 1), (2, 8, 2),
+                                         (1, 1, 40)])
+def test_k4_edge_shapes(cuda, hw, levels, k):
+    """The window of one pixel, a window wider than the image, eight levels
+    down to 2 x 3 pixels and max_dis 0, and 40 candidates."""
+    h, w, d = (150, 260, 12) if levels == 8 else (20, 30, 12)
+    imgs, vols, _, mcs = random_levels(h, w, d, levels, 3, cuda)
+    wgts = [0.5 ** (s + 1) for s in range(levels)]
+    abc = torch.as_tensor(nan_planes(k, h, w, d, seed=300 + hw), device=cuda)
+    got, want = k4_both(imgs, vols, mcs, wgts, abc, hw, d, torch.float32)
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("lerp,hw,stride,levels,k,d", [
+    ("cost", 0, 1, 1, 1, 12), ("cost", 2, 7, 1, 2, 12),
+    ("cost", 48, 1, 1, 1, 4), ("cost", 2, 1, 8, 2, 12),
+    ("image", 2, 2, 4, 1, 12), ("image", 1, 1, 1, 40, 12)])
+def test_fly_edge_shapes(cuda, lerp, hw, stride, levels, k, d):
+    """The window of one pixel, a stride past the window, half_wnd 48 (only
+    the 8-row tile's staging fits a block), eight levels down to 2 x 3
+    pixels and max_dis 0 (four in image mode, which needs max_dis below the
+    level's width), and 40 candidates."""
+    h, w = (150, 260) if levels == 8 else (20, 30)
+    imgs, _, grds, _ = random_levels(h, w, d, levels, 4, cuda)
+    fd = onthefly_cost.FlyData(imgs=imgs, grds=grds)
+    wgts = [0.5 ** (s + 1) for s in range(levels)] if levels > 1 else None
+    abc = torch.as_tensor(nan_planes(k, h, w, d, seed=400 + hw), device=cuda)
+    assert_close(*fly_both(fd, wgts, abc, hw, d, lerp, stride))
+
+
 def reset_counts():
     window_cost.launches = quadrant_build.launches = 0
     window_cost.strided_launches = 0

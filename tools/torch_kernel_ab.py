@@ -1,0 +1,168 @@
+"""Time the port's K4 and fly kernels on a CUDA card, optionally against
+another checkout of the repository.
+
+    python tools/torch_kernel_ab.py [--parent DIR] [--reps 5]
+
+Shapes: the bench scene (375x450, max_dis 60, wnd 35) and, for the fly
+kernel, the KITTI scene (375x1242, max_dis 128).  Cases: K4 at K = 1, 2 and
+3 (5-level census pyramid, bf16 and f32 volumes); the fly kernel as K5 at
+K = 1, 2 and 3, as the strided prescreen (K3: stride 2, K = 8 and 5), as K6
+(image lerp), K7 (Lab) and the 5-level cross-scale fly, K5 and K3 also on
+the KITTI scene.  Every time is CUDA events around `reps` launches after a
+warm-up; where the checkout has prepared pairs (prepare_fly,
+prepare_cross_scale), the preparation (packing, the pair-layout volumes) is
+outside the timed region.
+
+--parent DIR: a checkout of another commit (e.g. `git archive` of the
+parent unpacked under build/); its kernels are built and timed in a process
+of their own before and after this checkout's, so the order is parent,
+change, parent on one card.  Prints one JSON line per process with every
+time in ms.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout to import and time")
+    ap.add_argument("--parent", default=None)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    if args.parent:
+        me = os.path.abspath(__file__)
+        steps = [[sys.executable, me, "--root", args.parent],
+                 [sys.executable, me],
+                 [sys.executable, me, "--root", args.parent]]
+        for cmd in steps:
+            cmd += ["--reps", str(args.reps)]
+            print("+", " ".join(cmd), flush=True)
+            rc = subprocess.run(cmd).returncode
+            if rc:
+                return rc
+        return 0
+
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, KITTI, CSPMConfig,
+                                                README_DEMO)
+    from crossscalepatchmatch_tpu_torch.data import make_pair
+    from crossscalepatchmatch_tpu_torch.ops import onthefly_cost
+    from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
+        build_volume_data)
+    from crossscalepatchmatch_tpu_torch.ops.cuda import (_build,
+                                                         cross_scale_cost,
+                                                         fly_cost)
+    from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
+        scale_weights)
+
+    dev = torch.device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    prepared = hasattr(fly_cost, "prepare_fly")
+    print(f"{card} | root {args.root} | prepared wrappers: {prepared}")
+    _build.build(verbose=True)
+    _build.load()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = {}
+
+    def timed(name, fn):
+        t = chip_smoke.time_turns({"k": fn}, {"k": args.reps})["k"]
+        times[name] = t
+        print(f"{name}: {t:.3f} ms", flush=True)
+
+    # -- the fly kernel -------------------------------------------------------
+    def fly_case(name, cfg, scene, k, lerp, stride):
+        pair, l, r = scene
+        fd = onthefly_cost.build_fly_data(l, r, cfg)
+        levels = len(fd.imgs)
+        wg = ([float(x) for x in scale_weights(cfg.scale_num,
+                                               cfg.reg_lambda)]
+              if levels > 1 else None)
+        kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis, lerp=lerp,
+                  gamma=cfg.wgt_gamma, alpha=cfg.cost_alpha,
+                  tau_clr=cfg.tau_clr, tau_grd=cfg.tau_grd,
+                  border_thres=cfg.border_thres)
+        abc = chip_smoke.test_planes(pair, cfg.max_dis, k, gen, dev)
+        if prepared:
+            prep = fly_cost.prepare_fly(fd, wg, **kw)
+
+            def fn():
+                return fly_cost.fly_cost_prepared(
+                    prep, abc, half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
+                    levels=levels, wnd_stride=stride)
+        else:
+            def fn():
+                return fly_cost.fly_cost_cuda(fd, wg, abc, wnd_stride=stride,
+                                              **kw)
+        timed(name, fn)
+
+    def scene_of(shape):
+        pair = make_pair(seed=0, **shape)
+        return (pair, torch.as_tensor(pair.left, device=dev),
+                torch.as_tensor(pair.right, device=dev))
+
+    bench = scene_of(chip_smoke.SHAPE)
+    kitti = scene_of(chip_smoke.KITTI_SHAPE)
+    fcfg = dataclasses.replace(README_DEMO, precompute_volume=False)
+    kcfg = dataclasses.replace(KITTI, precompute_volume=False)
+    md = README_DEMO.max_dis
+    fly_case("K5 K=1", fcfg, bench, 1, "cost", 1)
+    fly_case("K5 K=2", fcfg, bench, 2, "cost", 1)
+    fly_case("K5 K=3", fcfg, bench, 3, "cost", 1)
+    fly_case("K3 fly stride 2 K=8", fcfg, bench, 8, "cost", 2)
+    fly_case("K3 fly stride 2 K=5", fcfg, bench, 5, "cost", 2)
+    fly_case("K6 K=1", fcfg, bench, 1, "image", 1)
+    fly_case("K6 K=2", fcfg, bench, 2, "image", 1)
+    fly_case("K7 K=1", CSPMConfig(max_dis=md, precompute_volume=False,
+                                  use_lab_weights=True), bench, 1, "cost", 1)
+    fly_case("K5 cross-scale K=1",
+             CSPMConfig(max_dis=md, precompute_volume=False, use_cs=True,
+                        reg_lambda=0.3), bench, 1, "cost", 1)
+    fly_case("K5 KITTI K=1", kcfg, kitti, 1, "cost", 1)
+    fly_case("K5 KITTI K=2", kcfg, kitti, 2, "cost", 1)
+    fly_case("K3 fly KITTI stride 2 K=8", kcfg, kitti, 8, "cost", 2)
+
+    # -- K4 -------------------------------------------------------------------
+    ccfg = CEN_CS_PP
+    pair, l, r = bench
+    cvd = build_volume_data(l, r, ccfg)
+    wgts = [float(x) for x in scale_weights(ccfg.scale_num, ccfg.reg_lambda)]
+    kw4 = dict(half_wnd=ccfg.half_wnd, max_dis=ccfg.max_dis,
+               gamma=ccfg.wgt_gamma)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        vols = [v.to(dtype) for v in cvd.vols]
+        for k in (1, 2, 3):
+            abc = chip_smoke.test_planes(pair, ccfg.max_dis, k, gen, dev)
+            if prepared:
+                prep = cross_scale_cost.prepare_cross_scale(
+                    cvd.imgs, vols, cvd.max_costs, wgts, **kw4)
+
+                def fn():
+                    return cross_scale_cost.cross_scale_cost_prepared(
+                        prep, abc, half_wnd=ccfg.half_wnd,
+                        max_dis=ccfg.max_dis, levels=len(vols))
+            else:
+                def fn():
+                    return cross_scale_cost.cross_scale_cost_cuda(
+                        cvd.imgs, vols, cvd.max_costs, wgts, abc, **kw4)
+            timed(f"K4 {tag} K={k}", fn)
+    print(json.dumps({"card": card, "root": args.root, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
