@@ -25,8 +25,8 @@ Phases, each fatal on failure:
      (Lab weights), the 5-level cross-scale fly at K=1 and another window
      (half_wnd 8, strides 1 and 3); on the KITTI scene (max_dis=128, the
      wider staged span) K5 at K=1 and K3's fly form; each within 2e-5
-     relative of its plain version; K4 and the fly kernel are timed on
-     prepared pairs (packing and layout copies outside the timed region);
+     relative of its plain version; every kernel is timed on prepared
+     pairs (packing and layout copies outside the timed region);
   each kernel's bound: the larger of its bytes over the HBM rate and its
   f32 operations, counted on this run's inputs, over the f32 peak; every
   plain version is timed on its one comparison call, the kernels with
@@ -39,7 +39,9 @@ Phases, each fatal on failure:
      seeds 0 and 0 again (@3px <= 0.01, @1px printed) and KITTI with its
      volumes for seed 0 (the K2 repair, and the memory comparison); the
      path's kernels must have launched and no plain version; seed 0
-     bit-identical on rerun; ms/pair and peak device memory; for CEN_CS_PP
+     bit-identical on rerun, and a digest of its `dis` bytes printed (to
+     compare two checkouts on one card); ms/pair and peak device memory;
+     for CEN_CS_PP
      also the time and launch count of postprocess;
   8. small pairs run on the card and on the CPU (plain versions) from the
      same draws must agree (README_DEMO-like, CEN_CS_PP-like, the volume
@@ -51,6 +53,7 @@ device record.  Exits non-zero, printing no result, without a CUDA device.
 """
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -301,18 +304,24 @@ def main() -> int:
                 max_dis=v_md, gamma=gamma, wnd_stride=stride)
                 for v in range(2)])
 
-        def kernel(vol):
-            return window_cost.window_cost_cuda(
-                v_imgs, vol, v_mc, abc, half_wnd=hw, max_dis=v_md,
-                gamma=gamma, wnd_stride=stride)
+        # prepared pairs: packing and the pair layout stay outside the
+        # timed region
+        preps = {key: window_cost.prepare_volumes(
+            v_imgs, vol, v_mc, half_wnd=hw, max_dis=v_md, gamma=gamma)
+            for key, vol in (("f32", v_vols), ("bf16", v_bf16))}
+
+        def kernel(key):
+            return window_cost.window_cost_prepared(
+                preps[key], abc, half_wnd=hw, max_dis=v_md,
+                wnd_stride=stride)
 
         abc = test_planes(p, v_md, k, gen, dev)
         want, plain_ms = timed_once(plain)
-        ab, rl = check_close(f"{name} K={k}", kernel(v_vols), want)
-        _, rl_bf = rel_err(kernel(v_bf16), want)
+        ab, rl = check_close(f"{name} K={k}", kernel("f32"), want)
+        _, rl_bf = rel_err(kernel("bf16"), want)
         del want
-        t = time_turns({"f32": lambda: kernel(v_vols),
-                        "bf16": lambda: kernel(v_bf16)},
+        t = time_turns({"f32": lambda: kernel("f32"),
+                        "bf16": lambda: kernel("bf16")},
                        {"f32": reps, "bf16": reps})
         print(f"{name} K={k}: plain {plain_ms:.3f} ms | kernel f32 "
               f"{t['f32']:.3f} ms | kernel bf16 {t['bf16']:.3f} ms | bf16 "
@@ -348,19 +357,24 @@ def main() -> int:
             return (torch.stack([p[0] for p in parts]),
                     torch.stack([p[1] for p in parts]))
 
-        def kernel(v):
-            return quadrant_build.quadrant_volumes_cuda(
-                k2_imgs, v, half_wnd=hw, gamma=gamma, stride=stride)
+        d_max = k2_vols.shape[-1] - 1
+        preps = {key: window_cost.prepare_volumes(
+            k2_imgs, vol, None, half_wnd=hw, max_dis=d_max, gamma=gamma)
+            for key, vol in (("f32", k2_vols), ("bf16", k2_bf16))}
+
+        def kernel(key):
+            return quadrant_build.quadrant_volumes_prepared(
+                preps[key], half_wnd=hw, gamma=gamma, stride=stride)
 
         (want_b, want_w), plain_ms = timed_once(plain)
-        got_b, got_w = kernel(k2_vols)
+        got_b, got_w = kernel("f32")
         ab_b, rl_b = check_close(f"{name} bq", got_b, want_b)
         ab_w, rl_w = check_close(f"{name} wq", got_w, want_w)
-        _, rl_bf = rel_err(kernel(k2_bf16)[0], want_b)
+        _, rl_bf = rel_err(kernel("bf16")[0], want_b)
         out_bytes = nbytes(got_b, got_w)
         del want_b, want_w, got_b, got_w
-        t = time_turns({"f32": lambda: kernel(k2_vols),
-                        "bf16": lambda: kernel(k2_bf16)},
+        t = time_turns({"f32": lambda: kernel("f32"),
+                        "bf16": lambda: kernel("bf16")},
                        {"f32": reps, "bf16": reps})
         print(f"{name}: plain {plain_ms:.3f} ms | kernel f32 {t['f32']:.3f} "
               f"ms | kernel bf16 {t['bf16']:.3f} ms | bf16 volume bq max rel "
@@ -674,6 +688,9 @@ def main() -> int:
                 continue
             outs[seed] = out
             dis = out["dis"].cpu().numpy()
+            if seed == 0:
+                digest = hashlib.sha256(dis.tobytes()).hexdigest()[:16]
+                print(f"{name}: seed 0 dis digest {digest}")
             if dis.shape != (2, ph, pw):
                 raise RuntimeError(f"{name}: dis shape {dis.shape}")
             if not bool(torch.isfinite(out["cost"]).all()):
@@ -780,11 +797,11 @@ def main() -> int:
                     library_ms=None, launches_by_path=by_path, **rec[key])
 
     kernels = [
-        entry("window_cost (K1)", "k1", "window_cost.cu", f"{wc}:138"),
+        entry("window_cost (K1)", "k1", "cross_scale_cost.cu", f"{wc}:138"),
         entry("quadrant_build (K2)", "k2", "quadrant_build.cu",
               "crossscalepatchmatch_tpu/ops/pallas/quadrant_build.py:45"),
         entry("strided window, volume form (K3)", "k3_volume",
-              "window_cost.cu", f"{wc}:331"),
+              "cross_scale_cost.cu", f"{wc}:331"),
         entry("strided window, fly form (K3)", "k3_fly", "fly_cost.cu",
               f"{wc}:331"),
         entry("cross_scale_cost (K4)", "k4", "cross_scale_cost.cu",

@@ -5,9 +5,17 @@
 // window_cost.py `_kernel` at scale > 0 (launched per level by
 // `cross_scale_plane_cost_prepared`, which also runs scale 0 and sums the
 // levels).  Plain version: ops/plane_cost.py cross_scale_plane_cost.
+// At one level with weight 1 it is also K1, the same `_kernel` in its
+// volume form at scale 0, and with a window stride K3's volume form, the
+// strided-window prescreen (`wnd_stride` > 1, :331-343): d0 * 2^0 and
+// 1 * cost are exact, so the level term is window_plane_cost's value bit
+// for bit (ops/cuda/window_cost.py).  A thin kernel of K1's own around the
+// same level loop measured the same in bf16 and up to 10 % slower in f32 on
+// an H100, so there is none.
 //
 // out[v, k, y, x] = ((w_0 * c_0 + w_1 * c_1) + w_2 * c_2) + ...
-// c_s = sum over the in-level window offsets (dy, dx), dy-major, of
+// c_s = sum over the in-level window offsets (dy, dx) in
+// range(-hw, hw + 1, stride) each, dy-major, of
 //   lut[L1(img_s[v, y>>s, x>>s], img_s[v, (y>>s)+dy, (x>>s)+dx])] * val
 // with d0 = a*x + b*y + c of candidate k at the fine pixel,
 // dq = ((d0 * 2^-s) + a*dx) + b*dy and val = lerp(vol_s[v, q, f],
@@ -68,15 +76,22 @@ cross_scale_kernel(const Levels lv,
                    const float* __restrict__ abc,  // [2, K, H, W, 3]
                    const float* __restrict__ lut,  // [766]
                    float* __restrict__ out,        // [2, K, H, W]
-                   int K, int H, int W, int hw) {
+                   int K, int H, int W, int hw, int stride) {
   using E = typename PairOf<VT>::type;
   extern __shared__ uint32_t smem[];
   float* s_lut = reinterpret_cast<float*>(smem);
   uint32_t* s_img = smem + kLutN;
-  const int vk = blockIdx.z;  // v * K + k
-  const int v = vk / K;
-  const int x0 = blockIdx.x * kTX;
-  const int y0 = blockIdx.y * kMaxTY;
+  // blockIdx.x = tile * K + k, blockIdx.y = view: the K candidates of a
+  // tile run side by side, so their gathers share the tile's depth rows in
+  // L2 (with the candidates outermost, random planes swept the whole volume
+  // K times)
+  const int v = blockIdx.y;
+  const int k = blockIdx.x % K;
+  const int tile = blockIdx.x / K;
+  const int tiles_x = (W + kTX - 1) / kTX;
+  const int vk = v * K + k;
+  const int x0 = (tile % tiles_x) * kTX;
+  const int y0 = (tile / tiles_x) * kMaxTY;
   const int tid = threadIdx.y * kTX + threadIdx.x;
   const int x = x0 + threadIdx.x;
   const int y = y0 + threadIdx.y;
@@ -112,10 +127,18 @@ cross_scale_kernel(const Levels lv,
     const float d_f = __fmul_rn(p.d0, 1.f / (float)(1 << s));  // exact scale
     const E* vol_v =
         static_cast<const E*>(lv.vol[s]) + (size_t)v * hs * ws * ds;
-    const float acc = volume_level_cost<E>(
-        s_img, tile_w, cx - cx0 + hw, cy - cy0 + hw, s_lut, vol_v, hs, ws,
-        ds, cx, cy, hw, 1, lv.max_costs[s][v], (float)lv.max_dis[s], p.a,
-        p.b, d_f);
+    // stride 1 (K1, K4) as a constant: a loop of its own without the
+    // stride's multiplies, a percent of K4's time
+    const int lx = cx - cx0 + hw, ly = cy - cy0 + hw;
+    const float maxc = lv.max_costs[s][v], fmax = (float)lv.max_dis[s];
+    const float acc =
+        stride == 1
+            ? volume_level_cost<E>(s_img, tile_w, lx, ly, s_lut, vol_v, hs,
+                                   ws, ds, cx, cy, hw, 1, maxc, fmax, p.a,
+                                   p.b, d_f)
+            : volume_level_cost<E>(s_img, tile_w, lx, ly, s_lut, vol_v, hs,
+                                   ws, ds, cx, cy, hw, stride, maxc, fmax,
+                                   p.a, p.b, d_f);
     const float term = __fmul_rn(lv.wgt[s], acc);
     total = s == 0 ? term : __fadd_rn(total, term);
   }
@@ -124,7 +147,7 @@ cross_scale_kernel(const Levels lv,
 
 template <typename VT>
 cudaError_t launch(const Levels& lv, const void* abc, const void* lut,
-                   void* out, int K, int H, int W, int hw,
+                   void* out, int K, int H, int W, int hw, int stride,
                    cudaStream_t stream) {
   // level 0's tile is the largest (a coarser level's block spans fewer
   // centers): 95 KB at half_wnd 64, always inside a block's 227 KB
@@ -137,10 +160,13 @@ cudaError_t launch(const Levels& lv, const void* abc, const void* lut,
     if (e != cudaSuccess) return e;
   }
   const dim3 block(kTX, kMaxTY);
-  const dim3 grid((W + kTX - 1) / kTX, (H + kMaxTY - 1) / kMaxTY, 2 * K);
+  const long long tiles =
+      (long long)((W + kTX - 1) / kTX) * ((H + kMaxTY - 1) / kMaxTY);
+  if (tiles * K > 0x7fffffff) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(tiles * K), 2);
   cross_scale_kernel<VT><<<grid, block, smem, stream>>>(
       lv, static_cast<const float*>(abc), static_cast<const float*>(lut),
-      static_cast<float*>(out), K, H, W, hw);
+      static_cast<float*>(out), K, H, W, hw, stride);
   return cudaGetLastError();
 }
 
@@ -154,9 +180,9 @@ extern "C" int cspm_cross_scale_cost(
     const void* const* max_costs, const int* hs, const int* ws,
     const int* ds, const int* max_dis, const float* wgts, int levels,
     int vol_bf16, const void* abc, const void* lut, void* out, int K, int H,
-    int W, int half_wnd, void* stream) {
+    int W, int half_wnd, int stride, void* stream) {
   if (levels < 1 || levels > kMaxLevels || K < 1 || half_wnd < 0 ||
-      half_wnd > 64)
+      half_wnd > 64 || stride < 1)
     return (int)cudaErrorInvalidValue;
   Levels lv;
   lv.n = levels;
@@ -174,6 +200,7 @@ extern "C" int cspm_cross_scale_cost(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vol_bf16)
     return (int)launch<__nv_bfloat16>(lv, abc, lut, out, K, H, W, half_wnd,
-                                      st);
-  return (int)launch<float>(lv, abc, lut, out, K, H, W, half_wnd, st);
+                                      stride, st);
+  return (int)launch<float>(lv, abc, lut, out, K, H, W, half_wnd, stride,
+                            st);
 }

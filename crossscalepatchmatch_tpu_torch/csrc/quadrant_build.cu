@@ -10,135 +10,317 @@
 // over in-image q = c + o, with per-axis offsets range(-hw, 0, stride)
 // (- side) and range(0, hw + 1, stride) (+ side), dy-major.
 //
-// What bounds it on the H100: its output, f32[2, 4, H, W, D] -- 329 MB at
-// the bench shape (375 x 450, D = 61) written once -- and the 2 x 168,750 x
-// 324 offsets x 61 slices = 6.7 G multiply-adds reading vol[q, :] rows.
-// The design: one warp per output pixel with D across the lanes, so every
-// vol[q, :] read and every bq[.., c, :] write is one contiguous, coalesced
-// row; a lane holds slices lane, lane + 32, ... in ceil(D / 32) <= 8
-// accumulators (any D up to 256: KITTI's 129 slices take 5); the quadrant
-// sums of a lane stay in registers until a single
-// write at the end (no accumulator round trip through device memory, which
-// is what the plain version pays per offset); neighbouring warps of a block
-// read overlapping windows, which the L1/L2 caches serve.  The weight comes
-// from the same 766-entry table as K1 (bit-equal to the plain exp), the
-// L1 from one __vsadu4 of packed pixels.  _rn intrinsics keep the plain
-// version's rounding order, so f32 results match it bit for bit.
+// What bounds it on the H100: instruction issue.  Its useful work is 2 x
+// H x W x 324 offsets x D multiply-adds (6.7 G at the bench shape, 375 x
+// 450, D = 61, half_wnd 17, stride 2), and to stay bit-equal with the plain
+// version (a multiply, then an add, as separate PyTorch ops) each is an
+// FMUL and an FADD, not an FMA: the floor is twice the f32 bound.  Its
+// output, f32[2, 4, H, W, D] (329 MB at the bench shape), is written once.
+// The design keeps the instructions other than those two per slice few
+// (per window offset and 16 slices the loop is 64 instructions, 32 of them
+// FMUL / FADD):
+//   * a block owns a 32 x 8 tile of pixels and one chunk of 16 slices
+//     (blockIdx.x = tile * chunks + chunk: the chunks of a tile run side
+//     by side); a thread owns one pixel and its 16 slices, so the weight
+//     (one VABSDIFF4 and a table read) serves 16 slices;
+//   * the tile's packed pixels plus the half_wnd halo are staged once; the
+//     volume slab (the tile's columns plus the halo, 16 slices, as stored:
+//     f32, or bf16 widened in registers) is staged row by row in a ring:
+//     offset row dy needs rows [y0 + dy, y0 + dy + 8), and the rows the
+//     next offset row adds are copied (cp.async) while this one is summed,
+//     so a step waits on no load and has one barrier; a thread reads its
+//     16 slices with 16-byte shared loads, the layout
+//     [row][slices / vector][column] free of bank conflicts;
+//   * the two quadrants that share a row of offsets (-- and -+, then +- and
+//     ++) are summed together, so the slab is staged once for both; a
+//     thread walks its row's in-image offsets as an interval, no test per
+//     sample;
+//   * bq rows are written through shared memory, so each store instruction
+//     writes two pixels' 64-byte runs; wq once per pixel and quadrant.
+// Measured on an H100 and dropped: the D-minor volume as the slab's source
+// (2-5 % faster, but it has to be held beside the pair layout K1 reads),
+// 2 blocks an SM (7 % slower than 3: 80 registers a thread), the loop
+// unrolled by 4 or software-pipelined on the weight (no faster), a padded
+// output layout (no faster: the writes are not what bounds it).  The volume
+// is read from the pair layout (element f holds vol[f] and vol[f + 1]): one
+// copy brings two slices.
+// Each sum keeps the plain version's order (dy-major, dx ascending, a
+// skipped pixel adds nothing) with explicit _rn steps, so f32 results match
+// it bit for bit.  The weight comes from the same 766-entry table as K1
+// (bit-equal to the plain exp).  Any depth: the slices run in chunks of 16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cuda_pipeline.h>
+
+#include "window_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kLutN = 766;
+using namespace cspm;
 
-__device__ __forceinline__ float load_vol(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_vol(const __nv_bfloat16* p) {
-  return __bfloat162float(p[0]);
+constexpr int kQX = 32;  // tile columns: a warp
+constexpr int kQY = 8;   // tile rows, and rows of the slab ring
+constexpr int kQThreads = kQX * kQY;
+constexpr int kDC = 16;  // slices a block owns
+constexpr int kQMinBlocks = 3;
+constexpr int kLutWords = 768;  // kLutN rounded up to 16 bytes
+
+// How a slab of VT is staged: 16-byte vectors of slices, kVecs of them per
+// column of a row; `unpack` widens vector j of a column into acc slots.
+template <typename VT>
+struct Slab;
+template <>
+struct Slab<float> {  // f32 as it is: 4 slices a vector
+  using Vec = float4;
+  static constexpr int kVecs = kDC / 4;
+  __device__ static float get(const Vec& t, int i) {
+    return i == 0 ? t.x : i == 1 ? t.y : i == 2 ? t.z : t.w;
+  }
+};
+template <>
+struct Slab<__nv_bfloat16> {  // bf16 pairs as they are: 8 slices a vector
+  using Vec = uint4;
+  static constexpr int kVecs = kDC / 8;
+  __device__ static float get(const Vec& t, int i) {
+    const uint32_t u = i < 2 ? t.x : i < 4 ? t.y : i < 6 ? t.z : t.w;
+    return __uint_as_float((i & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+};
+
+// Shared memory of a block, in bytes: the slab ring (kQY + stride rows of
+// [kVecs][cols] vectors: the window of kQY rows and the rows of the next
+// offset row's window, copied while this one is summed), the output stage,
+// the weight table, the packed pixel tile.
+template <typename VT>
+__host__ __device__ inline size_t ring_bytes(int cols, int stride) {
+  return (size_t)(kQY + stride) * Slab<VT>::kVecs * cols *
+         sizeof(typename Slab<VT>::Vec);
+}
+template <typename VT>
+__host__ __device__ inline size_t smem_bytes(int hw, int stride) {
+  const int cols = kQX + 2 * hw;
+  return ring_bytes<VT>(cols, stride) +
+         ((size_t)kQThreads * (kDC + 1) + kLutWords +
+          (size_t)(kQY + 2 * hw) * cols) * 4;
 }
 
-template <typename VT, int NJ>
-__global__ void __launch_bounds__(kWarps * 32)
-quadrant_build_kernel(const uint32_t* __restrict__ img,  // [2, H, W] packed
-                      const VT* __restrict__ vol,        // [2, H, W, D]
-                      const float* __restrict__ lut,     // [766]
-                      float* __restrict__ bq,            // [2, 4, H, W, D]
-                      float* __restrict__ wq,            // [2, 4, H, W]
-                      int H, int W, int D, int hw, int stride) {
-  __shared__ float s_lut[kLutN];
-  for (int i = threadIdx.x; i < kLutN; i += blockDim.x) s_lut[i] = lut[i];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int v = blockIdx.y;
-  const int hwn = H * W;
-  if (p >= hwn) return;
-  const int y = p / W;
-  const int x = p - y * W;
-  const uint32_t* img_v = img + (size_t)v * hwn;
-  const VT* vol_v = vol + (size_t)v * hwn * D;
-  const uint32_t col_c = img_v[p];
-
-  for (int qi = 0; qi < 4; ++qi) {
-    const int y_lo = (qi & 2) ? 0 : -hw;
-    const int y_hi = (qi & 2) ? hw : -1;
-    const int x_lo = (qi & 1) ? 0 : -hw;
-    const int x_hi = (qi & 1) ? hw : -1;
-    float acc[NJ];
+// acc[j] += w * slab[q][j] for the thread's in-image offsets of one
+// quadrant on one offset row: c runs over the staged columns of the
+// offsets (n of them, `stride` apart).
+template <typename VT>
+__device__ __forceinline__ void accumulate(
+    float (&acc)[kDC], float& wsum, const typename Slab<VT>::Vec* slab,
+    int cols, const uint32_t* q_img, uint32_t col_c, const float* s_lut,
+    int c, int n, int stride) {
+  using S = Slab<VT>;
+  constexpr int kPer = kDC / S::kVecs;  // slices a vector
+  for (int i = 0; i < n; ++i, c += stride) {
+    const float w = s_lut[__vsadu4(col_c, q_img[c])];
+    wsum = __fadd_rn(wsum, w);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-    float wsum = 0.f;
-    for (int dy = y_lo; dy <= y_hi; dy += stride) {
-      const int qy = y + dy;
-      if (qy < 0 || qy >= H) continue;
-      for (int dx = x_lo; dx <= x_hi; dx += stride) {
-        const int qx = x + dx;
-        if (qx < 0 || qx >= W) continue;
-        const size_t q = (size_t)qy * W + qx;
-        const float wgt = s_lut[__vsadu4(col_c, img_v[q])];
-        const VT* vq = vol_v + q * D;
+    for (int j = 0; j < S::kVecs; ++j) {
+      const typename S::Vec t = slab[j * cols + c];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = lane + 32 * j;
-          if (d < D) acc[j] = __fadd_rn(acc[j], __fmul_rn(wgt, load_vol(vq + d)));
-        }
-        wsum = __fadd_rn(wsum, wgt);
-      }
+      for (int e = 0; e < kPer; ++e)
+        acc[kPer * j + e] =
+            __fadd_rn(acc[kPer * j + e], __fmul_rn(w, S::get(t, e)));
     }
-    const size_t o = ((size_t)v * 4 + qi) * hwn + p;
-    float* bq_p = bq + o * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) bq_p[d] = acc[j];
-    }
-    if (lane == 0) wq[o] = wsum;
   }
 }
 
-template <typename VT, int NJ>
-cudaError_t launch(const void* img, const void* vol, const void* lut, void* bq,
-                   void* wq, int H, int W, int D, int hw, int stride,
-                   cudaStream_t stream) {
-  const dim3 block(kWarps * 32);
-  const dim3 grid((H * W + kWarps - 1) / kWarps, 2);
-  quadrant_build_kernel<VT, NJ><<<grid, block, 0, stream>>>(
-      static_cast<const uint32_t*>(img), static_cast<const VT*>(vol),
-      static_cast<const float*>(lut), static_cast<float*>(bq),
-      static_cast<float*>(wq), H, W, D, hw, stride);
-  return cudaGetLastError();
+// Write one quadrant's sums of the block: bq through the output stage
+// (two pixels' 16-slice runs a store instruction), wq from chunk 0.
+__device__ __forceinline__ void write_quadrant(
+    const float (&acc)[kDC], float wsum, float* s_out, float* bq_q,
+    float* wq_q, int tid, bool active, int x0, int y0, int W, int H, int D,
+    int d0, bool first_chunk) {
+  __syncthreads();  // the stage's previous contents are written out
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < kDC; ++j) s_out[tid * (kDC + 1) + j] = acc[j];
+    if (first_chunk)
+      wq_q[(size_t)(y0 + threadIdx.y) * W + x0 + threadIdx.x] = wsum;
+  }
+  __syncthreads();
+  for (unsigned i = tid; i < kQThreads * kDC; i += kQThreads) {
+    const unsigned p = i / kDC;
+    const unsigned j = i % kDC;
+    const int x = x0 + (int)(p % kQX);
+    const int y = y0 + (int)(p / kQX);
+    // 32-bit offsets: a quadrant volume has fewer than 2^31 elements
+    if (x < W && y < H && d0 + (int)j < D)
+      bq_q[(y * W + x) * D + d0 + (int)j] = s_out[p * (kDC + 1) + j];
+  }
+}
+
+// Start the copies of one slab row into its ring slot: pair element
+// d0 + 2m of each in-image column holds slices d0 + 2m and d0 + 2m + 1 (the
+// columns outside the image are never read).
+template <typename VT>
+__device__ __forceinline__ void stage_row(
+    typename Slab<VT>::Vec* slot, const typename PairOf<VT>::type* row,
+    int cols, int x0, int hw, int W, int D, int d0, int tid) {
+  using E = typename PairOf<VT>::type;
+  constexpr unsigned kPairs = kDC / 2 / Slab<VT>::kVecs;  // in a vector
+  // unsigned and 32-bit (a view's row has fewer than 2^31 elements): the
+  // index arithmetic of an element is a few shifts and adds
+  for (unsigned e = tid; e < cols * (kDC / 2); e += kQThreads) {
+    const unsigned m = e % (kDC / 2);
+    const unsigned c = e / (kDC / 2);
+    const int gx = x0 - hw + (int)c;
+    const int d = d0 + 2 * (int)m;
+    if ((unsigned)gx >= (unsigned)W) continue;
+    // vector m / kPairs of the column, pair m % kPairs of it
+    E* dst = reinterpret_cast<E*>(slot + (m / kPairs) * cols + c) +
+             m % kPairs;
+    if (d < D)
+      __pipeline_memcpy_async(dst, row + (gx * D + d), sizeof(E));
+    else
+      *dst = E{};
+  }
 }
 
 template <typename VT>
-cudaError_t dispatch(const void* img, const void* vol, const void* lut,
-                     void* bq, void* wq, int H, int W, int D, int hw,
-                     int stride, cudaStream_t s) {
-  switch ((D + 31) / 32) {
-    case 1: return launch<VT, 1>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    case 2: return launch<VT, 2>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    case 3: return launch<VT, 3>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    case 4: return launch<VT, 4>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    case 5: return launch<VT, 5>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    case 6: return launch<VT, 6>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    case 7: return launch<VT, 7>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    case 8: return launch<VT, 8>(img, vol, lut, bq, wq, H, W, D, hw, stride, s);
-    default: return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(kQThreads, kQMinBlocks)
+quadrant_build_kernel(const uint32_t* __restrict__ img,  // [2, H, W] packed
+                      const void* __restrict__ vol,      // [2, H, W, D] pairs
+                      const float* __restrict__ lut,     // [766]
+                      float* __restrict__ bq,            // [2, 4, H, W, D]
+                      float* __restrict__ wq,            // [2, 4, H, W]
+                      int H, int W, int D, int hw, int stride, int chunks,
+                      int tiles_x) {
+  using S = Slab<VT>;
+  using Vec = typename S::Vec;
+  using E = typename PairOf<VT>::type;
+  extern __shared__ uint4 smem4[];
+  const int cols = kQX + 2 * hw;
+  const int ring_rows = kQY + stride;
+  Vec* s_ring = reinterpret_cast<Vec*>(smem4);
+  float* s_out = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) + ring_bytes<VT>(cols, stride));
+  float* s_lut = s_out + kQThreads * (kDC + 1);
+  uint32_t* s_img = reinterpret_cast<uint32_t*>(s_lut + kLutWords);
+
+  const int chunk = blockIdx.x % chunks;
+  const int tile = blockIdx.x / chunks;
+  const int v = blockIdx.y;
+  const int x0 = (tile % tiles_x) * kQX;
+  const int y0 = (tile / tiles_x) * kQY;
+  const int d0 = chunk * kDC;
+  const int tid = threadIdx.y * kQX + threadIdx.x;
+  const int x = x0 + threadIdx.x;
+  const int y = y0 + threadIdx.y;
+  const bool active = x < W && y < H;
+  const size_t hwn = (size_t)H * W;
+  const E* vol_v = static_cast<const E*>(vol) + v * hwn * D;
+
+  // the slab rows of the window [lo, lo + kQY) not yet in the ring start
+  // copying (rows below `have` were staged; a window's rows and the next
+  // window's new ones, at most kQY + stride in a row, never share a slot)
+  int have = 0;
+  auto stage = [&](int lo) {
+    for (int r = max(lo, have); r < min(lo + kQY, H); ++r)
+      stage_row<VT>(s_ring + (r % ring_rows) * S::kVecs * cols,
+                    vol_v + (size_t)r * W * D, cols, x0, hw, W, D, d0, tid);
+    have = max(have, lo + kQY);
+    __pipeline_commit();
+  };
+  const int n_neg = (hw + stride - 1) / stride;  // offsets of the - side
+  stage(y0 + (n_neg ? -hw : 0));
+
+  for (int i = tid; i < kLutN; i += kQThreads) s_lut[i] = lut[i];
+  const uint32_t* img_v = img + v * hwn;
+  const int img_rows = kQY + 2 * hw;
+  for (int i = tid; i < img_rows * cols; i += kQThreads) {
+    const int r = i / cols;
+    const int gy = y0 - hw + r;
+    const int gx = x0 - hw + (i - r * cols);
+    s_img[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                   ? img_v[(size_t)gy * W + gx] : 0u;
   }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const uint32_t col_c = s_img[(threadIdx.y + hw) * cols + threadIdx.x + hw];
+
+  // the thread's in-image offsets per axis: - side i in [xn_lo, n_neg),
+  // dx = -hw + i * stride; + side i in [0, xp_n), dx = i * stride
+  const int xn_lo = x < hw ? (hw - x + stride - 1) / stride : 0;
+  const int xp_n = min(hw, W - 1 - x) / stride + 1;  // x < W where active
+  const int c_neg = threadIdx.x + xn_lo * stride;    // staged column of i
+  const int c_pos = threadIdx.x + hw;
+
+  for (int side = 0; side < 2; ++side) {
+    float acc0[kDC], acc1[kDC];  // quadrants (side, -) and (side, +)
+#pragma unroll
+    for (int j = 0; j < kDC; ++j) acc0[j] = acc1[j] = 0.f;
+    float w0 = 0.f, w1 = 0.f;
+    const int dy_lo = side ? 0 : -hw;
+    const int dy_n = side ? hw / stride + 1 : n_neg;
+    for (int iy = 0; iy < dy_n; ++iy) {
+      const int dy = dy_lo + iy * stride;
+      // the next offset row's window copies while this one is summed
+      if (iy + 1 < dy_n)
+        stage(y0 + dy + stride);
+      else if (side == 0)
+        stage(y0);
+      const int qy = y + dy;
+      if (active && qy >= 0 && qy < H) {
+        const Vec* slab = s_ring + (qy % ring_rows) * S::kVecs * cols;
+        const uint32_t* q_img = s_img + (threadIdx.y + hw + dy) * cols;
+        accumulate<VT>(acc0, w0, slab, cols, q_img, col_c, s_lut, c_neg,
+                       n_neg - xn_lo, stride);
+        accumulate<VT>(acc1, w1, slab, cols, q_img, col_c, s_lut, c_pos,
+                       xp_n, stride);
+      }
+      __pipeline_wait_prior(0);
+      __syncthreads();  // the next window is in; this one is read
+    }
+    float* bq_v = bq + (size_t)v * 4 * hwn * D;
+    float* wq_v = wq + (size_t)v * 4 * hwn;
+    const int q0 = 2 * side;
+    write_quadrant(acc0, w0, s_out, bq_v + q0 * hwn * D, wq_v + q0 * hwn,
+                   tid, active, x0, y0, W, H, D, d0, chunk == 0);
+    write_quadrant(acc1, w1, s_out, bq_v + (q0 + 1) * hwn * D,
+                   wq_v + (q0 + 1) * hwn, tid, active, x0, y0, W, H, D, d0,
+                   chunk == 0);
+  }
+}
+
+template <typename VT>
+cudaError_t launch(const void* img, const void* vol, const void* lut, void* bq,
+                   void* wq, int H, int W, int D, int hw, int stride,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes<VT>(hw, stride);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      quadrant_build_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const int chunks = (D + kDC - 1) / kDC;
+  const int tiles_x = (W + kQX - 1) / kQX;
+  const long long blocks =
+      (long long)tiles_x * ((H + kQY - 1) / kQY) * chunks;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, 2);
+  quadrant_build_kernel<VT><<<grid, dim3(kQX, kQY), smem, stream>>>(
+      static_cast<const uint32_t*>(img), vol, static_cast<const float*>(lut),
+      static_cast<float*>(bq), static_cast<float*>(wq), H, W, D, hw, stride,
+      chunks, tiles_x);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// vol: the pair-layout volume [2, H, W, D, 2] (f32 or bf16).
 extern "C" int cspm_quadrant_build(const void* img, const void* vol,
                                    int vol_bf16, const void* lut, void* bq,
                                    void* wq, int H, int W, int D, int half_wnd,
                                    int stride, void* stream) {
+  if (H < 1 || W < 1 || D < 1 || half_wnd < 0 || half_wnd > 64 || stride < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vol_bf16)
-    return (int)dispatch<__nv_bfloat16>(img, vol, lut, bq, wq, H, W, D,
-                                        half_wnd, stride, s);
-  return (int)dispatch<float>(img, vol, lut, bq, wq, H, W, D, half_wnd,
-                              stride, s);
+    return (int)launch<__nv_bfloat16>(img, vol, lut, bq, wq, H, W, D,
+                                      half_wnd, stride, s);
+  return (int)launch<float>(img, vol, lut, bq, wq, H, W, D, half_wnd, stride,
+                            s);
 }

@@ -1,8 +1,9 @@
 // Shared parts of the slanted-plane ASW window kernels (K4 in
-// cross_scale_cost.cu, the fly kernel in fly_cost.cu; K1 in window_cost.cu
-// may move onto volume_level_cost later): the thread layout, the per-row
-// in-image interval, the conversion-free truncation, the candidate plane a
-// thread owns, and the window loop of one pyramid level over a volume.
+// cross_scale_cost.cu, which at one level is also K1 and K3's volume form;
+// the fly kernel in fly_cost.cu; K2 in quadrant_build.cu takes the
+// pair-layout loads): the thread layout, the per-row in-image interval, the
+// conversion-free truncation, the candidate plane a thread owns, and the
+// window loop of one pyramid level over a volume.
 //
 // Thread layout: a block is a 32 x TY tile of fine pixels (TY = blockDim.y:
 // 16, or 8 where the fly kernel's staging needs it), a thread owns one fine

@@ -33,8 +33,9 @@ from ..ops.cost_volume import VolumeData
 from ..ops.cuda.cross_scale_cost import (cross_scale_cost_prepared,
                                          prepare_cross_scale)
 from ..ops.cuda.fly_cost import fly_cost_prepared, prepare_fly
-from ..ops.cuda.quadrant_build import quadrant_volumes
-from ..ops.cuda.window_cost import window_cost
+from ..ops.cuda.quadrant_build import quadrant_volumes_prepared
+from ..ops.cuda.window_cost import (PreparedVolumes, prepare_volumes,
+                                    window_cost_prepared)
 from ..ops.onthefly_cost import FlyData
 from ..ops.prescreen_volume import quadrant_prescreen_cost
 from ..ops.scale_weights import scale_weights
@@ -63,15 +64,14 @@ def kernel_volumes(cfg: CSPMConfig, vols: torch.Tensor) -> torch.Tensor:
     return vols
 
 
-def _volume_sparse_fn(cfg: CSPMConfig, vd: VolumeData,
-                      kvols: torch.Tensor) -> CostFn:
+def _volume_sparse_fn(cfg: CSPMConfig, prep: PreparedVolumes) -> CostFn:
     """Quadrant-volume prescreen evaluator (prescreen_mode="volume"): the
-    quadrant volumes are built once (K2), then every call ranks candidates
-    on them."""
-    bq, wq = quadrant_volumes(vd.weight_imgs[0], kvols,
-                              half_wnd=cfg.half_wnd, gamma=cfg.wgt_gamma,
-                              stride=max(cfg.prescreen_stride, 1))
-    max_costs = vd.max_costs[0]
+    quadrant volumes are built once (K2) on the prepared fine level, then
+    every call ranks candidates on them."""
+    bq, wq = quadrant_volumes_prepared(prep, half_wnd=cfg.half_wnd,
+                                       gamma=cfg.wgt_gamma,
+                                       stride=max(cfg.prescreen_stride, 1))
+    max_costs = prep.max_costs
 
     def sparse_fn(abc2: torch.Tensor) -> torch.Tensor:
         return torch.stack([quadrant_prescreen_cost(
@@ -90,20 +90,29 @@ def make_cost_fns(cfg: CSPMConfig,
     only, the window cost at stride prescreen_stride ("window", K3).
     Cross-scale runs rank on the fine level's quadrant volumes, a ranking
     heuristic like the prescreen itself; their exact costs are the
-    cross-scale ones.  Which code runs follows the tensors' device."""
+    cross-scale ones.  Which code runs follows the tensors' device.
+
+    Packed images, kernel-layout volumes and the weight table are made once
+    per pair (prepare_volumes / prepare_cross_scale); an evaluation only
+    launches.  On the card the functions hold the pair-layout volumes and
+    the quadrant volumes, not vd's volumes or their cfg.vol_dtype copies."""
     check_supported(cfg)
     volume_mode = cfg.prescreen_stride > 1 and cfg.prescreen_mode == "volume"
     window_mode = (cfg.prescreen_stride > 1 and cfg.prescreen_mode == "window"
                    and not cfg.use_cs)
-    kvols = [kernel_volumes(cfg, v) for v in vd.vols]
     kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
               gamma=cfg.wgt_gamma)
+    # the fine level, prepared for K1 and K3 (single-scale) and K2
+    fine = (prepare_volumes(vd.weight_imgs[0],
+                            kernel_volumes(cfg, vd.vols[0]),
+                            vd.max_costs[0], **kw)
+            if volume_mode or not cfg.use_cs else None)
+    sparse_fn = _volume_sparse_fn(cfg, fine) if volume_mode else None
     if cfg.use_cs:
-        # packed images, kernel-layout volumes and the weight table are
-        # made once per pair; an evaluation only launches
+        fine = None  # K2 has run: its copy of the fine level is not held
         prep = prepare_cross_scale(
-            vd.weight_imgs, kvols, vd.max_costs,
-            scale_weights(cfg.scale_num, cfg.reg_lambda), **kw)
+            vd.weight_imgs, [kernel_volumes(cfg, v) for v in vd.vols],
+            vd.max_costs, scale_weights(cfg.scale_num, cfg.reg_lambda), **kw)
 
         def cost_fn(abc2: torch.Tensor) -> torch.Tensor:
             return cross_scale_cost_prepared(
@@ -112,15 +121,12 @@ def make_cost_fns(cfg: CSPMConfig,
     else:
         def cost_fn(abc2: torch.Tensor,
                     stride: int = 1) -> torch.Tensor:
-            return window_cost(vd.weight_imgs[0], kvols[0], vd.max_costs[0],
-                               abc2, wnd_stride=stride, **kw)
+            return window_cost_prepared(fine, abc2, half_wnd=cfg.half_wnd,
+                                        max_dis=cfg.max_dis,
+                                        wnd_stride=stride)
 
-    if volume_mode:
-        sparse_fn = _volume_sparse_fn(cfg, vd, kvols[0])
-    elif window_mode:
+    if window_mode:
         sparse_fn = functools.partial(cost_fn, stride=cfg.prescreen_stride)
-    else:
-        sparse_fn = None
     return cost_fn, sparse_fn
 
 

@@ -17,6 +17,20 @@ def pack_bgr(imgs_u8: torch.Tensor) -> torch.Tensor:
     return (p[..., 0] | (p[..., 1] << 8) | (p[..., 2] << 16)).contiguous()
 
 
+def pair_volume(vol: torch.Tensor) -> torch.Tensor:
+    """[..., D] -> [..., D, 2], the kernels' pair layout: element f holds
+    (vol[f], vol[min(f + 1, D - 1)]), the two lerp taps of a sample at
+    f = trunc(dq), so a kernel fetches both with one aligned load.  Twice
+    the volume's memory, written in place of a stacked copy (no temporary).
+    (f + 1 <= D - 1 for every in-range sample; the last element's second
+    half is never read as a tap.)"""
+    out = torch.empty((*vol.shape, 2), dtype=vol.dtype, device=vol.device)
+    out[..., 0] = vol
+    out[..., :-1, 1] = vol[..., 1:]
+    out[..., -1, 1] = vol[..., -1]
+    return out
+
+
 def check_tensor(name: str, t: torch.Tensor, dtypes, shape) -> None:
     """Raise ValueError unless t is a contiguous CUDA tensor of one of
     dtypes and the given shape."""

@@ -36,22 +36,19 @@ _I = ctypes.c_int
 # source -> its C entry points: name -> argument types (every entry returns
 # cudaError_t)
 SOURCES = {
-    "window_cost.cu": {
-        # img, vol, vol_bf16, max_costs, abc, lut, out,
-        # K, H, W, D, half_wnd, max_dis, stride, stream
-        "cspm_window_cost": (_P, _P, _I, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _P),
-    },
     "quadrant_build.cu": {
-        # img, vol, vol_bf16, lut, bq, wq, H, W, D, half_wnd, stride, stream
+        # img, vol (pair layout), vol_bf16, lut, bq, wq, H, W, D, half_wnd,
+        # stride, stream
         "cspm_quadrant_build": (_P, _P, _I, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _P),
     },
     "cross_scale_cost.cu": {
         # per-level host arrays: imgs, vols, max_costs, hs, ws, ds, max_dis,
-        # wgts; levels, vol_bf16, abc, lut, out, K, H, W, half_wnd, stream
+        # wgts; levels, vol_bf16, abc, lut, out, K, H, W, half_wnd, stride,
+        # stream
         "cspm_cross_scale_cost": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+                                  _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P),
     },
     "fly_cost.cu": {
         # per-level host arrays: refs (colour, gradient), wgt imgs, hs, ws,

@@ -24,7 +24,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import plane_cost
-from . import _build, check_tensor, pack_bgr
+from . import _build, check_tensor, pack_bgr, pair_volume
 
 # Kernel launches (a plain count; chip_smoke resets and reads it).
 launches = 0
@@ -32,16 +32,6 @@ launches = 0
 MAX_LEVELS = 8
 # trunc(dq) is read from the mantissa of dq + 2^23 (csrc/window_common.cuh)
 MAX_DIS_LIMIT = 1 << 22
-
-
-def pair_volume(vol: torch.Tensor) -> torch.Tensor:
-    """[..., D] -> [..., D, 2], the kernel's pair layout: element f holds
-    (vol[f], vol[min(f + 1, D - 1)]), the two lerp taps of a sample at
-    f = trunc(dq), so the kernel fetches both with one aligned load.  Twice
-    the volume's memory.  (f + 1 <= D - 1 for every in-range sample; the
-    last element's second half is never read.)"""
-    nxt = torch.cat([vol[..., 1:], vol[..., -1:]], dim=-1)
-    return torch.stack([vol, nxt], dim=-1).contiguous()
 
 
 def take_pair(pvol: torch.Tensor, pos: torch.Tensor,
@@ -52,6 +42,36 @@ def take_pair(pvol: torch.Tensor, pos: torch.Tensor,
     d = pvol.shape[-2]
     flat = pvol.reshape(-1, 2)[pos * d + f]
     return flat[..., 0], flat[..., 1]
+
+
+def check_candidates(k: int, h: int, w: int) -> None:
+    """Raise ValueError unless the K4 kernel's grid (32 x 16 tiles times K
+    candidates, blockIdx.x) takes K candidates on an H x W image."""
+    tiles = -(-w // 32) * -(-h // 16)
+    if k < 1 or tiles * k >= 1 << 31:
+        raise ValueError(f"K={k} outside the kernel's grid")
+
+
+def level_args(packed: Sequence[torch.Tensor], kvols: Sequence[torch.Tensor],
+               max_costs: Sequence[torch.Tensor],
+               shapes: Sequence[Tuple[int, int, int, int]],
+               scale_wgts: Sequence[float]) -> tuple:
+    """The arguments of cspm_cross_scale_cost before the planes: per-level
+    host arrays of the packed images', kernel-layout volumes' and
+    saturation values' pointers, the levels' (Hs, Ws, Ds, max_dis) and
+    weights, then the level count and the bf16 flag.  The caller keeps the
+    tensors alive."""
+    n = len(shapes)
+
+    def arr(ctype, xs):
+        return (ctype * n)(*xs)
+
+    return (arr(ctypes.c_void_p, [t.data_ptr() for t in packed]),
+            arr(ctypes.c_void_p, [t.data_ptr() for t in kvols]),
+            arr(ctypes.c_void_p, [t.data_ptr() for t in max_costs]),
+            *(arr(ctypes.c_int, [sh[i] for sh in shapes]) for i in range(4)),
+            arr(ctypes.c_float, [float(x) for x in scale_wgts]),
+            n, int(kvols[0].dtype == torch.bfloat16))
 
 
 @dataclasses.dataclass
@@ -136,21 +156,8 @@ def prepare_cross_scale(imgs_u8: Sequence[torch.Tensor],
     on_card = dev.type != "cpu"
     kvols = [pair_volume(v) for v in vols] if on_card else list(vols)
     lut = plane_cost.asw_lut(gamma, dev)
-
-    def arr(ctype, xs):
-        return (ctype * n)(*xs)
-
     prep.tensors = [*packed, *kvols, *max_costs, lut]
-    prep.args = (
-        arr(ctypes.c_void_p, [t.data_ptr() for t in packed]),
-        arr(ctypes.c_void_p, [t.data_ptr() for t in kvols]),
-        arr(ctypes.c_void_p, [t.data_ptr() for t in max_costs]),
-        arr(ctypes.c_int, [sh[0] for sh in shapes]),
-        arr(ctypes.c_int, [sh[1] for sh in shapes]),
-        arr(ctypes.c_int, [sh[2] for sh in shapes]),
-        arr(ctypes.c_int, [sh[3] for sh in shapes]),
-        arr(ctypes.c_float, prep.scale_wgts),
-        n, int(vol_dtype == torch.bfloat16))
+    prep.args = level_args(packed, kvols, max_costs, shapes, prep.scale_wgts)
     if on_card:
         # the kernel reads the copies; the caller's volumes are not held
         prep.vols = ()
@@ -191,13 +198,12 @@ def cross_scale_cost_prepared(prep: PreparedCrossScale, abc: torch.Tensor, *,
     k = abc.shape[1]
     h, w = prep.hw
     check_tensor("abc", abc, (torch.float32,), (2, k, h, w, 3))
-    if not 1 <= 2 * k <= 65535:
-        raise ValueError(f"K={k} outside the kernel's grid")
+    check_candidates(k, h, w)
     lib = _build.load()
     out = torch.empty((2, k, h, w), dtype=torch.float32, device=abc.device)
     err = lib.cspm_cross_scale_cost(
         *prep.args, abc.data_ptr(), prep.tensors[-1].data_ptr(),
-        out.data_ptr(), k, h, w, half_wnd, _build.stream_of(abc))
+        out.data_ptr(), k, h, w, half_wnd, 1, _build.stream_of(abc))
     _build.check(err, "cspm_cross_scale_cost")
     launches += 1
     return out

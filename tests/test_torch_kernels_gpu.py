@@ -524,6 +524,153 @@ def test_fly_edge_shapes(cuda, lerp, hw, stride, levels, k, d):
     assert_close(*fly_both(fd, wgts, abc, hw, d, lerp, stride))
 
 
+# (half_wnd, stride) of K1 / K3 on prepared pairs: windows of one pixel,
+# a small one, the presets' and one wider than the edge images, strides 1-3
+VOLUME_WINDOWS = [(0, 1), (3, 2), (17, 1), (40, 3), (3, 3), (17, 2),
+                  (40, 1), (0, 2), (3, 1), (17, 3), (40, 2), (0, 3)]
+VOLUME_CASES = [(k, dtype, *VOLUME_WINDOWS[(2 * ki + di + 5 * j) % 12])
+                for ki, k in enumerate(MANY_KS)
+                for di, dtype in enumerate(["f32", "bf16"]) for j in (0, 1)]
+
+
+def prepared_scene(h, w, d, hw, dtype, seed, cuda):
+    imgs, vols, mc = (torch.as_tensor(x, device=cuda)
+                      for x in random_scene(h, w, d, seed))
+    kvols = vols.to(dtype)
+    prep = window_cost.prepare_volumes(imgs, kvols, mc, half_wnd=hw,
+                                       max_dis=d, gamma=10.0)
+    # the plain version on the same (bf16-rounded) values
+    return prep, imgs, kvols.float(), mc
+
+
+def k1_prepared_both(prep, imgs, vols, mc, abc, hw, d, stride):
+    got = window_cost.window_cost_prepared(prep, abc, half_wnd=hw, max_dis=d,
+                                           wnd_stride=stride)
+    want = torch.stack([plane_cost.window_plane_cost(
+        imgs[v], vols[v], mc[v], abc[v], half_wnd=hw, max_dis=d, gamma=10.0,
+        wnd_stride=stride) for v in range(2)])
+    return got, want
+
+
+@pytest.mark.parametrize("k,dtype,hw,stride", VOLUME_CASES)
+def test_k1_k3_prepared(cuda, k, dtype, hw, stride):
+    """K1 and K3's volume form on a prepared pair at 1 to 8 candidates,
+    half_wnd 0 to 40, strides 1-3, f32 and bf16 volumes, on a ragged image
+    (not a multiple of the 32 x 16 tile), planes with NaN, out-of-range and
+    wild dq: f32 bit-equal to the plain version, bf16 within 2e-5 of it on
+    the same rounded values, the same bits on a rerun; the launch counters
+    tell K1 from K3."""
+    h, w, d = 37, 53, 12
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    prep, imgs, vols, mc = prepared_scene(h, w, d, hw, dt, k, cuda)
+    abc = torch.as_tensor(nan_planes(k, h, w, d, seed=500 + k), device=cuda)
+    n, n_strided = window_cost.launches, window_cost.strided_launches
+    got, want = k1_prepared_both(prep, imgs, vols, mc, abc, hw, d, stride)
+    assert window_cost.launches == n + 1
+    assert window_cost.strided_launches == n_strided + (stride > 1)
+    assert_close(got, want)
+    if dtype == "f32":
+        assert torch.equal(got, want)
+    again, _ = k1_prepared_both(prep, imgs, vols, mc, abc, hw, d, stride)
+    assert torch.equal(got, again)
+
+
+def test_volume_cases_cover_the_grid():
+    for i, name in enumerate(("k", "dtype", "hw", "stride")):
+        seen = {c[i] for c in VOLUME_CASES}
+        want = {"k": set(MANY_KS), "dtype": {"f32", "bf16"},
+                "hw": {0, 3, 17, 40}, "stride": {1, 2, 3}}[name]
+        assert seen == want, name
+    for dtype in ("f32", "bf16"):
+        assert {c[0] for c in VOLUME_CASES if c[1] == dtype} == set(MANY_KS)
+        assert {c[2] for c in VOLUME_CASES if c[1] == dtype} == {0, 3, 17, 40}
+
+
+@pytest.mark.parametrize("h,w,hw,stride,k", [
+    (10, 20, 3, 1, 2),      # W < 32 and H < 16: one partial tile
+    (7, 300, 17, 2, 1),     # a single partial tile row
+    (100, 5, 17, 1, 3),     # W < half_wnd
+    (45, 33, 2, 3, 5)])     # H not a multiple of 16, W one past a tile
+def test_k1_k3_edge_shapes(cuda, h, w, hw, stride, k):
+    d = 12
+    prep, imgs, vols, mc = prepared_scene(h, w, d, hw, torch.float32, h,
+                                          cuda)
+    abc = torch.as_tensor(nan_planes(k, h, w, d, seed=600 + h), device=cuda)
+    got, want = k1_prepared_both(prep, imgs, vols, mc, abc, hw, d, stride)
+    assert_close(got, want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d,h,w,hw,stride", [
+    (1, 20, 28, 3, 2),      # one slice (max_dis 0)
+    (8, 12, 20, 17, 2),     # a tile and a window wider than the image
+    (61, 40, 70, 17, 2),    # the bench depth, not a multiple of 16
+    (129, 24, 40, 17, 2),   # KITTI's depth: one slice past 8 chunks
+    (256, 17, 35, 3, 1),    # the largest depth the wrapper takes
+    (40, 30, 50, 4, 3),     # stride 3
+    (24, 20, 30, 64, 3)])   # the widest window: half_wnd 64
+def test_k2_prepared(cuda, d, h, w, hw, stride):
+    """K2 on a prepared pair, f32: bit-equal to the plain version (bq and
+    wq), and on bf16 volumes within 2e-5 of it on the same rounded values."""
+    for dtype in (torch.float32, torch.bfloat16):
+        prep, imgs, vols, _ = prepared_scene(h, w, d - 1, hw, dtype, d, cuda)
+        n = quadrant_build.launches
+        gb, gw = quadrant_build.quadrant_volumes_prepared(
+            prep, half_wnd=hw, gamma=10.0, stride=stride)
+        assert quadrant_build.launches == n + 1
+        parts = [prescreen_volume.build_quadrant_volumes(
+            imgs[v], vols[v], half_wnd=hw, gamma=10.0, stride=stride)
+            for v in range(2)]
+        wb, ww = (torch.stack([p[i] for p in parts]) for i in range(2))
+        assert_close(gb, wb)
+        assert_close(gw, ww)
+        if dtype == torch.float32:
+            assert torch.equal(gb, wb) and torch.equal(gw, ww)
+
+
+def test_prepared_volumes_reject_what_the_kernels_do_not_take(cuda):
+    imgs, vols, mc = (torch.as_tensor(x, device=cuda)
+                      for x in random_scene(8, 12, 4, seed=0))
+    abc = torch.as_tensor(random_planes(1, 8, 12, 4, seed=0), device=cuda)
+    kw = dict(half_wnd=1, max_dis=4, gamma=10.0)
+    prep = window_cost.prepare_volumes(imgs, vols, mc, **kw)
+    ok = dict(half_wnd=1, max_dis=4)
+    assert window_cost.window_cost_prepared(prep, abc, **ok).shape == (
+        2, 1, 8, 12)
+    with pytest.raises(ValueError):        # half_wnd beyond the kernels' 64
+        window_cost.prepare_volumes(imgs, vols, mc, half_wnd=65, max_dis=4,
+                                    gamma=10.0)
+    with pytest.raises(ValueError):        # depth != max_dis + 1
+        window_cost.prepare_volumes(imgs, vols, mc, half_wnd=1, max_dis=5,
+                                    gamma=10.0)
+    with pytest.raises(ValueError):        # f64 volume
+        window_cost.prepare_volumes(imgs, vols.double(), mc, **kw)
+    with pytest.raises(ValueError):        # images of another size
+        window_cost.prepare_volumes(imgs[:, :4].contiguous(), vols, mc, **kw)
+    for bad in (dict(ok, half_wnd=2), dict(ok, max_dis=3),
+                dict(ok, wnd_stride=0)):
+        with pytest.raises(ValueError):
+            window_cost.window_cost_prepared(prep, abc, **bad)
+    for other in (abc[:, :, :4].contiguous(), abc.cpu(),
+                  abc.transpose(2, 3).contiguous().transpose(2, 3)):
+        with pytest.raises(ValueError):
+            window_cost.window_cost_prepared(prep, other, **ok)
+    with pytest.raises(ValueError):        # f64 planes
+        window_cost.window_cost_prepared(prep, abc.double(), **ok)
+    qkw = dict(half_wnd=1, gamma=10.0, stride=2)
+    for bad in (dict(qkw, half_wnd=2), dict(qkw, gamma=9.0),
+                dict(qkw, stride=0)):
+        with pytest.raises(ValueError):
+            quadrant_build.quadrant_volumes_prepared(prep, **bad)
+    deep = window_cost.prepare_volumes(
+        imgs, torch.zeros((2, 8, 12, 257), device=cuda), None, half_wnd=1,
+        max_dis=256, gamma=10.0)
+    with pytest.raises(ValueError):        # depth beyond the wrapper's 256
+        quadrant_build.quadrant_volumes_prepared(deep, **qkw)
+    with pytest.raises(ValueError):        # prepared without max_costs
+        window_cost.window_cost_prepared(deep, abc, half_wnd=1, max_dis=256)
+
+
 def reset_counts():
     window_cost.launches = quadrant_build.launches = 0
     window_cost.strided_launches = 0

@@ -1,6 +1,6 @@
-"""The prepared-pair objects of the port's K4 and fly wrappers
-(ops.cuda.cross_scale_cost.prepare_cross_scale, ops.cuda.fly_cost.
-prepare_fly) on the CPU, where they route to the plain versions: a prepared
+"""The prepared-pair objects of the port's K1/K3/K2, K4 and fly wrappers
+(ops.cuda.window_cost.prepare_volumes, ops.cuda.cross_scale_cost.
+prepare_cross_scale, ops.cuda.fly_cost.prepare_fly) on the CPU, where they route to the plain versions: a prepared
 evaluation equals the unprepared one bit for bit, a call that restates
 another geometry raises, the optimizer's cost functions prepare once per
 pair, and the kernel layouts (the pair-layout volume, the interleaved
@@ -18,9 +18,13 @@ from crossscalepatchmatch_tpu_torch import CostMethod, CSPMConfig
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
 from crossscalepatchmatch_tpu_torch.ops import cuda as cuda_ops
-from crossscalepatchmatch_tpu_torch.ops import onthefly_cost, plane_cost
-from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
-from crossscalepatchmatch_tpu_torch.ops.cuda import cross_scale_cost, fly_cost
+from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost, plane_cost,
+                                                prescreen_volume)
+from crossscalepatchmatch_tpu_torch.ops.cost_volume import (VolumeData,
+                                                            build_volume_data)
+from crossscalepatchmatch_tpu_torch.ops.cuda import (cross_scale_cost,
+                                                     fly_cost, quadrant_build,
+                                                     window_cost)
 from crossscalepatchmatch_tpu_torch.ops.scale_weights import scale_weights
 
 torch.set_num_threads(1)
@@ -96,6 +100,104 @@ def test_prepared_cross_scale_equals_unprepared(levels, k):
         imgs, vols, mcs, wgts, abc, **kw), want)
     # on the CPU the volumes are read as they are: no pair-layout copy
     assert prep.vols is vols
+
+
+def single_scale(seed=0):
+    """A GRD single-scale volume pair: (imgs, vols, max_costs)."""
+    cfg = CSPMConfig(max_dis=D, wnd_size=2 * HW + 1)
+    pair = make_pair(h=H, w=W, max_dis=D, seed=seed)
+    vd = build_volume_data(torch.from_numpy(pair.left),
+                           torch.from_numpy(pair.right), cfg)
+    return vd.imgs[0], vd.vols[0], vd.max_costs[0]
+
+
+VOL_KW = dict(half_wnd=HW, max_dis=D, gamma=10.0)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_prepared_window_cost_equals_unprepared(stride, k):
+    imgs, vols, mcs = single_scale()
+    abc = planes(k, seed=30 + k)
+    prep = window_cost.prepare_volumes(imgs, vols, mcs, **VOL_KW)
+    n = plane_cost.launches
+    got = window_cost.window_cost_prepared(prep, abc, half_wnd=HW, max_dis=D,
+                                           wnd_stride=stride)
+    assert plane_cost.launches == n + 2                  # one per view
+    want = torch.stack([plane_cost.window_plane_cost(
+        imgs[v], vols[v], mcs[v], abc[v], wnd_stride=stride, **VOL_KW)
+        for v in range(2)])
+    assert got.shape == (2, k, H, W) and torch.equal(got, want)
+    assert torch.equal(window_cost.window_cost(imgs, vols, mcs, abc,
+                                               wnd_stride=stride, **VOL_KW),
+                       want)
+    # on the CPU the volume is read as it is: no pair-layout copy
+    assert prep.vols is vols and prep.pvols is None
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_prepared_quadrant_volumes_equal_unprepared(stride):
+    imgs, vols, mcs = single_scale(1)
+    prep = window_cost.prepare_volumes(imgs, vols, mcs, **VOL_KW)
+    n = prescreen_volume.launches
+    bq, wq = quadrant_build.quadrant_volumes_prepared(
+        prep, half_wnd=HW, gamma=10.0, stride=stride)
+    assert prescreen_volume.launches == n + 2
+    parts = [prescreen_volume.build_quadrant_volumes(
+        imgs[v], vols[v], half_wnd=HW, gamma=10.0, stride=stride)
+        for v in range(2)]
+    assert bq.shape == (2, 4, H, W, D + 1) and wq.shape == (2, 4, H, W)
+    assert torch.equal(bq, torch.stack([p[0] for p in parts]))
+    assert torch.equal(wq, torch.stack([p[1] for p in parts]))
+    ub, uw = quadrant_build.quadrant_volumes(imgs, vols, half_wnd=HW,
+                                             gamma=10.0, stride=stride)
+    assert torch.equal(ub, bq) and torch.equal(uw, wq)
+
+
+@pytest.mark.parametrize("bad", [dict(half_wnd=HW + 1), dict(max_dis=D + 1),
+                                 dict(wnd_stride=0)])
+def test_prepared_window_cost_raises_on_a_mismatch(bad):
+    imgs, vols, mcs = single_scale()
+    prep = window_cost.prepare_volumes(imgs, vols, mcs, **VOL_KW)
+    ok = dict(half_wnd=HW, max_dis=D)
+    n = plane_cost.launches
+    with pytest.raises(ValueError):
+        window_cost.window_cost_prepared(prep, planes(1, 0), **{**ok, **bad})
+    assert plane_cost.launches == n
+
+
+@pytest.mark.parametrize("bad", [dict(half_wnd=HW - 1), dict(gamma=11.0),
+                                 dict(stride=0)])
+def test_prepared_quadrant_volumes_raise_on_a_mismatch(bad):
+    """The ROADMAP fault of the JAX quadrant_volumes_prepared (another
+    half_wnd silently accepted) does not carry over."""
+    imgs, vols, mcs = single_scale()
+    prep = window_cost.prepare_volumes(imgs, vols, mcs, **VOL_KW)
+    ok = dict(half_wnd=HW, gamma=10.0, stride=2)
+    n = prescreen_volume.launches
+    with pytest.raises(ValueError):
+        quadrant_build.quadrant_volumes_prepared(prep, **{**ok, **bad})
+    assert prescreen_volume.launches == n
+
+
+def test_prepared_volumes_raise_on_other_planes():
+    imgs, vols, mcs = single_scale()
+    prep = window_cost.prepare_volumes(imgs, vols, mcs, **VOL_KW)
+    ok = dict(half_wnd=HW, max_dis=D)
+    abc = planes(1, 0)
+    for other in (abc[:, :, :H - 1], abc[:, :, :, :W - 2], abc[0],
+                  abc.to("meta")):
+        with pytest.raises(ValueError):
+            window_cost.window_cost_prepared(prep, other, **ok)
+    # K2's pair carries no saturation values: no window cost on it
+    k2_only = window_cost.prepare_volumes(imgs, vols, None, **VOL_KW)
+    with pytest.raises(ValueError):
+        window_cost.window_cost_prepared(k2_only, abc, **ok)
+    with pytest.raises(ValueError):        # half_wnd past the kernels' 64
+        window_cost.prepare_volumes(imgs, vols, mcs, half_wnd=65, max_dis=D,
+                                    gamma=10.0)
+    with pytest.raises(ValueError):        # planes on another device
+        window_cost.window_cost(imgs, vols, mcs, abc.to("meta"), **VOL_KW)
 
 
 @pytest.mark.parametrize("bad", [dict(half_wnd=HW + 1), dict(max_dis=D + 1),
@@ -206,6 +308,28 @@ def test_cross_scale_cost_fns_prepare_once_per_pair(monkeypatch):
         cost_fn(abc)
     assert plane_cost.cross_scale_launches == n + 6
     assert len(packs) == 3
+
+
+@pytest.mark.parametrize("mode", ["volume", "window"])
+def test_single_scale_cost_fns_prepare_once_per_pair(monkeypatch, mode):
+    """make_cost_fns prepares the fine level once; the exact evaluations
+    (K1), the strided prescreen (K3) and the quadrant build (K2) run on that
+    one prepared pair."""
+    preps = counting(monkeypatch, pm, "prepare_volumes")
+    cfg = CSPMConfig(max_dis=D, wnd_size=2 * HW + 1, prescreen_mode=mode)
+    imgs, vols, mcs = single_scale(2)
+    vd = VolumeData(imgs=[imgs], vols=[vols], max_costs=[mcs])
+    k2 = prescreen_volume.launches
+    cost_fn, sparse_fn = pm.make_cost_fns(cfg, vd)
+    assert len(preps) == 1
+    assert prescreen_volume.launches == k2 + 2 * (mode == "volume")
+    abc = planes(2, 5)
+    n = plane_cost.launches
+    for _ in range(3):
+        out = cost_fn(abc)
+    assert sparse_fn(abc).shape == out.shape
+    assert plane_cost.launches == n + 2 * (3 + (mode == "window"))
+    assert len(preps) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,5 +1,5 @@
-"""Time the port's K4 and fly kernels on a CUDA card, optionally against
-another checkout of the repository.
+"""Time the port's K1, K2, K3, K4 and fly kernels on a CUDA card,
+optionally against another checkout of the repository.
 
     python tools/torch_kernel_ab.py [--parent DIR] [--reps 5]
 
@@ -8,10 +8,17 @@ kernel, the KITTI scene (375x1242, max_dis 128).  Cases: K4 at K = 1, 2 and
 3 (5-level census pyramid, bf16 and f32 volumes); the fly kernel as K5 at
 K = 1, 2 and 3, as the strided prescreen (K3: stride 2, K = 8 and 5), as K6
 (image lerp), K7 (Lab) and the 5-level cross-scale fly, K5 and K3 also on
-the KITTI scene.  Every time is CUDA events around `reps` launches after a
-warm-up; where the checkout has prepared pairs (prepare_fly,
-prepare_cross_scale), the preparation (packing, the pair-layout volumes) is
-outside the timed region.
+the KITTI scene; K1 at K = 1 and 2, K3's volume form (stride 2, K = 8) and
+K2 on the bench scene's GRD volume (bf16 and f32), K1 (K = 1) and K2 on the
+KITTI scene's 129 slices.  Every time is CUDA events around `reps` launches
+after a warm-up; where the checkout has prepared pairs (prepare_fly,
+prepare_cross_scale, prepare_volumes), the preparation (packing, the
+pair-layout volumes) is outside the timed region, and a checkout without
+prepare_volumes has its K1 / K2 entries called on pre-packed inputs.
+
+First it runs README_DEMO on the bench scene and KITTI (with its volumes)
+on the KITTI scene, seed 0, three times each: the seed-0 `dis` digest, the
+ms/pair of each run and the peak device memory.
 
 --parent DIR: a checkout of another commit (e.g. `git archive` of the
 parent unpacked under build/); its kernels are built and timed in a process
@@ -22,10 +29,12 @@ time in ms.
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
 import sys
+import time
 
 
 def main() -> int:
@@ -58,12 +67,15 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, KITTI, CSPMConfig,
                                                 README_DEMO)
     from crossscalepatchmatch_tpu_torch.data import make_pair
-    from crossscalepatchmatch_tpu_torch.ops import onthefly_cost
+    from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
+    from crossscalepatchmatch_tpu_torch.ops import onthefly_cost, plane_cost
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
         build_volume_data)
     from crossscalepatchmatch_tpu_torch.ops.cuda import (_build,
                                                          cross_scale_cost,
-                                                         fly_cost)
+                                                         fly_cost, pack_bgr,
+                                                         quadrant_build,
+                                                         window_cost)
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
         scale_weights)
 
@@ -84,7 +96,25 @@ def main() -> int:
         times[name] = t
         print(f"{name}: {t:.3f} ms", flush=True)
 
-    # -- the fly kernel -------------------------------------------------------
+    # -- the volume paths: seed-0 output digest, ms/pair, peak memory ---------
+    def path_case(name, cfg, scene):
+        pair, l, r = scene
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run_pair(l, r, 0, cfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        digest = hashlib.sha256(out["dis"].cpu().numpy().tobytes()
+                                ).hexdigest()[:16]
+        times[f"{name} ms/pair"] = ms
+        times[f"{name} peak MiB"] = peak
+        print(f"{name}: seed 0 dis digest {digest}, ms/pair {ms}, peak "
+              f"{peak:.1f} MiB", flush=True)
+
     def fly_case(name, cfg, scene, k, lerp, stride):
         pair, l, r = scene
         fd = onthefly_cost.build_fly_data(l, r, cfg)
@@ -120,6 +150,8 @@ def main() -> int:
     fcfg = dataclasses.replace(README_DEMO, precompute_volume=False)
     kcfg = dataclasses.replace(KITTI, precompute_volume=False)
     md = README_DEMO.max_dis
+    path_case("README_DEMO", README_DEMO, bench)
+    path_case("KITTI", KITTI, kitti)
     fly_case("K5 K=1", fcfg, bench, 1, "cost", 1)
     fly_case("K5 K=2", fcfg, bench, 2, "cost", 1)
     fly_case("K5 K=3", fcfg, bench, 3, "cost", 1)
@@ -160,6 +192,69 @@ def main() -> int:
                     return cross_scale_cost.cross_scale_cost_cuda(
                         cvd.imgs, vols, cvd.max_costs, wgts, abc, **kw4)
             timed(f"K4 {tag} K={k}", fn)
+    # -- K1, K3's volume form, K2 --------------------------------------------
+    # the parent (no prepare_volumes) takes its C entries directly on
+    # pre-packed inputs and the plain D-minor volume, so on both sides the
+    # packing and the layout copy stay outside the timed region
+    has_prep = hasattr(window_cost, "prepare_volumes")
+    lib = _build.load()
+
+    def volume_cases(tag, scene, cfg, cases):
+        pair, l, r = scene
+        vd = build_volume_data(l, r, cfg)
+        imgs, mc = vd.imgs[0], vd.max_costs[0]
+        h, w = imgs.shape[1:3]
+        d = cfg.max_dis + 1
+        kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
+                  gamma=cfg.wgt_gamma)
+        st = _build.stream_of(mc)
+        for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            vols = vd.vols[0].to(dtype).contiguous()
+            if has_prep:
+                prep = window_cost.prepare_volumes(imgs, vols, mc, **kw)
+
+                def k1(abc, stride):
+                    return lambda: window_cost.window_cost_prepared(
+                        prep, abc, half_wnd=cfg.half_wnd,
+                        max_dis=cfg.max_dis, wnd_stride=stride)
+
+                def k2():
+                    return quadrant_build.quadrant_volumes_prepared(
+                        prep, half_wnd=cfg.half_wnd, gamma=cfg.wgt_gamma,
+                        stride=cfg.prescreen_stride)
+            else:
+                bf = int(dtype == torch.bfloat16)
+                img = pack_bgr(imgs)
+                lut = plane_cost.asw_lut(cfg.wgt_gamma, dev)
+                bq = torch.empty((2, 4, h, w, d), device=dev)
+                wq = torch.empty((2, 4, h, w), device=dev)
+
+                def k1(abc, stride):
+                    out = torch.empty(abc.shape[:-1], device=dev)
+                    return lambda: lib.cspm_window_cost(
+                        img.data_ptr(), vols.data_ptr(), bf, mc.data_ptr(),
+                        abc.data_ptr(), lut.data_ptr(), out.data_ptr(),
+                        abc.shape[1], h, w, d, cfg.half_wnd, cfg.max_dis,
+                        stride, st)
+
+                def k2():
+                    return lib.cspm_quadrant_build(
+                        img.data_ptr(), vols.data_ptr(), bf, lut.data_ptr(),
+                        bq.data_ptr(), wq.data_ptr(), h, w, d, cfg.half_wnd,
+                        cfg.prescreen_stride, st)
+            for kind, k, stride in cases:
+                if kind == "K2":
+                    timed(f"K2 {tag} {dt}", k2)
+                else:
+                    abc = chip_smoke.test_planes(pair, cfg.max_dis, k, gen,
+                                                 dev)
+                    timed(f"{kind} {tag} {dt} K={k} stride {stride}",
+                          k1(abc, stride))
+
+    volume_cases("bench", bench, README_DEMO,
+                 [("K1", 1, 1), ("K1", 2, 1), ("K3 volume", 8, 2),
+                  ("K2", 0, 0)])
+    volume_cases("KITTI", kitti, KITTI, [("K1", 1, 1), ("K2", 0, 0)])
     print(json.dumps({"card": card, "root": args.root, "ms": times}))
     return 0
 

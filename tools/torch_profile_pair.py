@@ -1,7 +1,8 @@
 """Where one run_pair of the PyTorch port spends its time on a CUDA card.
 
     python tools/torch_profile_pair.py [--config README_DEMO|CEN_CS_PP|
-                                                 README_DEMO-fly|KITTI-fly]
+                                                 README_DEMO-fly|KITTI-fly|
+                                                 KITTI]
                                        [--h 375 --w 450 --max-dis 60]
 
 Runs the port's main path at the named config once to warm up, then once
@@ -60,20 +61,21 @@ def main() -> int:
         "README_DEMO-fly": dataclasses.replace(config.README_DEMO,
                                                precompute_volume=False),
         "KITTI-fly": dataclasses.replace(config.KITTI,
-                                         precompute_volume=False)}
+                                         precompute_volume=False),
+        "KITTI": config.KITTI}
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=tuple(configs),
                     default="README_DEMO")
     ap.add_argument("--h", type=int, default=None,
                     help="default 375")
     ap.add_argument("--w", type=int, default=None,
-                    help="default 450, 1242 for KITTI-fly")
+                    help="default 450, 1242 for KITTI and KITTI-fly")
     ap.add_argument("--max-dis", type=int, default=None,
                     help="default the config's max_dis")
     args = ap.parse_args()
     cfg = configs[args.config]
     args.h = args.h or 375
-    args.w = args.w or (1242 if args.config == "KITTI-fly" else 450)
+    args.w = args.w or (1242 if args.config.startswith("KITTI") else 450)
     args.max_dis = args.max_dis or cfg.max_dis
     dev = torch.device("cuda:0")
     pair = make_pair(h=args.h, w=args.w, max_dis=args.max_dis, seed=0)
