@@ -47,7 +47,21 @@ Phases, each fatal on failure:
      same draws must agree (README_DEMO-like, CEN_CS_PP-like, the volume
      path's window prescreen, and without a volume: cost lerp, image lerp
      + cross-scale, Lab weights); each is a path of its own for the
-     launch counters.
+     launch counters;
+  9. the entry points on the bench scene, every one a path of its own for
+     the counters: the command line (`python -m
+     crossscalepatchmatch_tpu_torch` with the README demo's flags, in a
+     subprocess and in process, on PNGs of the scene: its maps equal
+     run_pair_np's byte for byte; then --input_list with two seeds); a
+     warm frame after a cold one (run_sequence_np, README_DEMO: ms a
+     frame, peak memory, bad-pixel @1px <= 0.01, bit-identical rerun);
+     run_pair_resumable (uninterrupted equal to run_pair, rewound to
+     iterations 1 and 2 and resumed bit-equal); --aggregator BOX, GF and
+     BF (ms/pair, the filter's device time, peak memory, bad-pixel,
+     printed); small pairs card vs CPU for each aggregator, CEN+CS+BOX and
+     a warm frame; and README_DEMO (seeds 0-2), CEN_CS_PP and KITTI (seed
+     0) with f32 kernel volumes, their bad-pixel beside phase 7's bf16
+     (printed, not gated).
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 """
@@ -55,11 +69,21 @@ device record.  Exits non-zero, printing no result, without a CUDA device.
 import dataclasses
 import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+# scratch files of the entry-point phase (PNGs, checkpoints), inside the
+# checkout's ignored build/ directory
+WORK_DIR = os.path.join(REPO, "build", "chip_smoke")
 SHAPE = dict(h=375, w=450, max_dis=60)
+# the README demo's command line (README_DEMO)
+README_FLAGS = ("--max_dis=60", "--dis_scale=4", "--cc_name=GRD",
+                "--use_cs=false", "--use_pp=false", "--reg_lambda=0.0")
 KITTI_SHAPE = dict(h=375, w=1242, max_dis=128)
 F32_REL_TOL = 2e-5          # |kernel - plain| <= tol * max(1, |plain|)
 BAD_PIXEL_MAX = 0.01
@@ -239,8 +263,11 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, KITTI, CostMethod,
-                                                CSPMConfig, README_DEMO)
+    from PIL import Image
+
+    from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, KITTI, Aggregator,
+                                                CostMethod, CSPMConfig,
+                                                README_DEMO)
     from crossscalepatchmatch_tpu_torch.data import make_pair
     from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
     from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
@@ -260,6 +287,7 @@ def main() -> int:
         scale_weights)
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
 
+    pkg = "crossscalepatchmatch_tpu_torch"
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -667,13 +695,15 @@ def main() -> int:
             raise RuntimeError(f"{name}: the path ran a plain version on "
                                "the card")
 
-    def main_path(name, pcfg, kernels, scene, seeds, px):
+    def main_path(name, pcfg, kernels, scene, seeds, px, gate=True):
+        """Run the seeds (a repeated seed must give the same outputs);
+        returns (outputs by seed, launch counts, bad-pixel @px by seed)."""
         p, pl, pr = scene
         ph, pw = p.left.shape[:2]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
-        outs, times = {}, []
+        outs, times, bads = {}, [], {}
         for seed in seeds:
             t0 = time.perf_counter()
             out = run_pair(pl, pr, seed, pcfg)
@@ -699,10 +729,11 @@ def main() -> int:
                                      p.valid_left, t) for t in (1.0, px)}
             bad_r = bad_pixel_rate(dis[1] / pcfg.dis_scale, p.disp_right,
                                    p.valid_right, px)
+            bads[seed] = bad[px]
             print(f"{name}: seed {seed} {times[-1]:.1f} ms "
                   f"bad-pixel(nonocc) @{px:g}px left {bad[px]:.4f} right "
                   f"{bad_r:.4f}; @1px left {bad[1.0]:.4f}")
-            if bad[px] > BAD_PIXEL_MAX:
+            if gate and bad[px] > BAD_PIXEL_MAX:
                 raise RuntimeError(f"{name} seed {seed}: bad-pixel "
                                    f"{bad[px]} > {BAD_PIXEL_MAX}")
         counts = read_counts()
@@ -714,21 +745,20 @@ def main() -> int:
             mid = f"; median of runs 2+ {later[len(later) // 2]:.1f}"
         print(f"{name}: ms/pair per run {times}{mid}; peak device memory "
               f"{peak / 2**20:.1f} MiB")
-        return outs, counts
+        return outs, counts, bads
 
     bench = (pair, l, r)
-    paths = {}
-    _, paths["README_DEMO"] = main_path("README_DEMO", README_DEMO,
-                                        ("k1", "k2"), bench, (0, 1, 2, 0), 1.0)
-    outs_cs, paths["CEN_CS_PP"] = main_path("CEN_CS_PP", CEN_CS_PP,
-                                            ("k4", "k2"), bench,
-                                            (0, 1, 2, 0), 1.0)
-    _, paths["README_DEMO-fly"] = main_path(
+    paths, bf16_bads = {}, {}
+    _, paths["README_DEMO"], bf16_bads["README_DEMO"] = main_path(
+        "README_DEMO", README_DEMO, ("k1", "k2"), bench, (0, 1, 2, 0), 1.0)
+    outs_cs, paths["CEN_CS_PP"], bf16_bads["CEN_CS_PP"] = main_path(
+        "CEN_CS_PP", CEN_CS_PP, ("k4", "k2"), bench, (0, 1, 2, 0), 1.0)
+    _, paths["README_DEMO-fly"], _ = main_path(
         "README_DEMO-fly", fcfg, ("k5", "k3_fly"), bench, (0, 1, 2, 0), 1.0)
-    _, paths["KITTI-fly"] = main_path("KITTI-fly", kitti_fly,
-                                      ("k5", "k3_fly"), kitti, (0, 0), 3.0)
-    _, paths["KITTI"] = main_path("KITTI", KITTI, ("k1", "k2"), kitti, (0,),
-                                  3.0)
+    _, paths["KITTI-fly"], _ = main_path("KITTI-fly", kitti_fly,
+                                         ("k5", "k3_fly"), kitti, (0, 0), 3.0)
+    _, paths["KITTI"], bf16_bads["KITTI"] = main_path(
+        "KITTI", KITTI, ("k1", "k2"), kitti, (0,), 3.0)
 
     # postprocess alone on the seed-0 planes: time, launches, same output
     from torch.profiler import ProfilerActivity, profile
@@ -757,6 +787,25 @@ def main() -> int:
     # -- 8. small pairs: card (kernels) vs CPU (plain versions), same draws -----
     small = make_pair(h=48, w=64, max_dis=12, seed=3)
     base = dict(max_dis=12, dis_scale=16, wnd_size=11, vol_dtype="f32")
+
+    def card_vs_cpu(name, kernels, run):
+        """run(device) -> u8 maps, on the card (a path of its own for the
+        counters) and on the CPU; they must agree within 1 level on
+        SMALL_AGREE_MIN of the pixels."""
+        reset_counts()
+        o_gpu = run(dev)
+        torch.cuda.synchronize()
+        paths[name] = read_counts()
+        check_counts(f"small pair {name}", paths[name], kernels)
+        o_cpu = run(torch.device("cpu"))
+        agree = float((np.abs(o_gpu.astype(int) - o_cpu.astype(int))
+                       <= 1).mean())
+        print(f"small pair {name} card vs CPU: {agree:.4f} of u8 pixels "
+              f"within 1")
+        if agree < SMALL_AGREE_MIN:
+            raise RuntimeError(f"{name}: card vs CPU agreement {agree} < "
+                               f"{SMALL_AGREE_MIN}")
+
     for name, kernels, scfg in (
             ("README_DEMO-like", ("k1", "k2"), CSPMConfig(**base)),
             ("CEN_CS_PP-like", ("k4", "k2"), CSPMConfig(
@@ -771,23 +820,234 @@ def main() -> int:
                 reg_lambda=0.3, scale_num=3, **{**base, "wnd_size": 7})),
             ("fly-Lab", ("k5", "k7", "k3_fly"), CSPMConfig(
                 precompute_volume=False, use_lab_weights=True, **base))):
-        reset_counts()
-        o_gpu = run_pair_np(small.left, small.right, scfg, device=dev,
-                            draws=TorchDraws(0, "cpu"))
-        torch.cuda.synchronize()
-        paths[name] = read_counts()
-        check_counts(f"small pair {name}", paths[name], kernels)
-        o_cpu = run_pair_np(small.left, small.right, scfg, device="cpu",
-                            draws=TorchDraws(0, "cpu"))
-        agree = float((np.abs(o_gpu["dis"].astype(int)
-                              - o_cpu["dis"].astype(int)) <= 1).mean())
-        print(f"small pair {name} card vs CPU: {agree:.4f} of u8 pixels "
-              f"within 1")
-        if agree < SMALL_AGREE_MIN:
-            raise RuntimeError(f"{name}: card vs CPU agreement {agree} < "
-                               f"{SMALL_AGREE_MIN}")
+        card_vs_cpu(name, kernels, lambda d, c=scfg: run_pair_np(
+            small.left, small.right, c, device=d,
+            draws=TorchDraws(0, "cpu"))["dis"])
 
-    pkg = "crossscalepatchmatch_tpu_torch"
+    # -- 9. the entry points on the card -----------------------------------
+    from crossscalepatchmatch_tpu_torch import checkpoint, cli
+    from crossscalepatchmatch_tpu_torch import io as cspm_io
+    from crossscalepatchmatch_tpu_torch.models.pipeline import (
+        run_pair_warm, run_sequence_np)
+    from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
+        aggregate_volume)
+    from crossscalepatchmatch_tpu_torch.utils.rng import PHASE_WARM
+
+    def digest(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[
+            :16]
+
+    def bad1(dis, p, scale):
+        return bad_pixel_rate(dis[0] / scale, p.disp_left, p.valid_left, 1.0)
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(dir=WORK_DIR)
+    try:
+        # 9.1 the CLI: a subprocess, then in-process for the counters
+        lp, rp = os.path.join(work, "l.png"), os.path.join(work, "r.png")
+        cspm_io.write_bgr(lp, pair.left)
+        cspm_io.write_bgr(rp, pair.right)
+        if not (np.array_equal(cspm_io.read_bgr(lp), pair.left)
+                and np.array_equal(cspm_io.read_bgr(rp), pair.right)):
+            raise RuntimeError("CLI: the PNG round trip changed the views")
+
+        def flags(tag, seed=None):
+            f = [f"--l_img_file={lp}", f"--r_img_file={rp}",
+                 f"--l_dis_file={work}/{tag}_l.png",
+                 f"--r_dis_file={work}/{tag}_r.png", *README_FLAGS]
+            return f if seed is None else [*f, f"--seed={seed}"]
+
+        def cli_maps(tag):
+            return np.stack([np.asarray(Image.open(f"{work}/{tag}_{v}.png"))
+                             for v in "lr"])
+
+        def run_cli(args):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", pkg, *args], cwd=REPO,
+                capture_output=True, text=True, timeout=600)
+            wall = (time.perf_counter() - t0) * 1e3
+            if res.returncode != 0:
+                raise RuntimeError(f"CLI exit {res.returncode}:\n"
+                                   f"{res.stdout}\n{res.stderr}")
+            total = [ln for ln in res.stdout.splitlines()
+                     if ln.startswith("Total Time:")]
+            print(f"CLI {' '.join(args[:1])} ...: {total}, process "
+                  f"{wall:.0f} ms")
+            return total
+
+        run_cli(flags("sub"))
+        reset_counts()
+        if cli.main(flags("inproc")) != 0:
+            raise RuntimeError("CLI in-process: non-zero exit")
+        torch.cuda.synchronize()
+        paths["CLI"] = read_counts()
+        check_counts("CLI (in process)", paths["CLI"], ("k1", "k2"))
+        want = run_pair_np(pair.left, pair.right, cli.config_from_args(
+            cli.build_parser().parse_args(flags("x"))), seed=0)["dis"]
+        same = [np.array_equal(cli_maps(t), want) for t in ("sub", "inproc")]
+        print(f"CLI README demo flags: subprocess maps == run_pair_np "
+              f"{same[0]}, in-process == run_pair_np {same[1]}, digest "
+              f"{digest(want)}, bad-pixel @1px {bad1(want, pair, 4):.4f}")
+        if not all(same):
+            raise RuntimeError("CLI maps differ from run_pair_np's")
+        lst = os.path.join(work, "input.txt")
+        with open(lst, "w") as f:
+            for seed in (0, 1):
+                f.write(f"cspm {' '.join(flags(f'list{seed}', seed))}\n")
+        if len(run_cli([f"--input_list={lst}"])) != 2:
+            raise RuntimeError("CLI --input_list: not two runs")
+        lists = [cli_maps(f"list{seed}") for seed in (0, 1)]
+        print(f"CLI --input_list: seed 0 == the single run "
+              f"{np.array_equal(lists[0], want)}, seed 1 differs "
+              f"{not np.array_equal(lists[1], want)}, seed 1 bad-pixel "
+              f"@1px {bad1(lists[1], pair, 4):.4f}")
+        if (not np.array_equal(lists[0], want)
+                or np.array_equal(lists[1], want)
+                or bad1(lists[1], pair, 4) > BAD_PIXEL_MAX):
+            raise RuntimeError("CLI --input_list: wrong maps")
+
+        # 9.2 a warm frame after a cold one (README_DEMO): the same
+        # geometry, the next frame's sensor noise
+        nxt = make_pair(seed=0, noise_sigma=2.0, **SHAPE)
+        frames = [(pair.left, pair.right), (nxt.left, nxt.right)]
+
+        def sequence():
+            outs, ms = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for out in run_sequence_np(frames, README_DEMO, seed=0):
+                outs.append(out)
+                t1 = time.perf_counter()
+                ms.append((t1 - t0) * 1e3)
+                t0 = t1
+            return outs, ms
+
+        sequence()       # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        seq, ms = sequence()
+        paths["warm sequence"] = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        check_counts("warm sequence", paths["warm sequence"], ("k1", "k2"))
+        again, ms2 = sequence()
+        same = all(np.array_equal(a[k], b[k])
+                   for a, b in zip(seq, again) for k in a)
+        warm_bad = bad1(seq[1]["dis"], nxt, 4)
+        print(f"warm frame (README_DEMO, warm_iters 1): cold {ms[0]:.1f} / "
+              f"{ms2[0]:.1f} ms, warm {ms[1]:.1f} / {ms2[1]:.1f} ms a frame; "
+              f"peak device memory {peak / 2**20:.1f} MiB; bad-pixel @1px "
+              f"cold {bad1(seq[0]['dis'], pair, 4):.4f} warm {warm_bad:.4f}; "
+              f"rerun bit-identical {same}; warm digest "
+              f"{digest(seq[1]['dis'])}")
+        if warm_bad > BAD_PIXEL_MAX or not same:
+            raise RuntimeError("warm frame: bad-pixel over the gate or a "
+                               "rerun differs")
+
+        # 9.3 checkpoint and resume (README_DEMO)
+        ck_path = os.path.join(work, "state.npz")
+        saved = {}
+        save_state = checkpoint.save_state
+
+        def spy(path, state, iteration, scfg, seed):
+            saved[iteration] = state
+            save_state(path, state, iteration, scfg, seed)
+
+        reset_counts()
+        checkpoint.save_state = spy
+        try:
+            full = checkpoint.run_pair_resumable(pair.left, pair.right,
+                                                 README_DEMO, ck_path)
+        finally:
+            checkpoint.save_state = save_state
+        paths["resume"] = read_counts()
+        check_counts("resume", paths["resume"], ("k1", "k2"))
+        plain = run_pair_np(pair.left, pair.right, README_DEMO, seed=0)
+        same = [all(np.array_equal(full[k], plain[k]) for k in plain)]
+        for rewind in (1, 2):
+            checkpoint.save_state(ck_path, saved[rewind], rewind,
+                                  README_DEMO, 0)
+            res = checkpoint.run_pair_resumable(pair.left, pair.right,
+                                                README_DEMO, ck_path)
+            same.append(all(np.array_equal(full[k], res[k]) for k in full))
+        print(f"resume (README_DEMO): uninterrupted == run_pair {same[0]} "
+              f"(dis digest {digest(full['dis'])}); rewound to iteration 1 "
+              f"and resumed bit-equal {same[1]}, to iteration 2 {same[2]}")
+        if not all(same):
+            raise RuntimeError("resume: not bit-equal")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # 9.4 the aggregators (README_DEMO, seed 0): ms/pair, the filter's own
+    # device time on the two views' level-0 volumes, peak memory, bad-pixel
+    plain_vd = build_volume_data(l, r, README_DEMO)
+    for agg in (Aggregator.BOX, Aggregator.GF, Aggregator.BF):
+        acfg = dataclasses.replace(README_DEMO, aggregator=agg)
+        run_pair(l, r, 0, acfg)      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_pair(l, r, 0, acfg)
+        torch.cuda.synchronize()
+        ms_pair = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        paths[f"aggregator {agg.value}"] = read_counts()
+        check_counts(f"aggregator {agg.value}",
+                     paths[f"aggregator {agg.value}"], ("k1", "k2"))
+        _, agg_ms = timed_once(lambda: [aggregate_volume(
+            plain_vd.vols[0][v], plain_vd.imgs[0][v], acfg)
+            for v in range(2)])
+        bad = bad1(out["dis"].cpu().numpy(), pair, 4)
+        bf16_bads[f"README_DEMO-{agg.value}"] = {0: bad}
+        print(f"aggregator {agg.value}: {ms_pair:.1f} ms/pair, aggregation "
+              f"{agg_ms:.1f} device ms (2 views), peak device memory "
+              f"{peak / 2**20:.1f} MiB, bad-pixel @1px {bad:.4f}")
+    del plain_vd
+
+    # 9.5 small pairs, card vs CPU: each aggregator, CEN+CS+BOX, a warm
+    # frame (both from the CPU's cold planes, the same warm draws)
+    for agg in ("BOX", "GF", "BF"):
+        scfg = CSPMConfig(aggregator=Aggregator(agg), **base)
+        card_vs_cpu(f"aggregator {agg}", ("k1", "k2"),
+                    lambda d, c=scfg: run_pair_np(
+                        small.left, small.right, c, device=d,
+                        draws=TorchDraws(0, "cpu"))["dis"])
+    scfg = CSPMConfig(cost_method=CostMethod.CEN, use_cs=True,
+                      reg_lambda=0.3, scale_num=3, aggregator=Aggregator.BOX,
+                      **base)
+    card_vs_cpu("CEN+CS+BOX", ("k4", "k2"), lambda d: run_pair_np(
+        small.left, small.right, scfg, device=d,
+        draws=TorchDraws(0, "cpu"))["dis"])
+    scfg = CSPMConfig(**base)
+    prior = run_pair_np(small.left, small.right, scfg, device="cpu",
+                        draws=TorchDraws(0, "cpu"))["abc"]
+    card_vs_cpu("warm frame", ("k1", "k2"), lambda d: run_pair_warm(
+        small.left, small.right, 1, prior, scfg, device=d,
+        draws=TorchDraws(1, "cpu", refine_phase=PHASE_WARM))[
+            "dis"].cpu().numpy())
+
+    # 9.6 kernel volumes in f32 against the default bf16: bad-pixel per
+    # seed (printed, not gated: the JAX engine has the same bf16 default);
+    # the aggregators' filtered volumes are not integers, so bf16 rounds them
+    for name, pcfg, kernels, scene, seeds, px in (
+            ("README_DEMO", README_DEMO, ("k1", "k2"), bench, (0, 1, 2),
+             1.0),
+            ("CEN_CS_PP", CEN_CS_PP, ("k4", "k2"), bench, (0,), 1.0),
+            ("KITTI", KITTI, ("k1", "k2"), kitti, (0,), 3.0),
+            *((f"README_DEMO-{agg.value}",
+               dataclasses.replace(README_DEMO, aggregator=agg), ("k1", "k2"),
+               bench, (0,), 1.0)
+              for agg in (Aggregator.BOX, Aggregator.GF, Aggregator.BF))):
+        _, paths[f"{name} f32"], f32 = main_path(
+            f"{name} f32 volumes", dataclasses.replace(pcfg, vol_dtype="f32"),
+            kernels, scene, seeds, px, gate=False)
+        for seed in seeds:
+            gap = f32[seed] - bf16_bads[name][seed]
+            print(f"{name} seed {seed}: bad-pixel @{px:g}px f32 "
+                  f"{f32[seed]:.4f} bf16 {bf16_bads[name][seed]:.4f} gap "
+                  f"{gap:+.4f}{' (over 0.005)' if abs(gap) > 0.005 else ''}")
+
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
 
     def entry(name, key, source, replaces):

@@ -13,6 +13,7 @@ right-view disparity and occlusion maps come from forward-warping.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -49,6 +50,46 @@ def _smooth_noise(rng: np.random.Generator, h: int, w: int,
         out += amp * g
         amp *= 0.5
     return (out - out.min()) / max(float(np.ptp(out)), 1e-6)
+
+
+def load_host_photo() -> np.ndarray | None:
+    """A real photograph as u8[H, W, 3] BGR: matplotlib's sample
+    grace_hopper.jpg, a texture source with natural spectra, edges and
+    camera grain for photo-textured ground-truth scenes
+    (make_pair(textures=photo_textures(...))).  None when matplotlib or
+    its sample data is not installed."""
+    try:
+        import matplotlib
+        from PIL import Image
+    except ImportError:
+        return None
+    p = os.path.join(matplotlib.get_data_path(), "sample_data",
+                     "grace_hopper.jpg")
+    try:
+        rgb = np.asarray(Image.open(p).convert("RGB"))
+    except OSError:
+        return None
+    return rgb[..., ::-1].copy()          # BGR like the engine's I/O
+
+
+def photo_textures(photo_bgr: np.ndarray, n: int, h: int, tex_w: int,
+                   rng: np.random.Generator) -> list:
+    """n layer textures f32[h, tex_w, 3], random crops of a photo
+    (mirror-tiled when the photo is smaller than a texture), one per scene
+    layer: real texture over exact synthetic geometry."""
+    ph, pw, _ = photo_bgr.shape
+    reps_y = -(-max(h, ph) * 2 // ph)
+    reps_x = -(-max(tex_w, pw) * 2 // pw)
+    tiled = np.tile(np.concatenate(
+        [photo_bgr, photo_bgr[:, ::-1]], axis=1), (reps_y, reps_x // 2 + 1, 1))
+    tiled = np.concatenate([tiled, tiled[::-1]], axis=0)
+    th, tw_ = tiled.shape[:2]
+    out = []
+    for _ in range(n):
+        y0 = int(rng.integers(0, max(th - h, 1)))
+        x0 = int(rng.integers(0, max(tw_ - tex_w, 1)))
+        out.append(tiled[y0:y0 + h, x0:x0 + tex_w].astype(np.float32))
+    return out
 
 
 def make_pair(h: int = 96, w: int = 128, max_dis: int = 16,

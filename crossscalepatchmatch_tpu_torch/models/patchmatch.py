@@ -96,7 +96,7 @@ def make_cost_fns(cfg: CSPMConfig,
     per pair (prepare_volumes / prepare_cross_scale); an evaluation only
     launches.  On the card the functions hold the pair-layout volumes and
     the quadrant volumes, not vd's volumes or their cfg.vol_dtype copies."""
-    check_supported(cfg)
+    check_supported(cfg, tuple(vd.imgs[0].shape[1:3]), vd.imgs[0].device)
     volume_mode = cfg.prescreen_stride > 1 and cfg.prescreen_mode == "volume"
     window_mode = (cfg.prescreen_stride > 1 and cfg.prescreen_mode == "window"
                    and not cfg.use_cs)
@@ -140,7 +140,7 @@ def make_fly_cost_fns(cfg: CSPMConfig,
     at stride prescreen_stride (K3) when prescreen_stride > 1 and not
     cfg.use_cs, else None.  There is no quadrant ranking (it needs a
     volume), so rank adoption is off and the run is all-exact."""
-    check_supported(cfg)
+    check_supported(cfg, tuple(fd.imgs[0].shape[1:3]), fd.imgs[0].device)
     # packed images and the weight table are made once per pair; an
     # evaluation only launches
     prep = prepare_fly(
@@ -330,40 +330,69 @@ def iteration_step(state: PMState, draws, iteration: int, cost_fn: CostFn,
                             sparse_fn=sparse_fn)
 
 
+def iterate(state: PMState, first: int, stop: int, draws, cost_fn: CostFn,
+            cfg: CSPMConfig, sparse_fn: CostFn | None = None, *,
+            n_rank: int = 0,
+            on_iteration: Callable[[PMState, int], None] | None = None
+            ) -> PMState:
+    """Outer iterations first..stop-1 of the schedule, from `state` (the
+    state after `first` iterations).
+
+    Iterations below n_rank adopt on the ranking costs (sparse_fn, no
+    prescreen); the others adopt on cost_fn with sparse_fn as the
+    prescreen.  Iteration n_rank is the entry into the exact phase: with
+    prop_sweeps > 0 the held cost becomes +inf and the first sweep
+    evaluates the current plane as a prepended candidate (the deferred
+    entry); otherwise a held rank-unit cost (n_rank > 0) is replaced by a
+    K=1 exact evaluation.  A state entering at iteration 0 with n_rank = 0
+    and prop_sweeps = 0 must hold exact costs.
+
+    Args:
+      on_iteration: called as on_iteration(state, i + 1) after iteration i.
+    """
+    defer = cfg.prop_sweeps > 0
+    for it in range(first, stop):
+        if it == n_rank and defer:
+            state = PMState(abc=state.abc,
+                            cost=torch.full_like(state.cost, float("inf")))
+        elif it == n_rank and n_rank:
+            # the rank-unit cost is not comparable to exact costs
+            state = PMState(abc=state.abc,
+                            cost=cost_fn(state.abc[:, None])[:, 0])
+        cf, sf = (sparse_fn, None) if it < n_rank else (cost_fn, sparse_fn)
+        state = iteration_step(state, draws, it, cf, cfg, sf,
+                               include_current=defer and it == n_rank)
+        if on_iteration is not None:
+            on_iteration(state, it + 1)
+    return state
+
+
 def patchmatch(draws, hw: Tuple[int, int], cost_fn: CostFn, cfg: CSPMConfig,
-               sparse_fn: CostFn | None = None, *, device) -> PMState:
-    """Full optimizer: init + max_iter outer iterations.
+               sparse_fn: CostFn | None = None, *, device,
+               start: Tuple[PMState, int] | None = None,
+               on_iteration: Callable[[PMState, int], None] | None = None
+               ) -> PMState:
+    """Full optimizer: init + max_iter outer iterations (see iterate).
 
     cfg.adopt_mode: "exact" adopts on cost_fn throughout; "rank" on the
     quadrant ranking (sparse_fn); "rank+exact" ranks for the first
-    max_iter - exact_iters iterations, then adopts exactly.  Entry into the
-    exact phase is deferred (prop_sweeps > 0): the held cost becomes +inf
-    and the first exact sweep evaluates the current plane as a prepended
-    candidate, instead of a standalone K=1 evaluation.
+    max_iter - exact_iters iterations, then adopts exactly.
+
+    Args:
+      start: (state, i), the state after i iterations, to continue from
+        instead of a fresh init (a resumed run).
+      on_iteration: called as on_iteration(state, i) with the state after
+        i iterations: after a fresh init (i = 0) and after each iteration.
     """
     n_rank = cfg.rank_iters if sparse_fn is not None else 0
-    n_exact = cfg.max_iter - n_rank
-    defer = cfg.prop_sweeps > 0 and n_exact > 0
-
-    init_fn = sparse_fn if n_rank else (None if defer else cost_fn)
-    state = init_state(draws, hw, init_fn, cfg, device=device)
-    for it in range(n_rank):
-        state = iteration_step(state, draws, it, sparse_fn, cfg, None)
-    if n_rank and n_exact:
-        # the rank-unit cost is not comparable to exact costs
-        state = PMState(
-            abc=state.abc,
-            cost=(torch.full_like(state.cost, float("inf")) if defer
-                  else cost_fn(state.abc[:, None])[:, 0]))
-    if n_exact:
-        k0 = n_rank
-        if defer:
-            state = iteration_step(state, draws, k0, cost_fn, cfg, sparse_fn,
-                                   include_current=True)
-            k0 += 1
-        for it in range(k0, cfg.max_iter):
-            state = iteration_step(state, draws, it, cost_fn, cfg, sparse_fn)
-    return state
+    if start is None:
+        defer = cfg.prop_sweeps > 0 and cfg.max_iter > n_rank
+        init_fn = sparse_fn if n_rank else (None if defer else cost_fn)
+        start = (init_state(draws, hw, init_fn, cfg, device=device), 0)
+        if on_iteration is not None:
+            on_iteration(*start)
+    return iterate(*start, cfg.max_iter, draws, cost_fn, cfg, sparse_fn,
+                   n_rank=n_rank, on_iteration=on_iteration)
 
 
 def plane_to_disp(abc: torch.Tensor, dis_scale: int) -> torch.Tensor:

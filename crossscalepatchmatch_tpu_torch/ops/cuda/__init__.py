@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import torch
 
+# The widest window the kernels take (csrc/*.cu): half_wnd <= 64.
+MAX_HALF_WND = 64
+
 
 def pack_bgr(imgs_u8: torch.Tensor) -> torch.Tensor:
     """u8[..., 3] -> i32[...]: one pixel per 32-bit word (byte 3 zero), the
@@ -29,6 +32,16 @@ def pair_volume(vol: torch.Tensor) -> torch.Tensor:
     out[..., :-1, 1] = vol[..., 1:]
     out[..., -1, 1] = vol[..., -1]
     return out
+
+
+def check_half_wnd(half_wnd: int, device: torch.device) -> None:
+    """Raise ValueError for a negative half window, or on the card for one
+    past the kernels' MAX_HALF_WND (the plain versions take any)."""
+    if half_wnd < 0:
+        raise ValueError(f"half_wnd {half_wnd} < 0")
+    if device.type != "cpu" and half_wnd > MAX_HALF_WND:
+        raise ValueError(f"half_wnd {half_wnd} outside the kernels' "
+                         f"[0, {MAX_HALF_WND}]")
 
 
 def check_tensor(name: str, t: torch.Tensor, dtypes, shape) -> None:

@@ -24,7 +24,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import plane_cost
-from . import _build, check_tensor, pack_bgr, pair_volume
+from . import (_build, check_half_wnd, check_tensor, pack_bgr,
+               pair_volume)
 
 # Kernel launches (a plain count; chip_smoke resets and reads it).
 launches = 0
@@ -124,8 +125,7 @@ def prepare_cross_scale(imgs_u8: Sequence[torch.Tensor],
     if len(imgs_u8) != n or len(max_costs) != n or len(scale_wgts) != n:
         raise ValueError("imgs, vols, max_costs and scale_wgts must have "
                          "one entry per level")
-    if not 0 <= half_wnd <= 64:
-        raise ValueError(f"half_wnd {half_wnd} outside the kernel's [0, 64]")
+    check_half_wnd(half_wnd, dev)
     if not 0 <= max_dis < MAX_DIS_LIMIT:
         raise ValueError(f"max_dis {max_dis} outside [0, {MAX_DIS_LIMIT})")
     prep = PreparedCrossScale(

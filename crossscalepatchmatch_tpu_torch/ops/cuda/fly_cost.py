@@ -25,7 +25,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import onthefly_cost, plane_cost
-from . import _build, check_tensor, pack_bgr
+from . import _build, check_half_wnd, check_tensor, pack_bgr
 
 # Kernel launches by variant, keyed (lerp, lab, strided): lerp "cost" is
 # K5, "image" K6, lab the Lab weight slab of K7, strided the window of K3.
@@ -97,8 +97,7 @@ def prepare_fly(fd: onthefly_cost.FlyData,
         raise ValueError("imgs, grds and wimgs must have one entry per level")
     if lerp not in ("cost", "image"):
         raise ValueError(f"lerp must be 'cost' or 'image', got {lerp!r}")
-    if not 0 <= half_wnd <= 64:
-        raise ValueError(f"half_wnd {half_wnd} outside the kernel's [0, 64]")
+    check_half_wnd(half_wnd, dev)
     if not 0 <= max_dis < MAX_DIS_LIMIT:
         raise ValueError(f"max_dis {max_dis} outside [0, {MAX_DIS_LIMIT})")
     prep = PreparedFly(

@@ -16,12 +16,9 @@ from .. import prescreen_volume
 from . import _build, check_tensor
 from .window_cost import PreparedVolumes, prepare_volumes
 
-# Kernel launches (a plain count; chip_smoke resets and reads it).
+# Kernel launches (a plain count; chip_smoke resets and reads it).  The
+# kernel takes any depth: it runs the slices in chunks of 16.
 launches = 0
-
-# Slices the wrapper takes (the kernel runs any depth in chunks of 16; 256
-# is the largest tested on the card, and KITTI's 129 fits).
-MAX_DEPTH = 256
 
 
 def quadrant_volumes_prepared(prep: PreparedVolumes, *, half_wnd: int,
@@ -50,8 +47,6 @@ def quadrant_volumes_prepared(prep: PreparedVolumes, *, half_wnd: int,
                 torch.stack([p[1] for p in parts]))
     h, w = prep.hw
     d = prep.max_dis + 1
-    if not d <= MAX_DEPTH:
-        raise ValueError(f"depth {d} outside the kernel's [1, {MAX_DEPTH}]")
     lib = _build.load()
     dev = prep.device
     bq = torch.empty((2, 4, h, w, d), dtype=torch.float32, device=dev)

@@ -26,7 +26,8 @@ from typing import Tuple
 import torch
 
 from .. import plane_cost
-from . import _build, check_tensor, pack_bgr, pair_volume
+from . import (_build, check_half_wnd, check_tensor, pack_bgr,
+               pair_volume)
 from .cross_scale_cost import MAX_DIS_LIMIT, check_candidates, level_args
 
 # Kernel launches (plain counts; chip_smoke resets and reads them): all,
@@ -72,13 +73,12 @@ def prepare_volumes(imgs_u8: torch.Tensor, vols: torch.Tensor,
 
     On the card the volume is copied into the kernels' pair layout
     (pair_volume: twice its memory) and the caller's is not held; the plain
-    versions read it as it is.  Raises ValueError on inputs the kernels do
-    not take.
+    versions read it as it is (any window).  Raises ValueError on inputs
+    the kernels do not take.
     """
     if vols.dim() != 4:
         raise ValueError(f"vols shape {tuple(vols.shape)} is not [2, H, W, D]")
-    if not 0 <= half_wnd <= 64:
-        raise ValueError(f"half_wnd {half_wnd} outside the kernels' [0, 64]")
+    check_half_wnd(half_wnd, vols.device)
     if not 0 <= max_dis < MAX_DIS_LIMIT:
         raise ValueError(f"max_dis {max_dis} outside [0, {MAX_DIS_LIMIT})")
     _, h, w, _ = vols.shape

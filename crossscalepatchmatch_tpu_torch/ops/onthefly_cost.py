@@ -66,6 +66,18 @@ def _handle_border(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(x < 0, x + n, torch.where(x >= n, x - n, x))
 
 
+def _take(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """flat[idx] along the first axis with jnp.take's bounds: an index in
+    [-N, 0) counts from the end, one outside [-N, N) reads NaN (at
+    max_dis >= W a tap can fall past the last row's one +-W wrap)."""
+    n = flat.shape[0]
+    ok = (idx >= -n) & (idx < n)
+    out = flat[torch.where(ok, idx, 0)]
+    if out.dim() > ok.dim():
+        ok = ok[..., None]
+    return torch.where(ok, out, float("nan"))
+
+
 def _data_term(q_img, q_grd, oth_img, oth_grd, dq, q_x, q_y, sign: int, *,
                w_oth: int, alpha: float, tau_clr: float, tau_grd: float):
     """TAD colour + gradient against the sub-pixel warped other view.
@@ -82,11 +94,12 @@ def _data_term(q_img, q_grd, oth_img, oth_grd, dq, q_x, q_y, sign: int, *,
     flat_f = q_y * w_oth + _handle_border(fx, w_oth)
     flat_c = q_y * w_oth + _handle_border(fx + 1, w_oth)
     fw = floor_wgt[..., None]
-    lerp = fw * oth_img[flat_f] + (1.0 - fw) * oth_img[flat_c]
+    lerp = fw * _take(oth_img, flat_f) + (1.0 - fw) * _take(oth_img, flat_c)
     diff = (q_img - lerp).abs()
     # the channel mean in a fixed order (the CUDA kernel's)
     clr = (diff[..., 0] + diff[..., 1] + diff[..., 2]) / 3.0
-    g_lerp = floor_wgt * oth_grd[flat_f] + (1.0 - floor_wgt) * oth_grd[flat_c]
+    g_lerp = (floor_wgt * _take(oth_grd, flat_f)
+              + (1.0 - floor_wgt) * _take(oth_grd, flat_c))
     grd = (q_grd - g_lerp).abs()
     return (alpha * torch.clamp(clr, max=tau_clr)
             + (1.0 - alpha) * torch.clamp(grd, max=tau_grd))

@@ -14,6 +14,11 @@ A draw source has two methods:
         -> (dz f32[*shape] ~ U(-z_mag, z_mag),
             dn f32[*shape, 3] ~ U(-n_mag, n_mag))
 
+The iterations of a warm start (models.pipeline.run_pair_warm) have a
+numbering of their own: their refinement draws are keyed by PHASE_WARM
+(TorchDraws(..., refine_phase=PHASE_WARM)), so warm iteration i never
+draws what cold iteration i drew.
+
 TorchDraws is the production source.  A test can hand in another source
 with the same methods (for example one that replays the JAX engine's
 threefry key tree) to make the port follow the JAX trajectory.
@@ -26,6 +31,7 @@ import torch
 
 PHASE_INIT = 0
 PHASE_REFINE = 1
+PHASE_WARM = 2
 
 
 class TorchDraws:
@@ -34,11 +40,14 @@ class TorchDraws:
     Each key (phase, iteration, view, round) seeds its own generator from
     numpy's SeedSequence of (seed, *key): the same seed gives bit-identical
     draws on the same device, whatever order they are asked for in.
+    `refine_phase` keys the refinement draws: PHASE_REFINE for a cold run,
+    PHASE_WARM for a warm start's iterations.
     """
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, refine_phase: int = PHASE_REFINE):
         self.seed = int(seed)
         self.device = torch.device(device)
+        self.refine_phase = refine_phase
 
     def _gen(self, *key: int) -> torch.Generator:
         entropy = [self.seed % (1 << 63), *key]
@@ -60,7 +69,7 @@ class TorchDraws:
 
     def refine(self, iteration: int, view: int, rnd: int, shape,
                z_mag: float, n_mag: float):
-        g = self._gen(PHASE_REFINE, iteration, view, rnd)
+        g = self._gen(self.refine_phase, iteration, view, rnd)
         dz = self._uniform(g, shape, -z_mag, z_mag)
         dn = self._uniform(g, (*shape, 3), -n_mag, n_mag)
         return dz, dn

@@ -16,6 +16,10 @@ compared:
   sequential refinement: round i takes the (i+1)-th k, k0, k1 = split(k, 3)
   perturb:  kd, kn = split(k); uniform(kd, (H,W), -z, z),
             uniform(kn, (H,W,3), -n, n)                   (plane.py:109-114)
+
+JaxWarmDraws replays a warm start's tree (models/pipeline.py
+run_pair_warm): warm iteration i refines from split(PRNGKey(seed),
+warm_iters)[i], split per view and round as above; no init draws.
 """
 
 import jax
@@ -75,3 +79,12 @@ class JaxDraws:
         dn = jax.random.uniform(kn, (*shape, 3), jnp.float32, -n, n)
         return (torch.from_numpy(np.array(dz)),
                 torch.from_numpy(np.array(dn)))
+
+
+class JaxWarmDraws(JaxDraws):
+    def __init__(self, seed: int, cfg, warm_iters: int):
+        super().__init__(seed, cfg)
+        self.iter_keys = jax.random.split(self.key, warm_iters)
+
+    def init(self, shape, max_dis, eps):
+        raise AssertionError("a warm start draws no init planes")

@@ -1,7 +1,10 @@
 """The port's CUDA kernels K1 (window cost), K2 (quadrant build), K3 (the
 strided window, volume and fly forms), K4 (cross-scale window cost), K5
 (the no-volume fly cost), K6 (its image-space lerp) and K7 (its Lab
-weights) against their plain PyTorch versions, on the card.
+weights) against their plain PyTorch versions, on the card; and the entry
+points (the command line, a warm start, checkpoint and resume, the
+up-front refusal of a window the kernels do not take) running through
+them.
 
 Run on a machine with a CUDA device:
 
@@ -157,10 +160,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                      max_dis=5, gamma=10.0)
     with pytest.raises(ValueError):        # f64 volume
         window_cost.window_cost_cuda(imgs, vols.double(), mc, abc, **kw)
-    with pytest.raises(ValueError):        # depth beyond the kernel's 256
+    with pytest.raises(ValueError):        # a window past the kernels' 64
         quadrant_build.quadrant_volumes_cuda(
-            imgs, torch.zeros((2, 8, 12, 257), device=cuda), half_wnd=1,
-            gamma=10.0, stride=1)
+            imgs, vols, half_wnd=65, gamma=10.0, stride=1)
     with pytest.raises(ValueError):        # stride 0
         window_cost.window_cost_cuda(imgs, vols, mc, abc, wnd_stride=0, **kw)
 
@@ -606,7 +608,9 @@ def test_k1_k3_edge_shapes(cuda, h, w, hw, stride, k):
     (8, 12, 20, 17, 2),     # a tile and a window wider than the image
     (61, 40, 70, 17, 2),    # the bench depth, not a multiple of 16
     (129, 24, 40, 17, 2),   # KITTI's depth: one slice past 8 chunks
-    (256, 17, 35, 3, 1),    # the largest depth the wrapper takes
+    (256, 17, 35, 3, 1),    # sixteen full chunks
+    (257, 17, 35, 3, 1),    # one slice past them: any depth runs
+    (300, 12, 20, 5, 2),
     (40, 30, 50, 4, 3),     # stride 3
     (24, 20, 30, 64, 3)])   # the widest window: half_wnd 64
 def test_k2_prepared(cuda, d, h, w, hw, stride):
@@ -665,8 +669,8 @@ def test_prepared_volumes_reject_what_the_kernels_do_not_take(cuda):
     deep = window_cost.prepare_volumes(
         imgs, torch.zeros((2, 8, 12, 257), device=cuda), None, half_wnd=1,
         max_dis=256, gamma=10.0)
-    with pytest.raises(ValueError):        # depth beyond the wrapper's 256
-        quadrant_build.quadrant_volumes_prepared(deep, **qkw)
+    gb, gw = quadrant_build.quadrant_volumes_prepared(deep, **qkw)
+    assert gb.shape == (2, 4, 8, 12, 257) and gw.shape == (2, 4, 8, 12)
     with pytest.raises(ValueError):        # prepared without max_costs
         window_cost.window_cost_prepared(deep, abc, half_wnd=1, max_dis=256)
 
@@ -732,3 +736,95 @@ def test_no_volume_pipeline_runs_through_the_kernels(cuda, kw, n_fly,
     assert (window_cost.launches, quadrant_build.launches,
             cross_scale_cost.launches) == (0, 0, 0)
     assert onthefly_cost.launches == 0 and plane_cost.launches == 0
+
+
+def no_plain_version_ran():
+    return (plane_cost.launches, plane_cost.cross_scale_launches,
+            prescreen_volume.launches, onthefly_cost.launches) == (0, 0, 0, 0)
+
+
+def test_cli_runs_on_the_card(cuda, tmp_path):
+    """python -m crossscalepatchmatch_tpu_torch's main on the default
+    device: K1 and K2 launch, and the maps are run_pair_np's."""
+    from PIL import Image
+
+    from crossscalepatchmatch_tpu_torch import io as cspm_io
+    from crossscalepatchmatch_tpu_torch.cli import main
+    from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair_np
+
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    lp, rp = str(tmp_path / "l.png"), str(tmp_path / "r.png")
+    cspm_io.write_bgr(lp, pair.left)
+    cspm_io.write_bgr(rp, pair.right)
+    reset_counts()
+    assert main([f"--l_img_file={lp}", f"--r_img_file={rp}",
+                 f"--l_dis_file={tmp_path}/ld.png",
+                 f"--r_dis_file={tmp_path}/rd.png", "--max_dis=12",
+                 "--dis_scale=16", "--wnd_size=11"]) == 0
+    assert window_cost.launches == 10 and quadrant_build.launches == 1
+    assert no_plain_version_ran()
+    want = run_pair_np(pair.left, pair.right,
+                       CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11))
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(tmp_path / "ld.png")), want["dis"][0])
+
+
+def test_warm_start_runs_on_the_card(cuda):
+    """run_pair_warm from a cold frame's planes: every evaluation on the
+    kernels (no rank phase: K2 once, K1 for the rest), the cost never worse
+    than the cold run's, the same seed bit-identical."""
+    from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair_warm
+
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11, vol_dtype="f32")
+    cold = run_pair(pair.left, pair.right, 0, cfg)
+    reset_counts()
+    warm = run_pair_warm(pair.left, pair.right, 1, cold["abc"], cfg, 2)
+    torch.cuda.synchronize()
+    assert quadrant_build.launches == 1 and window_cost.launches > 0
+    assert no_plain_version_ran()
+    assert bool((warm["cost"] <= cold["cost"] + 1e-5).all())
+    again = run_pair_warm(pair.left, pair.right, 1, cold["abc"], cfg, 2)
+    assert all(torch.equal(warm[k], again[k]) for k in warm)
+
+
+def test_resume_runs_on_the_card(cuda, tmp_path):
+    """run_pair_resumable on the card: uninterrupted equal to run_pair,
+    and rewound to iteration 1, resumed bit-equal."""
+    import crossscalepatchmatch_tpu_torch.checkpoint as ck
+
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11)
+    path = str(tmp_path / "state.npz")
+    saved = {}
+    orig = ck.save_state
+
+    def spy(p, state, iteration, cfg2, seed):
+        saved[iteration] = state
+        orig(p, state, iteration, cfg2, seed)
+
+    reset_counts()
+    ck.save_state = spy
+    try:
+        full = ck.run_pair_resumable(pair.left, pair.right, cfg, path)
+    finally:
+        ck.save_state = orig
+    assert window_cost.launches == 10 and quadrant_build.launches == 1
+    assert no_plain_version_ran()
+    plain = run_pair(pair.left, pair.right, 0, cfg)
+    for k in full:
+        np.testing.assert_array_equal(full[k], plain[k].cpu().numpy())
+    ck.save_state(path, saved[1], 1, cfg, 0)
+    resumed = ck.run_pair_resumable(pair.left, pair.right, cfg, path)
+    for k in full:
+        np.testing.assert_array_equal(full[k], resumed[k])
+
+
+def test_card_limits_refused_before_any_work(cuda):
+    """half_wnd past the kernels' 64 is refused at entry on the card."""
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    reset_counts()
+    with pytest.raises(ValueError, match="half_wnd <= 64"):
+        run_pair(pair.left, pair.right, 0,
+                 CSPMConfig(max_dis=12, dis_scale=16, wnd_size=131))
+    assert (window_cost.launches, quadrant_build.launches) == (0, 0)

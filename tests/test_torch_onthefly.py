@@ -387,4 +387,6 @@ def test_volume_data_lab_weight_images():
     dict(prescreen_mode="window", use_cs=True, cost_method=CostMethod.CEN),
 ])
 def test_check_supported_accepts_the_no_volume_slice(kw):
-    check_supported(CSPMConfig(**kw))
+    # the card's limits, checked without a card: a CUDA device is named,
+    # nothing runs there
+    check_supported(CSPMConfig(**kw), (375, 450), "cuda")

@@ -27,6 +27,7 @@ from crossscalepatchmatch_tpu_torch import interop
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
 from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
+from crossscalepatchmatch_tpu_torch.support import check_supported
 from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
 from jax_draws import JaxDraws, config_pair
 
@@ -303,13 +304,31 @@ def test_torch_draws_deterministic():
     dict(aggregator="BF", use_lab_weights=True), dict(aggregator="BOX"),
     dict(aggregator="GF", prescreen_mode="window", adopt_mode="exact")])
 def test_unsupported_configs_raise(scene, kw):
-    """Only the aggregation filters remain unported (the no-volume path,
-    Lab weights and the window prescreen run: tests/test_torch_onthefly.py
-    checks that check_supported accepts them)."""
-    cfg = small_cfg(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pm.make_cost_fns(cfg, scene["tvd"])
+    """The seven aggregator configs this test held to a refusal while the
+    filters were unported now run: check_supported refuses none of them,
+    on the CPU or for the card; the port's filtered volumes and saturation
+    values equal the JAX engine's within 1e-5 * max(1, |ref|) (the box sums'
+    cumsum order differs); and the optimizer's cost functions build on them
+    and give finite costs.  tests/test_torch_filters.py holds the same
+    seven configs' run_pair_np to JAX's."""
+    jcfg, cfg = small_cfgs(**kw)
     pair = scene["pair"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_volume_data(torch.from_numpy(pair.left),
-                          torch.from_numpy(pair.right), cfg)
+    for device in ("cpu", "cuda"):
+        check_supported(cfg, HW, device)
+    jvd = j_build_volume_data(jnp.asarray(pair.left),
+                              jnp.asarray(pair.right), jcfg)
+    tvd = build_volume_data(torch.from_numpy(pair.left),
+                            torch.from_numpy(pair.right), cfg)
+    assert len(tvd.vols) == len(jvd.vols) == (cfg.scale_num if cfg.use_cs
+                                              else 1)
+    for got, want in zip([*tvd.vols, *tvd.max_costs],
+                         [*jvd.vols, *jvd.max_costs]):
+        want = torch.from_numpy(np.asarray(want))
+        assert got.shape == want.shape
+        err = ((got.double() - want.double()).abs()
+               / want.double().abs().clamp(min=1.0)).max().item()
+        assert err <= 1e-5, err
+    cost_fn, sparse_fn = pm.make_cost_fns(cfg, tvd)
+    abc = to_port(scene["jstate"]).abc[:, None]
+    assert bool(torch.isfinite(cost_fn(abc)).all())
+    assert sparse_fn is not None

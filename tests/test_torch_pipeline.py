@@ -25,6 +25,7 @@ from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
 from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                             run_pair_np,
                                                             run_pairs)
+from crossscalepatchmatch_tpu_torch.support import check_supported
 from jax_draws import JaxDraws, config_pair
 
 # One intra-op thread: the suite runs several pytest-xdist workers on
@@ -64,6 +65,8 @@ def bad_rates(dis, pair, scale):
     dict(cost_method="CEN", use_cs=True, use_pp=True, reg_lambda=0.3,
          scale_num=3),
     dict(cost_method="CEN", use_pp=True),
+    dict(merge_view=True),                # view candidate in the last sweep
+    dict(prop_sweeps=0),                  # no sweeps: no deferred entry
 ])
 def test_run_pair_matches_jax(kw):
     jcfg, cfg = small_cfgs(**kw)
@@ -149,3 +152,39 @@ def test_port_imports_no_jax():
             bad += [(path, m) for m in mods
                     if m.split(".")[0] in ("jax", "crossscalepatchmatch_tpu")]
     assert bad == []
+
+
+@pytest.mark.parametrize("kw,limit", [
+    (dict(wnd_size=131), "half_wnd <= 64"),
+    (dict(precompute_volume=False, fly_lerp="image", max_dis=40),
+     "max_dis < the image's width")])
+def test_card_limits_refused_before_any_volume(monkeypatch, kw, limit):
+    """A config the card's kernels cannot take is refused at entry, with
+    the limit named, before the volume (or channel planes) is built and
+    before anything moves to the card; the CPU does not refuse it, as the
+    JAX engine does not (the plain image lerp at max_dis >= W is held
+    against JAX in tests/test_torch_fly_pipeline.py)."""
+    from crossscalepatchmatch_tpu_torch import checkpoint
+    from crossscalepatchmatch_tpu_torch.models import pipeline
+
+    cfg = small_cfg(**kw)
+    pair = make_pair(h=24, w=40, max_dis=8, seed=1)
+
+    def built(*a, **k):
+        raise AssertionError("the volume was built")
+
+    monkeypatch.setattr(pipeline, "build_volume_data", built)
+    monkeypatch.setattr(pipeline, "build_fly_data", built)
+    for run in (lambda: run_pair(pair.left, pair.right, 0, cfg,
+                                 device="cuda"),
+                lambda: pipeline.run_pair_warm(
+                    pair.left, pair.right, 0, np.zeros((2, 24, 40, 3),
+                                                       np.float32),
+                    cfg, device="cuda"),
+                lambda: checkpoint.run_pair_resumable(
+                    pair.left, pair.right, cfg, "unused.npz",
+                    device="cuda")):
+        with pytest.raises(ValueError, match=limit):
+            run()
+    monkeypatch.undo()
+    check_supported(cfg, (24, 40), "cpu")

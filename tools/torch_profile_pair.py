@@ -2,7 +2,10 @@
 
     python tools/torch_profile_pair.py [--config README_DEMO|CEN_CS_PP|
                                                  README_DEMO-fly|KITTI-fly|
-                                                 KITTI]
+                                                 KITTI|README_DEMO-BOX|
+                                                 README_DEMO-GF|
+                                                 README_DEMO-BF|
+                                                 README_DEMO-warm]
                                        [--h 375 --w 450 --max-dis 60]
 
 Runs the port's main path at the named config once to warm up, then once
@@ -13,8 +16,11 @@ time, device time and launches per top-level phase (record_function
 ranges, with a synchronise at each phase end: the volume build (or, without
 a volume, the channel planes' build `fly_data`), the cost functions (the K2
 build on the volume path), the rank phase, the exact phase, plane_to_disp
-and `postprocess` when the config post-processes), and the top CUDA
-kernels by device time.  Writes the Chrome trace to
+and `postprocess` when the config post-processes; the -BOX/-GF/-BF
+configs filter the volumes in `volume_build`; README_DEMO-warm profiles a
+warm frame, run_pair_warm's one iteration as `warm_phase`, on the
+scene's next frame (new sensor noise) from the first frame's planes), and
+the top CUDA kernels by device time.  Writes the Chrome trace to
 chiprun_out/torch_profile_pair.json.gz.  Needs a CUDA device.
 """
 
@@ -54,7 +60,8 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
     from crossscalepatchmatch_tpu_torch.models.postprocess import postprocess
     from crossscalepatchmatch_tpu_torch.ops import cost_volume, onthefly_cost
-    from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
+    from crossscalepatchmatch_tpu_torch.utils.rng import (PHASE_WARM,
+                                                          TorchDraws)
 
     configs = {
         "README_DEMO": config.README_DEMO, "CEN_CS_PP": config.CEN_CS_PP,
@@ -62,7 +69,12 @@ def main() -> int:
                                                precompute_volume=False),
         "KITTI-fly": dataclasses.replace(config.KITTI,
                                          precompute_volume=False),
-        "KITTI": config.KITTI}
+        "KITTI": config.KITTI,
+        **{f"README_DEMO-{a.value}": dataclasses.replace(
+            config.README_DEMO, aggregator=a) for a in
+           (config.Aggregator.BOX, config.Aggregator.GF,
+            config.Aggregator.BF)},
+        "README_DEMO-warm": config.README_DEMO}
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=tuple(configs),
                     default="README_DEMO")
@@ -74,6 +86,7 @@ def main() -> int:
                     help="default the config's max_dis")
     args = ap.parse_args()
     cfg = configs[args.config]
+    warm = args.config.endswith("-warm")
     args.h = args.h or 375
     args.w = args.w or (1242 if args.config.startswith("KITTI") else 450)
     args.max_dis = args.max_dis or cfg.max_dis
@@ -81,7 +94,12 @@ def main() -> int:
     pair = make_pair(h=args.h, w=args.w, max_dis=args.max_dis, seed=0)
     l = torch.as_tensor(pair.left, device=dev)
     r = torch.as_tensor(pair.right, device=dev)
-    run_pair(l, r, 0, cfg, device=dev)
+    prior = run_pair(l, r, 0, cfg, device=dev)["abc"]
+    if warm:
+        nxt = make_pair(h=args.h, w=args.w, max_dis=args.max_dis, seed=0,
+                        noise_sigma=2.0)
+        l = torch.as_tensor(nxt.left, device=dev)
+        r = torch.as_tensor(nxt.right, device=dev)
     torch.cuda.synchronize()
 
     def phase(name, fn):
@@ -111,21 +129,25 @@ def main() -> int:
         def rank():
             st = pm.init_state(draws, hw, sparse_fn if n_rank else None,
                                cfg, device=dev)
-            for it in range(n_rank):
-                st = pm.iteration_step(st, draws, it, sparse_fn, cfg)
-            return st
+            return pm.iterate(st, 0, n_rank, draws, cost_fn, cfg, sparse_fn,
+                              n_rank=n_rank)
 
         def exact(st):
-            st = pm.PMState(abc=st.abc,
-                            cost=torch.full_like(st.cost, float("inf")))
-            for it in range(n_rank, cfg.max_iter):
-                st = pm.iteration_step(st, draws, it, cost_fn, cfg,
-                                       sparse_fn,
-                                       include_current=it == n_rank)
-            return st
+            return pm.iterate(st, n_rank, cfg.max_iter, draws, cost_fn, cfg,
+                              sparse_fn, n_rank=n_rank)
 
-        st = phase("rank_phase", rank)
-        st = phase("exact_phase", lambda: exact(st))
+        def warm_step():
+            st = pm.PMState(abc=prior, cost=torch.full(
+                prior.shape[:-1], float("inf"), device=dev))
+            return pm.iterate(st, 0, 1, TorchDraws(1, dev,
+                                                   refine_phase=PHASE_WARM),
+                              cost_fn, cfg, sparse_fn)
+
+        if warm:
+            st = phase("warm_phase", warm_step)
+        else:
+            st = phase("rank_phase", rank)
+            st = phase("exact_phase", lambda: exact(st))
         dis = phase("plane_to_disp", lambda: pm.plane_to_disp(st.abc,
                                                               cfg.dis_scale))
         if cfg.use_pp:
@@ -140,7 +162,7 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
 
     names = ("volume_build", "fly_data", "quadrant_build_K2", "rank_phase",
-             "exact_phase", "plane_to_disp", "postprocess")
+             "exact_phase", "warm_phase", "plane_to_disp", "postprocess")
     events = prof.events()
     # the phase ranges also appear on the device timeline as annotations;
     # they are not kernels
