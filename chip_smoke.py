@@ -62,8 +62,24 @@ Phases, each fatal on failure:
      a warm frame; and README_DEMO (seeds 0-2), CEN_CS_PP and KITTI (seed
      0) with f32 kernel volumes, their bad-pixel beside phase 7's bf16
      (printed, not gated).
+  10. sharding (crossscalepatchmatch_tpu_torch.parallel): the band forms
+     of K1 (K=1, 2), K3's volume form (stride 2, K=8), K2 and K4 (5 census
+     levels) on the bench scene's middle tile of a (1, 3, 2) mesh (125 +
+     34 rows x 225 + 34 columns, origin (125, 225)) against their plain
+     band forms, f32 bit-equal (bf16 census volumes too for K4), timed
+     beside the whole-image forms; a (1, 3, 2) mesh of six gloo ranks on
+     the one card (halos staged through the host) runs README_DEMO and
+     CEN_CS_PP on the bench scene (bad-pixel @1px <= 0.01 and within
+     0.005 of phase 7's one-device run, the band forms launched and no
+     plain version, a rerun bit-identical; ms/pair and the bytes staged
+     through the host printed); a small pair on a (1, 2, 2) mesh on the
+     card against the same mesh on the CPU with the same draws; on a world
+     of one rank (NCCL) run_sequence_batch and the no-volume data-only
+     mesh, each byte-equal to its per-pair run.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
+`python3 chip_smoke.py --shard-worker ...` is one rank of phase 10 (the
+script starts them itself).
 """
 
 import dataclasses
@@ -108,6 +124,15 @@ FLOPS_IN_RANGE = 5
 # two adds and 1/3, |grad diff| (2) and the mix (5)
 FLY_FLOPS_IN_RANGE = {"cost": FLOPS_IN_RANGE + 16, "image": 3 + 12 + 6 + 3
                       + 2 + 5}
+# the sharding phase: the bench scene on a (data, ty, tx) = (1, 3, 2) mesh
+# of six gloo ranks on the one card, its band forms checked on the middle
+# tile (ty, tx) = (1, 1): rows [125, 250), columns [225, 450), an odd
+# origin; a small pair on a (1, 2, 2) mesh, the card against the CPU
+MESH_BENCH = (1, 3, 2)
+TILE_INDEX = (1, 1)
+MESH_SMALL = (1, 2, 2)
+SHARDED_GAP_MAX = 0.005     # |bad-pixel sharded - one device| @1px
+RANK_TIMEOUT_S = 600
 
 
 def rel_err(got, want):
@@ -190,19 +215,22 @@ def test_planes(pair, max_dis, k, gen, device):
     return torch.stack(cands, dim=1).contiguous()
 
 
-def axis_count(n, hw, stride, s):
-    """sum over the n fine positions of the in-level offsets of
-    range(-hw, hw + 1, stride) around (p >> s), level size ceil(n / 2^s)."""
-    ns = ((n - 1) >> s) + 1
-    return sum(sum(0 <= (p >> s) + o < ns
+def axis_count(n, hw, stride, s, origin=0, lo=0, hi=None):
+    """sum over the n fine positions p of the offsets o of range(-hw, hw +
+    1, stride) with lo <= ((p + origin) >> s) + o < hi (hi: the level size
+    ceil(n / 2^s) by default)."""
+    hi = ((n - 1) >> s) + 1 if hi is None else hi
+    return sum(sum(lo <= ((p + origin) >> s) + o < hi
                    for o in range(-hw, hw + 1, stride)) for p in range(n))
 
 
-def window_samples(abc, levels, half_wnd, max_dis, stride=1):
+def window_samples(abc, levels, half_wnd, max_dis, stride=1, geoms=None):
     """(in-image, in-range) window samples of K1 / K3 / K4 / K5 on these
     planes: per level s (`levels` of them, max_dis >> s), every fine
     pixel's level-s window at the stride; in range means
-    1 <= dq < max_dis_s."""
+    1 <= dq < max_dis_s.  geoms: per level the band form's (origin (oy,
+    ox), valid rectangle (ylo, yhi, xlo, xhi)); the window then centers at
+    ((y + oy) >> s, (x + ox) >> s) and counts inside the rectangle."""
     import torch
 
     nv, k, h, w, _ = abc.shape
@@ -214,17 +242,20 @@ def window_samples(abc, levels, half_wnd, max_dis, stride=1):
     n_img, n_rng = 0, torch.zeros((), dtype=torch.int64, device=dev)
     md = max_dis
     for s in range(levels):
-        hs, ws = ((h - 1) >> s) + 1, ((w - 1) >> s) + 1
-        cy, cx = ys >> s, xs >> s
+        (oy, ox), (ylo, yhi, xlo, xhi) = (
+            geoms[s] if geoms else
+            ((0, 0), (0, ((h - 1) >> s) + 1, 0, ((w - 1) >> s) + 1)))
+        cy, cx = (ys + oy) >> s, (xs + ox) >> s
         d_f = d0 * (1.0 / (1 << s))
         for dy in range(-half_wnd, half_wnd + 1, stride):
-            y_ok = (cy + dy >= 0) & (cy + dy < hs)
+            y_ok = (cy + dy >= ylo) & (cy + dy < yhi)
             for dx in range(-half_wnd, half_wnd + 1, stride):
-                ok = y_ok & (cx + dx >= 0) & (cx + dx < ws)
+                ok = y_ok & (cx + dx >= xlo) & (cx + dx < xhi)
                 dq = d_f + a * dx + b * dy
                 n_rng += ((dq >= 1.0) & (dq < float(md)) & ok).sum()
-        n_img += nv * k * (axis_count(h, half_wnd, stride, s)
-                           * axis_count(w, half_wnd, stride, s))
+        n_img += nv * k * (axis_count(h, half_wnd, stride, s, oy, ylo, yhi)
+                           * axis_count(w, half_wnd, stride, s, ox, xlo,
+                                        xhi))
         md //= 2
     return n_img, int(n_rng)
 
@@ -241,6 +272,48 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def reset_counts():
+    """Every kernel's and plain version's launch counter to 0."""
+    from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost,
+                                                    plane_cost,
+                                                    prescreen_volume)
+    from crossscalepatchmatch_tpu_torch.ops.cuda import (cross_scale_cost,
+                                                         fly_cost,
+                                                         quadrant_build,
+                                                         window_cost)
+
+    window_cost.launches = window_cost.strided_launches = 0
+    quadrant_build.launches = cross_scale_cost.launches = 0
+    fly_cost.launches.clear()
+    plane_cost.launches = prescreen_volume.launches = 0
+    plane_cost.cross_scale_launches = onthefly_cost.launches = 0
+
+
+def read_counts():
+    """The launch counters, by kernel (plain versions: *_plain)."""
+    from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost,
+                                                    plane_cost,
+                                                    prescreen_volume)
+    from crossscalepatchmatch_tpu_torch.ops.cuda import (cross_scale_cost,
+                                                         fly_cost,
+                                                         quadrant_build,
+                                                         window_cost)
+
+    return {"k1": window_cost.launches - window_cost.strided_launches,
+            "k3_volume": window_cost.strided_launches,
+            "k2": quadrant_build.launches,
+            "k4": cross_scale_cost.launches,
+            "k3_fly": fly_cost.count(strided=True),
+            "k5": fly_cost.count(lerp="cost"),
+            "k6": fly_cost.count(lerp="image"),
+            "k7": fly_cost.count(lab=True),
+            "fly": fly_cost.count(),
+            "k1_plain": plane_cost.launches,
+            "k2_plain": prescreen_volume.launches,
+            "k4_plain": plane_cost.cross_scale_launches,
+            "fly_plain": onthefly_cost.launches}
+
+
 def check_close(name, got, want):
     """(max |d|, max rel); raises on a bad shape, a non-finite value or an
     f32 error over the tolerance."""
@@ -253,6 +326,135 @@ def check_close(name, got, want):
     if rl > F32_REL_TOL:
         raise RuntimeError(f"{name}: f32 rel error {rl} > {F32_REL_TOL}")
     return ab, rl
+
+
+def shard_worker(argv) -> int:
+    """One rank of the sharding phase (spawn_ranks): joins the gloo group
+    through a file store, runs its job on `--device`, pickles its result
+    (maps from rank 0, every rank's launch counts, ms and staged bytes)."""
+    import argparse
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, CSPMConfig,
+                                                README_DEMO)
+    from crossscalepatchmatch_tpu_torch.data import make_pair
+    from crossscalepatchmatch_tpu_torch.parallel import _comm
+    from crossscalepatchmatch_tpu_torch.parallel.mesh import (TIMEOUT,
+                                                              make_mesh)
+    from crossscalepatchmatch_tpu_torch.parallel.tiled import (
+        run_batch_sharded)
+    from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--rank", "--world"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--store", "--job", "--device", "--out", "--mesh"):
+        ap.add_argument(flag, required=True)
+    args = ap.parse_args(argv)
+    dist.init_process_group("gloo", init_method=f"file://{args.store}",
+                            rank=args.rank, world_size=args.world,
+                            timeout=TIMEOUT)
+    mesh = make_mesh(*(int(x) for x in args.mesh.split(",")))
+    on_card = args.device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    def run(name, pcfg, pair, seeds, reps, **kw):
+        """reps runs (the first a warm-up); the last with the counters."""
+        outs = []
+        for i in range(reps):
+            sync()
+            reset_counts()
+            _comm.host_bytes = 0
+            t0 = time.perf_counter()
+            outs.append(run_batch_sharded(pair.left[None], pair.right[None],
+                                          seeds, pcfg, mesh,
+                                          device=args.device, **kw))
+            sync()
+        res["runs"][name] = dict(
+            ms=(time.perf_counter() - t0) * 1e3, counts=read_counts(),
+            host_bytes=_comm.host_bytes,
+            same=all(torch.equal(o, outs[0]) for o in outs),
+            dis=outs[-1].cpu().numpy() if args.rank == 0 else None)
+
+    res = {"transport": _comm.transport(mesh), "runs": {}}
+    try:
+        if args.job == "bench":
+            pair = make_pair(seed=0, **SHAPE)
+            run("README_DEMO", README_DEMO, pair, [0], 2)
+            run("CEN_CS_PP", CEN_CS_PP, pair, [0], 2)
+        else:
+            pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+            base = dict(max_dis=12, dis_scale=16, wnd_size=11,
+                        vol_dtype="f32")
+            for name, scfg in (
+                    ("small", CSPMConfig(use_pp=True, **base)),
+                    ("small window-prescreen",
+                     CSPMConfig(prescreen_mode="window", **base))):
+                run(name, scfg, pair, [0], 1, draws=lambda seed, tile:
+                    TorchDraws(seed, "cpu", tile=tile))
+    finally:
+        dist.destroy_process_group()
+    with open(args.out, "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def spawn_ranks(job, mesh, device):
+    """Run a sharding job on prod(mesh) rank processes of this script and
+    return their results in rank order; a rank that fails or outlives
+    RANK_TIMEOUT_S ends the others and raises."""
+    import pickle
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=WORK_DIR)
+    world = mesh[0] * mesh[1] * mesh[2]
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-worker",
+         "--rank", str(r), "--world", str(world), "--store",
+         os.path.join(tmp, "store"), "--job", job, "--device", device,
+         "--mesh", ",".join(map(str, mesh)), "--out",
+         os.path.join(tmp, f"rank{r}.pkl")], cwd=REPO, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    t_end = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs) or time.monotonic() > t_end:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    try:
+        failed = [r for r, p in enumerate(procs) if p.returncode]
+        if failed:
+            msg = []
+            for r in failed:
+                logs[r].seek(0)
+                msg.append(f"rank {r} exit {procs[r].returncode}:\n"
+                           f"{logs[r].read()[-3000:]}")
+            raise RuntimeError(f"sharding job {job} on {device}:\n"
+                               + "\n".join(msg))
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        for f in logs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -664,28 +866,6 @@ def main() -> int:
     print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 7. main paths --------------------------------------------------------
-    def reset_counts():
-        window_cost.launches = window_cost.strided_launches = 0
-        quadrant_build.launches = cross_scale_cost.launches = 0
-        fly_cost.launches.clear()
-        plane_cost.launches = prescreen_volume.launches = 0
-        plane_cost.cross_scale_launches = onthefly_cost.launches = 0
-
-    def read_counts():
-        return {"k1": window_cost.launches - window_cost.strided_launches,
-                "k3_volume": window_cost.strided_launches,
-                "k2": quadrant_build.launches,
-                "k4": cross_scale_cost.launches,
-                "k3_fly": fly_cost.count(strided=True),
-                "k5": fly_cost.count(lerp="cost"),
-                "k6": fly_cost.count(lerp="image"),
-                "k7": fly_cost.count(lab=True),
-                "fly": fly_cost.count(),
-                "k1_plain": plane_cost.launches,
-                "k2_plain": prescreen_volume.launches,
-                "k4_plain": plane_cost.cross_scale_launches,
-                "fly_plain": onthefly_cost.launches}
-
     def check_counts(name, counts, kernels):
         print(f"{name}: launches {counts}")
         if any(counts[k] == 0 for k in kernels):
@@ -1048,10 +1228,331 @@ def main() -> int:
                   f"{f32[seed]:.4f} bf16 {bf16_bads[name][seed]:.4f} gap "
                   f"{gap:+.4f}{' (over 0.005)' if abs(gap) > 0.005 else ''}")
 
+    # -- 10. sharding ---------------------------------------------------------
+    from crossscalepatchmatch_tpu_torch.parallel import _comm
+    from crossscalepatchmatch_tpu_torch.parallel.tiled import _ext_from_full
+
+    n_ty, n_tx = MESH_BENCH[1:]
+    ths, tws = h // n_ty, w // n_tx
+    row0, col0 = TILE_INDEX[0] * ths, TILE_INDEX[1] * tws
+
+    def bench_tile(tcfg):
+        """The bench scene's middle tile of the (1, 3, 2) mesh: level 0 the
+        block with its half_wnd halo (zeros past the image), the coarser
+        levels whole; per level the band's origin, validity interval and
+        rectangle; the level-0 validity vectors."""
+        tvd = build_volume_data(l, r, tcfg)
+        thw = tcfg.half_wnd
+
+        def ext(x):
+            return _ext_from_full(_ext_from_full(x, row0, ths, thw, 1),
+                                  col0, tws, thw, 2).contiguous()
+
+        bounds = [(-row0, h - row0, -col0, w - col0)] + [
+            (-row0, (im.shape[1] << s) - row0, -col0,
+             (im.shape[2] << s) - col0)
+            for s, im in enumerate(tvd.imgs) if s]
+        origins = [(thw, thw)] + [(row0, col0)] * (len(tvd.imgs) - 1)
+        imgs_t = [ext(tvd.imgs[0])] + tvd.imgs[1:]
+        rects = [cross_scale_cost.band_rect(im.shape[1:3], s, o, (ths, tws),
+                                            b)
+                 for s, (im, o, b) in enumerate(zip(imgs_t, origins,
+                                                    bounds))]
+        g_row = row0 + torch.arange(-thw, ths + thw, device=dev)
+        g_col = col0 + torch.arange(-thw, tws + thw, device=dev)
+        return dict(imgs=imgs_t, vols=[ext(tvd.vols[0])] + tvd.vols[1:],
+                    mcs=tvd.max_costs, bounds=bounds, origins=origins,
+                    rects=rects, rv=(g_row >= 0) & (g_row < h),
+                    cv=(g_col >= 0) & (g_col < w))
+
+    def tile_planes(tmd, k):
+        """test_planes on the scene, cut to the tile and re-anchored to its
+        local coordinates."""
+        full = test_planes(pair, tmd, k, gen, dev)[
+            :, :, row0:row0 + ths, col0:col0 + tws]
+        c = full[..., 2] + full[..., 0] * col0 + full[..., 1] * row0
+        return torch.cat([full[..., :2], c[..., None]], -1).contiguous()
+
+    def check_bit_equal(name, got, want):
+        ab, _ = check_close(name, got, want)
+        if ab != 0.0:
+            raise RuntimeError(f"{name}: the band form differs from its "
+                               f"plain version by {ab} in f32")
+        return ab
+
+    # 10.1 the band forms against their plain band forms, bench tile
+    bt = bench_tile(cfg)
+    b_imgs, b_vols, b_mc = bt["imgs"][0], bt["vols"][0], bt["mcs"][0]
+    b_bf16 = b_vols.to(torch.bfloat16)
+    band_preps = {key: window_cost.prepare_volumes(
+        b_imgs, vol, b_mc, half_wnd=hw, max_dis=md, gamma=gamma,
+        rows_extended=True, cols_extended=True)
+        for key, vol in (("f32", b_vols), ("bf16", b_bf16))}
+    b_geom = [(bt["origins"][0], bt["rects"][0])]
+
+    def band_volume_phase(name, k, stride, reps):
+        abc = tile_planes(md, k)
+
+        def kernel(key):
+            return window_cost.window_cost_prepared(
+                band_preps[key], abc, half_wnd=hw, max_dis=md,
+                wnd_stride=stride, bounds=bt["bounds"][0])
+
+        want, plain_ms = timed_once(lambda: torch.stack([
+            plane_cost.window_plane_cost(
+                b_imgs[v], b_vols[v], b_mc[v], abc[v], half_wnd=hw,
+                max_dis=md, gamma=gamma, center_row0=hw,
+                row_valid=bt["rv"], center_col0=hw, col_valid=bt["cv"],
+                wnd_stride=stride) for v in range(2)]))
+        ab = check_bit_equal(f"{name} band form K={k}", kernel("f32"), want)
+        _, rl_bf = rel_err(kernel("bf16"), want)
+        t = time_turns({"f32": lambda: kernel("f32"),
+                        "bf16": lambda: kernel("bf16")},
+                       {"f32": reps, "bf16": reps})
+        n_img, n_rng = window_samples(abc, 1, hw, md, stride, b_geom)
+        b_ms, b_by = bound(nbytes(b_imgs, b_bf16, b_mc, abc)
+                           + 2 * k * ths * tws * 4,
+                           FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
+        print(f"{name} band form K={k} (tile {ths}x{tws} of a "
+              f"{MESH_BENCH} mesh): plain {plain_ms:.3f} ms | kernel f32 "
+              f"{t['f32']:.3f} ms | bf16 {t['bf16']:.3f} ms | bf16 max rel "
+              f"{rl_bf:.3e} | {n_img} valid samples, {n_rng} in range; "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        return dict(max_abs_err=ab, bf16_max_rel_err=rl_bf, ms=t["bf16"],
+                    ms_f32=t["f32"], plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by)
+
+    rec["k1_band"] = band_volume_phase("K1", 1, 1, 10)
+    k1b_k2 = band_volume_phase("K1", 2, 1, 10)
+    rec["k1_band"].update(ms_k2=k1b_k2["ms"], ms_f32_k2=k1b_k2["ms_f32"],
+                          plain_ms_k2=k1b_k2["plain_ms"])
+    rec["k3_volume_band"] = band_volume_phase("K3 volume form, stride 2", 8,
+                                              2, 5)
+    print(f"whole-image forms for comparison (bf16, bench shape): K1 K=1 "
+          f"{rec['k1']['ms']:.3f} ms, K=2 {rec['k1']['ms_k2']:.3f} ms, K3 "
+          f"{rec['k3_volume']['ms']:.3f} ms, K2 {rec['k2']['ms']:.3f} ms, K4 "
+          f"{rec['k4']['ms']:.3f} ms")
+
+    # K2 over the tile's own pixels
+    k2_preps = {key: window_cost.prepare_volumes(
+        b_imgs, vol, None, half_wnd=hw, max_dis=md, gamma=gamma,
+        rows_extended=True, cols_extended=True)
+        for key, vol in (("f32", b_vols), ("bf16", b_bf16))}
+
+    def k2_band(key):
+        return quadrant_build.quadrant_volumes_prepared(
+            k2_preps[key], half_wnd=hw, gamma=gamma, stride=stride,
+            bounds=bt["bounds"][0])
+
+    def k2_band_plain():
+        valid = bt["rv"][:, None] & bt["cv"][None, :]
+        parts = [prescreen_volume.build_quadrant_volumes(
+            b_imgs[v], b_vols[v], valid, half_wnd=hw, gamma=gamma,
+            stride=stride) for v in range(2)]
+        return tuple(torch.stack([p[i] for p in parts])[
+            :, :, hw:hw + ths, hw:hw + tws] for i in range(2))
+
+    (want_b, want_w), plain_ms = timed_once(k2_band_plain)
+    got_b, got_w = k2_band("f32")
+    ab = max(check_bit_equal("K2 band form bq", got_b, want_b),
+             check_bit_equal("K2 band form wq", got_w, want_w))
+    _, rl_bf = rel_err(k2_band("bf16")[0], want_b)
+    out_bytes = nbytes(got_b, got_w)
+    del want_b, want_w, got_b, got_w
+    t = time_turns({"f32": lambda: k2_band("f32"),
+                    "bf16": lambda: k2_band("bf16")}, {"f32": 10, "bf16": 10})
+    neg, pos = prescreen_volume.quadrant_offsets(hw, stride)
+    (oy, ox), (ylo, yhi, xlo, xhi) = bt["origins"][0], bt["rects"][0]
+
+    def band_axis(n, origin, lo, hi, offs):
+        return sum(sum(lo <= p + origin + o < hi for o in offs)
+                   for p in range(n))
+
+    samples = 2 * sum(band_axis(ths, oy, ylo, yhi, oy_)
+                      * band_axis(tws, ox, xlo, xhi, ox_)
+                      for oy_ in (neg, pos) for ox_ in (neg, pos))
+    b_ms, b_by = bound(nbytes(b_imgs, b_bf16) + out_bytes,
+                       samples * (2 * (md + 1) + 1))
+    print(f"K2 band form (tile {ths}x{tws}): plain {plain_ms:.3f} ms | kernel "
+          f"f32 {t['f32']:.3f} ms | bf16 {t['bf16']:.3f} ms | bf16 bq max rel "
+          f"{rl_bf:.3e} | {samples} valid samples; bound {b_ms:.4f} ms "
+          f"({b_by})")
+    rec["k2_band"] = dict(max_abs_err=ab, bf16_max_rel_err=rl_bf,
+                          ms=t["bf16"], ms_f32=t["f32"], plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+    del band_preps, k2_preps, b_bf16, bt
+
+    # K4 over the 5-level census pyramid on the tile
+    ct = bench_tile(ccfg)
+    c_bf16 = [v.to(torch.bfloat16) for v in ct["vols"]]
+    k4_band_preps = {key: cross_scale_cost.prepare_cross_scale(
+        ct["imgs"], vols_, ct["mcs"], wgts, half_wnd=chw,
+        max_dis=ccfg.max_dis, gamma=ccfg.wgt_gamma, rows_extended=True,
+        cols_extended=True, origin=(row0, col0), bounds=ct["bounds"])
+        for key, vols_ in (("f32", ct["vols"]), ("bf16", c_bf16))}
+    n_lv = len(ct["vols"])
+
+    def k4_band(abc, key):
+        return cross_scale_cost.cross_scale_cost_prepared(
+            k4_band_preps[key], abc, half_wnd=chw, max_dis=ccfg.max_dis,
+            levels=n_lv)
+
+    def k4_band_plain(abc):
+        return torch.stack([plane_cost.cross_scale_plane_cost(
+            [im[v] for im in ct["imgs"]], [vo[v] for vo in ct["vols"]],
+            [m[v] for m in ct["mcs"]], wgts, abc[v], half_wnd=chw,
+            max_dis=ccfg.max_dis, gamma=ccfg.wgt_gamma,
+            origins=ct["origins"], row_valids=[ct["rv"]] + [None] * 4,
+            col_valids=[ct["cv"]] + [None] * 4) for v in range(2)])
+
+    k4b = {}
+    for k in (1, 2):
+        abc = tile_planes(md, k)
+        want, plain_ms = timed_once(lambda: k4_band_plain(abc))
+        ab = check_bit_equal(f"K4 band form K={k}", k4_band(abc, "f32"),
+                             want)
+        ab_bf, _ = rel_err(k4_band(abc, "bf16"), want)
+        if ab_bf != 0.0:
+            raise RuntimeError(f"K4 band form K={k}: bf16 census volumes "
+                               f"differ from the f32 plain version by "
+                               f"{ab_bf}")
+        t = time_turns({"f32": lambda: k4_band(abc, "f32"),
+                        "bf16": lambda: k4_band(abc, "bf16")},
+                       {"f32": 5, "bf16": 5})
+        print(f"K4 band form K={k} (tile, {n_lv} levels, origin "
+              f"{(row0, col0)}): plain {plain_ms:.3f} ms | kernel f32 "
+              f"{t['f32']:.3f} ms | bf16 {t['bf16']:.3f} ms")
+        if k == 1:
+            geoms = list(zip(ct["origins"], ct["rects"]))
+            n_img, n_rng = window_samples(abc, n_lv, chw, ccfg.max_dis, 1,
+                                          geoms)
+            b_ms, b_by = bound(
+                nbytes(*ct["imgs"], *c_bf16, *ct["mcs"], abc)
+                + 2 * ths * tws * 4,
+                FLOPS_IN_IMAGE * n_img + FLOPS_IN_RANGE * n_rng)
+            print(f"K4 band form K=1: {n_img} valid samples, {n_rng} in "
+                  f"range; bound {b_ms:.4f} ms ({b_by})")
+            k4b = dict(max_abs_err=ab, ms=t["bf16"], ms_f32=t["f32"],
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        else:
+            k4b.update(max_abs_err=max(k4b["max_abs_err"], ab),
+                       ms_k2=t["bf16"], ms_f32_k2=t["f32"],
+                       plain_ms_k2=plain_ms)
+    rec["k4_band"] = k4b
+    del k4_band_preps, c_bf16, ct
+
+    # 10.2 a (1, 3, 2) gloo mesh of six ranks on the one card: README_DEMO
+    # and CEN_CS_PP on the bench scene through the band forms
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("bench", MESH_BENCH, "cuda")
+    print(f"sharded bench: {len(ranks)} ranks, transport "
+          f"{ranks[0]['transport']}, {time.perf_counter() - t0:.1f} s with "
+          f"the processes' start")
+    for name, kernels in (("README_DEMO", ("k1", "k2")),
+                          ("CEN_CS_PP", ("k4", "k2"))):
+        runs = [rk["runs"][name] for rk in ranks]
+        counts = {key: sum(rn["counts"][key] for rn in runs)
+                  for key in runs[0]["counts"]}
+        paths[f"sharded {name}"] = counts
+        check_counts(f"sharded {name} {MESH_BENCH}", counts, kernels)
+        dis = runs[0]["dis"]
+        pcfg = README_DEMO if name == "README_DEMO" else CEN_CS_PP
+        if dis.shape != (1, 2, h, w):
+            raise RuntimeError(f"sharded {name}: maps {dis.shape}")
+        bad = bad1(dis[0], pair, pcfg.dis_scale)
+        single = bf16_bads[name][0]
+        ms = max(rn["ms"] for rn in runs)
+        staged = sum(rn["host_bytes"] for rn in runs)
+        print(f"sharded {name} {MESH_BENCH}: {ms:.1f} ms/pair (slowest "
+              f"rank), {staged} bytes staged through the host (all ranks), "
+              f"rerun bit-identical {all(rn['same'] for rn in runs)}; "
+              f"bad-pixel @1px {bad:.4f} against one device's {single:.4f}; "
+              f"digest {digest(dis)}; {card}")
+        if (bad > BAD_PIXEL_MAX or abs(bad - single) > SHARDED_GAP_MAX
+                or not all(rn["same"] for rn in runs)):
+            raise RuntimeError(f"sharded {name}: bad-pixel {bad} (one "
+                               f"device {single}) or a rerun differs")
+        rec[f"sharded_{name}"] = dict(ms=ms, host_bytes=staged, bad=bad)
+
+    # 10.3 a small pair on a (1, 2, 2) mesh: the card against the CPU, the
+    # same draws
+    on_card = spawn_ranks("small", MESH_SMALL, "cuda")
+    on_cpu = spawn_ranks("small", MESH_SMALL, "cpu")
+    for name, kernels in (("small", ("k1", "k2")),
+                          ("small window-prescreen", ("k1", "k3_volume"))):
+        counts = {key: sum(rk["runs"][name]["counts"][key] for rk in on_card)
+                  for key in on_card[0]["runs"][name]["counts"]}
+        paths[f"sharded {name} pair"] = counts
+        check_counts(f"sharded {name} pair {MESH_SMALL}", counts, kernels)
+        o_gpu = on_card[0]["runs"][name]["dis"]
+        o_cpu = on_cpu[0]["runs"][name]["dis"]
+        agree = float((np.abs(o_gpu.astype(int) - o_cpu.astype(int)) <= 1)
+                      .mean())
+        print(f"sharded {name} pair {MESH_SMALL} card vs CPU: {agree:.4f} of "
+              f"u8 pixels within 1")
+        if agree < SMALL_AGREE_MIN:
+            raise RuntimeError(f"sharded {name} pair: card vs CPU agreement "
+                               f"{agree} < {SMALL_AGREE_MIN}")
+
+    # 10.4 a world of one rank (NCCL, the transport written for multi-card
+    # hosts): the sequence batch and the no-volume data-only mesh, each
+    # byte-equal to its per-pair run
+    import torch.distributed as dist
+
+    from crossscalepatchmatch_tpu_torch.parallel.mesh import (
+        initialize_multihost)
+    from crossscalepatchmatch_tpu_torch.parallel.tiled import (
+        run_batch_sharded, run_sequence_batch)
+
+    mesh1 = initialize_multihost()
+    try:
+        print(f"world of one: mesh {tuple(mesh1.shape)}, transport "
+              f"{_comm.transport(mesh1)}")
+        streams = [make_pair(h=48, w=64, max_dis=12, seed=s) for s in (3, 4)]
+        frames = [(np.stack([p.left for p in streams]),
+                   np.stack([p.right for p in streams]))] * 3
+        scfg = CSPMConfig(**base)
+        reset_counts()
+        batched = [{k: v.cpu().numpy() for k, v in out.items()}
+                   for out in run_sequence_batch(frames, scfg, mesh1, seed=7)]
+        torch.cuda.synchronize()
+        paths["sequence batch"] = read_counts()
+        check_counts("sequence batch", paths["sequence batch"], ("k1", "k2"))
+        same = True
+        for b, p in enumerate(streams):
+            solo = list(run_sequence_np([(p.left, p.right)] * 3, scfg,
+                                        seed=7 + 1000003 * b))
+            same &= all(np.array_equal(batched[t][k][b], solo[t][k])
+                        for t in range(3) for k in ("dis", "abc"))
+        fcfg_s = CSPMConfig(precompute_volume=False, **base)
+        ls = np.stack([p.left for p in streams])
+        rs = np.stack([p.right for p in streams])
+        reset_counts()
+        fly_dis = run_batch_sharded(ls, rs, [3, 5], fcfg_s, mesh1)
+        torch.cuda.synchronize()
+        paths["no-volume data mesh"] = read_counts()
+        check_counts("no-volume data mesh", paths["no-volume data mesh"],
+                     ("k5", "k3_fly"))
+        same_fly = all(torch.equal(fly_dis[b], run_pair(
+            ls[b], rs[b], seed, fcfg_s)["dis"])
+            for b, seed in enumerate((3, 5)))
+        print(f"world of one: run_sequence_batch (2 streams x 3 frames) == "
+              f"run_sequence_np per stream {same}; no-volume data-only mesh "
+              f"== run_pair per pair {same_fly}")
+        if not (same and same_fly):
+            raise RuntimeError("world of one: a batched run differs from "
+                               "its per-pair run")
+    finally:
+        dist.destroy_process_group()
+
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
 
-    def entry(name, key, source, replaces):
-        by_path = {p: c[key] for p, c in paths.items() if c[key]}
+    def entry(name, key, source, replaces, band=False):
+        """A kernel's record; a band form's launches are those of the
+        sharded paths (its tiles), the whole-image form's the others'."""
+        counter = key[:-len("_band")] if band else key
+        by_path = {p: c[counter] for p, c in paths.items()
+                   if c[counter] and p.startswith("sharded ") == band}
         return dict(name=name, route="cuda", source=f"{pkg}/csrc/{source}",
                     replaces=replaces, launches=sum(by_path.values()),
                     library_ms=None, launches_by_path=by_path, **rec[key])
@@ -1069,6 +1570,15 @@ def main() -> int:
         entry("fly cost, cost lerp (K5)", "k5", "fly_cost.cu", f"{wc}:74"),
         entry("fly cost, image lerp (K6)", "k6", "fly_cost.cu", f"{wc}:50"),
         entry("fly cost, Lab weights (K7)", "k7", "fly_cost.cu", f"{wc}:316"),
+        entry("window_cost band form (K1)", "k1_band", "cross_scale_cost.cu",
+              f"{wc}:138", band=True),
+        entry("strided window band form, volume (K3)", "k3_volume_band",
+              "cross_scale_cost.cu", f"{wc}:331", band=True),
+        entry("cross_scale_cost band form (K4)", "k4_band",
+              "cross_scale_cost.cu", f"{wc}:138", band=True),
+        entry("quadrant_build band form (K2)", "k2_band", "quadrant_build.cu",
+              "crossscalepatchmatch_tpu/ops/pallas/quadrant_build.py:45",
+              band=True),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "card check")
@@ -1080,4 +1590,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-worker"]:
+        sys.exit(shard_worker(sys.argv[2:]))
     sys.exit(main())

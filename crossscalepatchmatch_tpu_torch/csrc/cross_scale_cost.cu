@@ -22,6 +22,18 @@
 // vol_s[v, q, f+1]) at dq for f = trunc(dq) when 1 <= dq < max_dis_s, else
 // max_costs_s[v].  A window pixel counts only inside level s.
 //
+// Band form (a spatial tile of parallel.tiled, JAX tiled.py:325-370): each
+// level carries an origin (oy, ox) and a validity rectangle.  Fine pixel
+// (x, y) of the output centers at ((y + oy) >> s, (x + ox) >> s) of the
+// level's arrays, and a window pixel counts inside [ylo, yhi) x [xlo, xhi)
+// of them.  On one device every origin is 0 and every rectangle the
+// level's extent.  On a tile, level 0 is the block with a half_wnd halo on
+// its extended axes (origin the halo depth, the rectangle the part inside
+// the global image: a neighbour's halo counts, pixels past the global
+// border do not) and every coarser level is whole, replicated on every
+// tile (origin the block's global fine position, which may be odd: the
+// level-s center is (y + row0) >> s, not (y >> s) + (row0 >> s)).
+//
 // What bounds it on the H100: instruction issue, not the f32 peak (the
 // kernel's useful operations are a few percent of it) and not bytes: every
 // level sums a full wnd x wnd window per fine pixel (5 x 413 M samples per
@@ -66,6 +78,8 @@ struct Levels {
   const void* vol[kMaxLevels];         // [2, Hs, Ws, Ds] of pairs
   const float* max_costs[kMaxLevels];  // [2]
   int h[kMaxLevels], w[kMaxLevels], d[kMaxLevels], max_dis[kMaxLevels];
+  int oy[kMaxLevels], ox[kMaxLevels];  // array position of fine (0, 0)
+  int ylo[kMaxLevels], yhi[kMaxLevels], xlo[kMaxLevels], xhi[kMaxLevels];
   float wgt[kMaxLevels];
   int n;
 };
@@ -107,23 +121,26 @@ cross_scale_kernel(const Levels lv,
   float total = 0.f;
   for (int s = 0; s < lv.n; ++s) {
     const int hs = lv.h[s], ws = lv.w[s], ds = lv.d[s];
+    const int oy = lv.oy[s], ox = lv.ox[s];
+    const int ylo = lv.ylo[s], yhi = lv.yhi[s];
+    const int xlo = lv.xlo[s], xhi = lv.xhi[s];
     // the block's level-s centers span [cx0, cx1] x [cy0, cy1]
-    const int cx0 = x0 >> s, cy0 = y0 >> s;
-    const int tile_w = (x_last >> s) - cx0 + 1 + 2 * hw;
-    const int tile_h = (y_last >> s) - cy0 + 1 + 2 * hw;
+    const int cx0 = (x0 + ox) >> s, cy0 = (y0 + oy) >> s;
+    const int tile_w = ((x_last + ox) >> s) - cx0 + 1 + 2 * hw;
+    const int tile_h = ((y_last + oy) >> s) - cy0 + 1 + 2 * hw;
     const uint32_t* img_v = lv.img[s] + (size_t)v * hs * ws;
     __syncthreads();  // the previous level's tile is no longer read
     for (int i = tid; i < tile_w * tile_h; i += kThreads) {
       const int r = i / tile_w;
       const int gy = cy0 - hw + r;
       const int gx = cx0 - hw + (i - r * tile_w);
-      s_img[i] = (gy >= 0 && gy < hs && gx >= 0 && gx < ws)
+      s_img[i] = (gy >= ylo && gy < yhi && gx >= xlo && gx < xhi)
                      ? img_v[(size_t)gy * ws + gx] : 0u;
     }
     __syncthreads();
     if (!active) continue;
 
-    const int cy = y >> s, cx = x >> s;
+    const int cy = (y + oy) >> s, cx = (x + ox) >> s;
     const float d_f = __fmul_rn(p.d0, 1.f / (float)(1 << s));  // exact scale
     const E* vol_v =
         static_cast<const E*>(lv.vol[s]) + (size_t)v * hs * ws * ds;
@@ -133,12 +150,12 @@ cross_scale_kernel(const Levels lv,
     const float maxc = lv.max_costs[s][v], fmax = (float)lv.max_dis[s];
     const float acc =
         stride == 1
-            ? volume_level_cost<E>(s_img, tile_w, lx, ly, s_lut, vol_v, hs,
-                                   ws, ds, cx, cy, hw, 1, maxc, fmax, p.a,
-                                   p.b, d_f)
-            : volume_level_cost<E>(s_img, tile_w, lx, ly, s_lut, vol_v, hs,
-                                   ws, ds, cx, cy, hw, stride, maxc, fmax,
-                                   p.a, p.b, d_f);
+            ? volume_level_cost<E>(s_img, tile_w, lx, ly, s_lut, vol_v, ws,
+                                   ds, ylo, yhi, xlo, xhi, cx, cy, hw, 1,
+                                   maxc, fmax, p.a, p.b, d_f)
+            : volume_level_cost<E>(s_img, tile_w, lx, ly, s_lut, vol_v, ws,
+                                   ds, ylo, yhi, xlo, xhi, cx, cy, hw, stride,
+                                   maxc, fmax, p.a, p.b, d_f);
     const float term = __fmul_rn(lv.wgt[s], acc);
     total = s == 0 ? term : __fadd_rn(total, term);
   }
@@ -174,13 +191,17 @@ cudaError_t launch(const Levels& lv, const void* abc, const void* lut,
 
 // Per-level arrays (host memory, `levels` entries each): packed images,
 // pair-layout volumes ([2, Hs, Ws, Ds, 2]), saturation values (device
-// pointers), shapes, the levels' max_dis and the scale weights.
+// pointers), the geometry (kGeom ints a level: Hs, Ws, Ds, max_dis, the
+// origin oy, ox and the validity rectangle ylo, yhi, xlo, xhi) and the
+// scale weights.  A rectangle must lie inside its level, and every output
+// pixel's center inside its rectangle (the wrapper checks both).
+constexpr int kGeom = 10;
+
 extern "C" int cspm_cross_scale_cost(
     const void* const* imgs, const void* const* vols,
-    const void* const* max_costs, const int* hs, const int* ws,
-    const int* ds, const int* max_dis, const float* wgts, int levels,
-    int vol_bf16, const void* abc, const void* lut, void* out, int K, int H,
-    int W, int half_wnd, int stride, void* stream) {
+    const void* const* max_costs, const int* geom, const float* wgts,
+    int levels, int vol_bf16, const void* abc, const void* lut, void* out,
+    int K, int H, int W, int half_wnd, int stride, void* stream) {
   if (levels < 1 || levels > kMaxLevels || K < 1 || half_wnd < 0 ||
       half_wnd > 64 || stride < 1)
     return (int)cudaErrorInvalidValue;
@@ -188,14 +209,24 @@ extern "C" int cspm_cross_scale_cost(
   lv.n = levels;
   for (int s = 0; s < kMaxLevels; ++s) {
     const bool on = s < levels;
+    const int* g = geom + (on ? s : 0) * kGeom;
     lv.img[s] = on ? static_cast<const uint32_t*>(imgs[s]) : nullptr;
     lv.vol[s] = on ? vols[s] : nullptr;
     lv.max_costs[s] = on ? static_cast<const float*>(max_costs[s]) : nullptr;
-    lv.h[s] = on ? hs[s] : 0;
-    lv.w[s] = on ? ws[s] : 0;
-    lv.d[s] = on ? ds[s] : 0;
-    lv.max_dis[s] = on ? max_dis[s] : 0;
+    lv.h[s] = on ? g[0] : 0;
+    lv.w[s] = on ? g[1] : 0;
+    lv.d[s] = on ? g[2] : 0;
+    lv.max_dis[s] = on ? g[3] : 0;
+    lv.oy[s] = on ? g[4] : 0;
+    lv.ox[s] = on ? g[5] : 0;
+    lv.ylo[s] = on ? g[6] : 0;
+    lv.yhi[s] = on ? g[7] : 0;
+    lv.xlo[s] = on ? g[8] : 0;
+    lv.xhi[s] = on ? g[9] : 0;
     lv.wgt[s] = on ? wgts[s] : 0.f;
+    if (on && (g[6] < 0 || g[7] > g[0] || g[8] < 0 || g[9] > g[1] ||
+               g[6] >= g[7] || g[8] >= g[9] || g[4] < 0 || g[5] < 0))
+      return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vol_bf16)

@@ -10,6 +10,14 @@
 // over in-image q = c + o, with per-axis offsets range(-hw, 0, stride)
 // (- side) and range(0, hw + 1, stride) (+ side), dy-major.
 //
+// Band form (a spatial tile of parallel.tiled; JAX tiled.py:298-324 builds
+// over the whole extended block and slices its centre): the input arrays
+// are [H, W] (the tile's block with a half_wnd halo), the output covers
+// the Ho x Wo centres from array position (oy, ox), and a window pixel
+// counts inside [ylo, yhi) x [xlo, xhi) (the part of the block inside the
+// global image).  On one device: Ho x Wo = H x W, origin 0, the rectangle
+// the array.
+//
 // What bounds it on the H100: instruction issue.  Its useful work is 2 x
 // H x W x 324 offsets x D multiply-adds (6.7 G at the bench shape, 375 x
 // 450, D = 61, half_wnd 17, stride 2), and to stay bit-equal with the plain
@@ -128,7 +136,8 @@ __device__ __forceinline__ void accumulate(
 }
 
 // Write one quadrant's sums of the block: bq through the output stage
-// (two pixels' 16-slice runs a store instruction), wq from chunk 0.
+// (two pixels' 16-slice runs a store instruction), wq from chunk 0.  (x0,
+// y0) and W x H are the output's.
 __device__ __forceinline__ void write_quadrant(
     const float (&acc)[kDC], float wsum, float* s_out, float* bq_q,
     float* wq_q, int tid, bool active, int x0, int y0, int W, int H, int D,
@@ -153,12 +162,13 @@ __device__ __forceinline__ void write_quadrant(
 }
 
 // Start the copies of one slab row into its ring slot: pair element
-// d0 + 2m of each in-image column holds slices d0 + 2m and d0 + 2m + 1 (the
-// columns outside the image are never read).
+// d0 + 2m of each valid column ([xlo, xhi) of the array) holds slices
+// d0 + 2m and d0 + 2m + 1 (the other columns are never read).  x0 is the
+// tile's first array column.
 template <typename VT>
 __device__ __forceinline__ void stage_row(
     typename Slab<VT>::Vec* slot, const typename PairOf<VT>::type* row,
-    int cols, int x0, int hw, int W, int D, int d0, int tid) {
+    int cols, int x0, int hw, int xlo, int xhi, int D, int d0, int tid) {
   using E = typename PairOf<VT>::type;
   constexpr unsigned kPairs = kDC / 2 / Slab<VT>::kVecs;  // in a vector
   // unsigned and 32-bit (a view's row has fewer than 2^31 elements): the
@@ -168,7 +178,7 @@ __device__ __forceinline__ void stage_row(
     const unsigned c = e / (kDC / 2);
     const int gx = x0 - hw + (int)c;
     const int d = d0 + 2 * (int)m;
-    if ((unsigned)gx >= (unsigned)W) continue;
+    if ((unsigned)(gx - xlo) >= (unsigned)(xhi - xlo)) continue;
     // vector m / kPairs of the column, pair m % kPairs of it
     E* dst = reinterpret_cast<E*>(slot + (m / kPairs) * cols + c) +
              m % kPairs;
@@ -184,10 +194,11 @@ __global__ void __launch_bounds__(kQThreads, kQMinBlocks)
 quadrant_build_kernel(const uint32_t* __restrict__ img,  // [2, H, W] packed
                       const void* __restrict__ vol,      // [2, H, W, D] pairs
                       const float* __restrict__ lut,     // [766]
-                      float* __restrict__ bq,            // [2, 4, H, W, D]
-                      float* __restrict__ wq,            // [2, 4, H, W]
-                      int H, int W, int D, int hw, int stride, int chunks,
-                      int tiles_x) {
+                      float* __restrict__ bq,            // [2, 4, Ho, Wo, D]
+                      float* __restrict__ wq,            // [2, 4, Ho, Wo]
+                      int H, int W, int D, int Ho, int Wo, int oy, int ox,
+                      int ylo, int yhi, int xlo, int xhi, int hw, int stride,
+                      int chunks, int tiles_x) {
   using S = Slab<VT>;
   using Vec = typename S::Vec;
   using E = typename PairOf<VT>::type;
@@ -203,48 +214,55 @@ quadrant_build_kernel(const uint32_t* __restrict__ img,  // [2, H, W] packed
   const int chunk = blockIdx.x % chunks;
   const int tile = blockIdx.x / chunks;
   const int v = blockIdx.y;
+  // output tile origin (x0, y0); its array position (ax0, ay0)
   const int x0 = (tile % tiles_x) * kQX;
   const int y0 = (tile / tiles_x) * kQY;
+  const int ax0 = x0 + ox, ay0 = y0 + oy;
   const int d0 = chunk * kDC;
   const int tid = threadIdx.y * kQX + threadIdx.x;
   const int x = x0 + threadIdx.x;
   const int y = y0 + threadIdx.y;
-  const bool active = x < W && y < H;
+  const int ax = x + ox, ay = y + oy;
+  const bool active = x < Wo && y < Ho;
   const size_t hwn = (size_t)H * W;
   const E* vol_v = static_cast<const E*>(vol) + v * hwn * D;
 
   // the slab rows of the window [lo, lo + kQY) not yet in the ring start
   // copying (rows below `have` were staged; a window's rows and the next
-  // window's new ones, at most kQY + stride in a row, never share a slot)
-  int have = 0;
+  // window's new ones, at most kQY + stride in a row, never share a slot);
+  // array rows, only the valid ones
+  int have = ylo;
   auto stage = [&](int lo) {
-    for (int r = max(lo, have); r < min(lo + kQY, H); ++r)
+    for (int r = max(lo, have); r < min(lo + kQY, yhi); ++r)
       stage_row<VT>(s_ring + (r % ring_rows) * S::kVecs * cols,
-                    vol_v + (size_t)r * W * D, cols, x0, hw, W, D, d0, tid);
+                    vol_v + (size_t)r * W * D, cols, ax0, hw, xlo, xhi, D,
+                    d0, tid);
     have = max(have, lo + kQY);
     __pipeline_commit();
   };
   const int n_neg = (hw + stride - 1) / stride;  // offsets of the - side
-  stage(y0 + (n_neg ? -hw : 0));
+  stage(ay0 + (n_neg ? -hw : 0));
 
   for (int i = tid; i < kLutN; i += kQThreads) s_lut[i] = lut[i];
   const uint32_t* img_v = img + v * hwn;
   const int img_rows = kQY + 2 * hw;
   for (int i = tid; i < img_rows * cols; i += kQThreads) {
     const int r = i / cols;
-    const int gy = y0 - hw + r;
-    const int gx = x0 - hw + (i - r * cols);
-    s_img[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+    const int gy = ay0 - hw + r;
+    const int gx = ax0 - hw + (i - r * cols);
+    s_img[i] = (gy >= ylo && gy < yhi && gx >= xlo && gx < xhi)
                    ? img_v[(size_t)gy * W + gx] : 0u;
   }
   __pipeline_wait_prior(0);
   __syncthreads();
   const uint32_t col_c = s_img[(threadIdx.y + hw) * cols + threadIdx.x + hw];
 
-  // the thread's in-image offsets per axis: - side i in [xn_lo, n_neg),
+  // the thread's valid offsets per axis: - side i in [xn_lo, n_neg),
   // dx = -hw + i * stride; + side i in [0, xp_n), dx = i * stride
-  const int xn_lo = x < hw ? (hw - x + stride - 1) / stride : 0;
-  const int xp_n = min(hw, W - 1 - x) / stride + 1;  // x < W where active
+  const int below = hw - (ax - xlo);
+  const int xn_lo = below > 0 ? (below + stride - 1) / stride : 0;
+  // xlo <= ax < xhi where active
+  const int xp_n = min(hw, xhi - 1 - ax) / stride + 1;
   const int c_neg = threadIdx.x + xn_lo * stride;    // staged column of i
   const int c_pos = threadIdx.x + hw;
 
@@ -259,11 +277,11 @@ quadrant_build_kernel(const uint32_t* __restrict__ img,  // [2, H, W] packed
       const int dy = dy_lo + iy * stride;
       // the next offset row's window copies while this one is summed
       if (iy + 1 < dy_n)
-        stage(y0 + dy + stride);
+        stage(ay0 + dy + stride);
       else if (side == 0)
-        stage(y0);
-      const int qy = y + dy;
-      if (active && qy >= 0 && qy < H) {
+        stage(ay0);
+      const int qy = ay + dy;
+      if (active && qy >= ylo && qy < yhi) {
         const Vec* slab = s_ring + (qy % ring_rows) * S::kVecs * cols;
         const uint32_t* q_img = s_img + (threadIdx.y + hw + dy) * cols;
         accumulate<VT>(acc0, w0, slab, cols, q_img, col_c, s_lut, c_neg,
@@ -274,53 +292,65 @@ quadrant_build_kernel(const uint32_t* __restrict__ img,  // [2, H, W] packed
       __pipeline_wait_prior(0);
       __syncthreads();  // the next window is in; this one is read
     }
-    float* bq_v = bq + (size_t)v * 4 * hwn * D;
-    float* wq_v = wq + (size_t)v * 4 * hwn;
+    const size_t on = (size_t)Ho * Wo;
+    float* bq_v = bq + (size_t)v * 4 * on * D;
+    float* wq_v = wq + (size_t)v * 4 * on;
     const int q0 = 2 * side;
-    write_quadrant(acc0, w0, s_out, bq_v + q0 * hwn * D, wq_v + q0 * hwn,
-                   tid, active, x0, y0, W, H, D, d0, chunk == 0);
-    write_quadrant(acc1, w1, s_out, bq_v + (q0 + 1) * hwn * D,
-                   wq_v + (q0 + 1) * hwn, tid, active, x0, y0, W, H, D, d0,
+    write_quadrant(acc0, w0, s_out, bq_v + q0 * on * D, wq_v + q0 * on, tid,
+                   active, x0, y0, Wo, Ho, D, d0, chunk == 0);
+    write_quadrant(acc1, w1, s_out, bq_v + (q0 + 1) * on * D,
+                   wq_v + (q0 + 1) * on, tid, active, x0, y0, Wo, Ho, D, d0,
                    chunk == 0);
   }
 }
 
 template <typename VT>
 cudaError_t launch(const void* img, const void* vol, const void* lut, void* bq,
-                   void* wq, int H, int W, int D, int hw, int stride,
-                   cudaStream_t stream) {
+                   void* wq, int H, int W, int D, const int* band, int hw,
+                   int stride, cudaStream_t stream) {
   const size_t smem = smem_bytes<VT>(hw, stride);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       quadrant_build_kernel<VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
+  const int Ho = band[0], Wo = band[1];
   const int chunks = (D + kDC - 1) / kDC;
-  const int tiles_x = (W + kQX - 1) / kQX;
+  const int tiles_x = (Wo + kQX - 1) / kQX;
   const long long blocks =
-      (long long)tiles_x * ((H + kQY - 1) / kQY) * chunks;
+      (long long)tiles_x * ((Ho + kQY - 1) / kQY) * chunks;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, 2);
   quadrant_build_kernel<VT><<<grid, dim3(kQX, kQY), smem, stream>>>(
       static_cast<const uint32_t*>(img), vol, static_cast<const float*>(lut),
-      static_cast<float*>(bq), static_cast<float*>(wq), H, W, D, hw, stride,
+      static_cast<float*>(bq), static_cast<float*>(wq), H, W, D, Ho, Wo,
+      band[2], band[3], band[4], band[5], band[6], band[7], hw, stride,
       chunks, tiles_x);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// vol: the pair-layout volume [2, H, W, D, 2] (f32 or bf16).
+// vol: the pair-layout volume [2, H, W, D, 2] (f32 or bf16).  band (host
+// memory, 8 ints): the output's Ho, Wo, its origin oy, ox in the arrays and
+// the validity rectangle ylo, yhi, xlo, xhi; every output centre must lie
+// inside the rectangle, and the rectangle inside the arrays.
 extern "C" int cspm_quadrant_build(const void* img, const void* vol,
                                    int vol_bf16, const void* lut, void* bq,
-                                   void* wq, int H, int W, int D, int half_wnd,
-                                   int stride, void* stream) {
+                                   void* wq, int H, int W, int D,
+                                   const int* band, int half_wnd, int stride,
+                                   void* stream) {
   if (H < 1 || W < 1 || D < 1 || half_wnd < 0 || half_wnd > 64 || stride < 1)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = band[0], Wo = band[1], oy = band[2], ox = band[3];
+  if (Ho < 1 || Wo < 1 || band[4] < 0 || band[5] > H || band[6] < 0 ||
+      band[7] > W || oy < band[4] || oy + Ho > band[5] || ox < band[6] ||
+      ox + Wo > band[7])
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vol_bf16)
-    return (int)launch<__nv_bfloat16>(img, vol, lut, bq, wq, H, W, D,
+    return (int)launch<__nv_bfloat16>(img, vol, lut, bq, wq, H, W, D, band,
                                       half_wnd, stride, s);
-  return (int)launch<float>(img, vol, lut, bq, wq, H, W, D, half_wnd, stride,
-                            s);
+  return (int)launch<float>(img, vol, lut, bq, wq, H, W, D, band, half_wnd,
+                            stride, s);
 }

@@ -33,19 +33,25 @@ constexpr int kMaxLevels = 8;
 constexpr int kMaxSmem = 232448;  // 227 KB, the H100's per-block maximum
 
 // The window offsets of one axis are -hw + i * stride, i = 0, 1, ...; Span
-// holds the i whose pixel c - hw + i * stride lies inside [0, n).  The
-// in-image samples of a row are one such interval, found once per level
+// holds the i whose pixel c - hw + i * stride lies inside [lo, hi), the
+// axis's valid interval (the array's extent, or on a spatial tile the part
+// of its halo-extended block inside the global image; lo <= c < hi).  The
+// valid samples of a row are one such interval, found once per level
 // instead of a test per sample.
 struct Span {
   int lo, hi;
 };
 
-__device__ __forceinline__ Span axis_span(int c, int n, int hw, int stride) {
-  const int below = hw - c;  // offsets before pixel 0
+__device__ __forceinline__ Span axis_span(int c, int lo, int hi, int hw,
+                                          int stride) {
+  const int below = hw - (c - lo);  // offsets before pixel lo
   Span s;
   s.lo = below > 0 ? (below + stride - 1) / stride : 0;
-  s.hi = min(2 * hw, n - 1 - c + hw) / stride;  // c < n: never negative
+  s.hi = min(2 * hw, hi - 1 - c + hw) / stride;  // c < hi: never negative
   return s;
+}
+__device__ __forceinline__ Span axis_span(int c, int n, int hw, int stride) {
+  return axis_span(c, 0, n, hw, stride);
 }
 
 // 2^23 + trunc(x) for 1 <= x < 2^22, rounded toward zero: the integer
@@ -108,14 +114,16 @@ struct PairOf<__nv_bfloat16> {
 
 // Window cost of one pyramid level over a precomputed volume for one
 // candidate plane:
-//   sum over the in-level offsets (dy, dx), dy-major, of
+//   sum over the valid offsets (dy, dx), dy-major, of
 //     lut[L1(center, q)] * val(q),   q = (cy + dy, cx + dx),
 //   dq = ((d_f + a*dx) + b*dy),
 //   val = lerp(vol[q, f], vol[q, f+1]) at f = trunc(dq) when
 //         1 <= dq < fmax, else maxc.
+// A window pixel is valid inside [ylo, yhi) x [xlo, xhi) of the level's
+// arrays (their extent, or a spatial tile's clip of its extended block).
 // s_img is the block's staged tile of packed pixels (row length tile_w),
 // (lx, ly) the center in tile coordinates, vol the view's level volume
-// [hs, ws, ds] in the pair layout, E the pair type (fewer than 2^31
+// [., ws, ds] in the pair layout, E the pair type (fewer than 2^31
 // elements: offsets are 32-bit).  The
 // sample has no branch: the taps' load is predicated on the range test and
 // the lerp runs either way, so the loads of consecutive samples overlap;
@@ -124,12 +132,13 @@ struct PairOf<__nv_bfloat16> {
 template <typename E>
 __device__ __forceinline__ float volume_level_cost(
     const uint32_t* s_img, int tile_w, int lx, int ly, const float* s_lut,
-    const E* vol, int hs, int ws, int ds, int cx, int cy, int hw, int stride,
-    float maxc, float fmax, float a, float b, float d_f) {
+    const E* vol, int ws, int ds, int ylo, int yhi, int xlo, int xhi,
+    int cx, int cy, int hw, int stride, float maxc, float fmax, float a,
+    float b, float d_f) {
   const float fstride = (float)stride;
-  const Span sy = axis_span(cy, hs, hw, stride);
-  const Span sx = axis_span(cx, ws, hw, stride);
-  const int dx0 = sx.lo * stride - hw;  // the row's first in-image offset
+  const Span sy = axis_span(cy, ylo, yhi, hw, stride);
+  const Span sx = axis_span(cx, xlo, xhi, hw, stride);
+  const int dx0 = sx.lo * stride - hw;  // the row's first valid offset
   const int vstep = stride * ds;
   const uint32_t col_c = s_img[ly * tile_w + lx];
   float acc = 0.f;

@@ -16,6 +16,11 @@ prescreen_mode="window").  On the no-volume path (make_fly_cost_fns) both
 are the fly kernel (ops.cuda.fly_cost: K5/K6/K7, K3 strided).  Random draws come from an explicit draw source (utils.rng) keyed by
 (phase, iteration, view, round).  The JAX jit/scan structure becomes plain
 Python control flow.
+
+A spatial tile (parallel.tiled) runs the same optimizer on its block: it
+binds the band forms of the kernels (make_cost_fns(band=...)) and hands in
+how a sweep finds its neighbours' planes (`neighbours`, across the tile's
+halos) and how view propagation finds the other view's (`view`).
 """
 
 from __future__ import annotations
@@ -42,6 +47,21 @@ from ..ops.scale_weights import scale_weights
 from ..support import check_supported
 
 CostFn = Callable[[torch.Tensor], torch.Tensor]
+Offsets = List[Tuple[int, int]]
+
+
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """Where a spatial tile's volume data sit (parallel.tiled): level 0 is
+    the tile's block with a half_wnd halo on its extended axes, a coarser
+    level the whole level; `origin` is the block's global fine (row, col)
+    and `bounds` per level the validity interval (ylo, yhi, xlo, xhi) in
+    the block's coordinates (ops.cuda.cross_scale_cost.band_rect)."""
+
+    rows_extended: bool
+    cols_extended: bool
+    origin: Tuple[int, int]
+    bounds: Tuple[Tuple[int, int, int, int], ...]
 
 
 @dataclasses.dataclass
@@ -64,13 +84,15 @@ def kernel_volumes(cfg: CSPMConfig, vols: torch.Tensor) -> torch.Tensor:
     return vols
 
 
-def _volume_sparse_fn(cfg: CSPMConfig, prep: PreparedVolumes) -> CostFn:
+def _volume_sparse_fn(cfg: CSPMConfig, prep: PreparedVolumes,
+                      bounds=None) -> CostFn:
     """Quadrant-volume prescreen evaluator (prescreen_mode="volume"): the
     quadrant volumes are built once (K2) on the prepared fine level, then
     every call ranks candidates on them."""
     bq, wq = quadrant_volumes_prepared(prep, half_wnd=cfg.half_wnd,
                                        gamma=cfg.wgt_gamma,
-                                       stride=max(cfg.prescreen_stride, 1))
+                                       stride=max(cfg.prescreen_stride, 1),
+                                       bounds=bounds)
     max_costs = prep.max_costs
 
     def sparse_fn(abc2: torch.Tensor) -> torch.Tensor:
@@ -81,8 +103,8 @@ def _volume_sparse_fn(cfg: CSPMConfig, prep: PreparedVolumes) -> CostFn:
     return sparse_fn
 
 
-def make_cost_fns(cfg: CSPMConfig,
-                  vd: VolumeData) -> Tuple[CostFn, CostFn | None]:
+def make_cost_fns(cfg: CSPMConfig, vd: VolumeData,
+                  band: Band | None = None) -> Tuple[CostFn, CostFn | None]:
     """Bind the per-view volume data into (cost_fn, sparse_fn): the exact
     window-cost evaluator (single-scale, or the scale-weighted sum over the
     pyramid when cfg.use_cs) and the prescreen (None when prescreening is
@@ -95,24 +117,34 @@ def make_cost_fns(cfg: CSPMConfig,
     Packed images, kernel-layout volumes and the weight table are made once
     per pair (prepare_volumes / prepare_cross_scale); an evaluation only
     launches.  On the card the functions hold the pair-layout volumes and
-    the quadrant volumes, not vd's volumes or their cfg.vol_dtype copies."""
+    the quadrant volumes, not vd's volumes or their cfg.vol_dtype copies.
+
+    band: a spatial tile's geometry (Band): every evaluator is then the
+    kernels' band form on vd's tile data, its output the tile's block."""
     check_supported(cfg, tuple(vd.imgs[0].shape[1:3]), vd.imgs[0].device)
     volume_mode = cfg.prescreen_stride > 1 and cfg.prescreen_mode == "volume"
     window_mode = (cfg.prescreen_stride > 1 and cfg.prescreen_mode == "window"
                    and not cfg.use_cs)
     kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis,
               gamma=cfg.wgt_gamma)
+    ext, cs_band, bounds0 = {}, {}, None
+    if band is not None:
+        ext = dict(rows_extended=band.rows_extended,
+                   cols_extended=band.cols_extended)
+        cs_band = dict(origin=band.origin, bounds=band.bounds)
+        bounds0 = band.bounds[0]
     # the fine level, prepared for K1 and K3 (single-scale) and K2
     fine = (prepare_volumes(vd.weight_imgs[0],
                             kernel_volumes(cfg, vd.vols[0]),
-                            vd.max_costs[0], **kw)
+                            vd.max_costs[0], **kw, **ext)
             if volume_mode or not cfg.use_cs else None)
-    sparse_fn = _volume_sparse_fn(cfg, fine) if volume_mode else None
+    sparse_fn = _volume_sparse_fn(cfg, fine, bounds0) if volume_mode else None
     if cfg.use_cs:
         fine = None  # K2 has run: its copy of the fine level is not held
         prep = prepare_cross_scale(
             vd.weight_imgs, [kernel_volumes(cfg, v) for v in vd.vols],
-            vd.max_costs, scale_weights(cfg.scale_num, cfg.reg_lambda), **kw)
+            vd.max_costs, scale_weights(cfg.scale_num, cfg.reg_lambda), **kw,
+            **ext, **cs_band)
 
         def cost_fn(abc2: torch.Tensor) -> torch.Tensor:
             return cross_scale_cost_prepared(
@@ -123,7 +155,7 @@ def make_cost_fns(cfg: CSPMConfig,
                     stride: int = 1) -> torch.Tensor:
             return window_cost_prepared(fine, abc2, half_wnd=cfg.half_wnd,
                                         max_dis=cfg.max_dis,
-                                        wnd_stride=stride)
+                                        wnd_stride=stride, bounds=bounds0)
 
     if window_mode:
         sparse_fn = functools.partial(cost_fn, stride=cfg.prescreen_stride)
@@ -199,19 +231,27 @@ def _stencil(cfg: CSPMConfig, sweep: int = 0) -> List[Tuple[int, int]]:
     return offsets
 
 
+def stencil_candidates(abc: torch.Tensor, offsets: Offsets) -> torch.Tensor:
+    """f32[2, n, H, W, 3]: for each stencil offset (dy, dx), every pixel's
+    neighbour's plane abc[v, y - dy, x - dx] (rolled: the image wraps)."""
+    return torch.stack([torch.roll(abc, (dy, dx), dims=(1, 2))
+                        for dy, dx in offsets], dim=1)
+
+
 def spatial_sweep(state: PMState, cost_fn: CostFn, cfg: CSPMConfig,
                   sweep: int = 0, sparse_fn: CostFn | None = None,
                   extra: torch.Tensor | None = None,
-                  include_current: bool = False) -> PMState:
+                  include_current: bool = False,
+                  neighbours=stencil_candidates) -> PMState:
     """One dense propagation sweep: every pixel tests its stencil's planes.
 
     `extra` ([2, E, H, W, 3]) joins the batch after the prescreen.
     `include_current` PREPENDS the current plane (deferred-cost entry), so
-    a tie keeps the current plane.
+    a tie keeps the current plane.  `neighbours(abc, offsets)` gives the
+    stencil's candidate planes (stencil_candidates on one device).
     """
-    cands = [torch.roll(state.abc, (dy, dx), dims=(1, 2))
-             for dy, dx in _stencil(cfg, sweep)]
-    cand_abc = _prescreen(torch.stack(cands, dim=1), sparse_fn)
+    cand_abc = _prescreen(neighbours(state.abc, _stencil(cfg, sweep)),
+                          sparse_fn)
     if include_current:
         cand_abc = torch.cat([state.abc[:, None], cand_abc], dim=1)
     if extra is not None:
@@ -246,10 +286,11 @@ def view_candidates(state: PMState, cfg: CSPMConfig) -> torch.Tensor:
     return torch.stack([cand_l, cand_r])[:, None]
 
 
-def view_propagation(state: PMState, cost_fn: CostFn,
-                     cfg: CSPMConfig) -> PMState:
-    """Standalone view-propagation step (see view_candidates)."""
-    cand_abc = view_candidates(state, cfg)
+def view_propagation(state: PMState, cost_fn: CostFn, cfg: CSPMConfig,
+                     view=None) -> PMState:
+    """Standalone view-propagation step (see view_candidates; `view(state)`
+    gives the candidates instead where set)."""
+    cand_abc = view(state) if view else view_candidates(state, cfg)
     return _adopt(state, cand_abc, cost_fn(cand_abc))
 
 
@@ -315,17 +356,22 @@ def init_state(draws, hw: Tuple[int, int], cost_fn: CostFn | None,
 
 def iteration_step(state: PMState, draws, iteration: int, cost_fn: CostFn,
                    cfg: CSPMConfig, sparse_fn: CostFn | None = None,
-                   include_current: bool = False) -> PMState:
+                   include_current: bool = False,
+                   neighbours=stencil_candidates, view=None) -> PMState:
     """One outer iteration (number `iteration`): propagation sweeps, view
-    propagation, refinement.  `include_current` goes to the first sweep."""
+    propagation, refinement.  `include_current` goes to the first sweep;
+    `neighbours` to every sweep; `view(state)`, where set, gives the view
+    candidates (view_candidates on one device)."""
+    view = view or functools.partial(view_candidates, cfg=cfg)
     for i in range(cfg.prop_sweeps):
         merge = cfg.merge_view and i == cfg.prop_sweeps - 1
         state = spatial_sweep(
             state, cost_fn, cfg, sweep=i, sparse_fn=sparse_fn,
-            extra=view_candidates(state, cfg) if merge else None,
-            include_current=include_current and i == 0)
+            extra=view(state) if merge else None,
+            include_current=include_current and i == 0,
+            neighbours=neighbours)
     if not (cfg.merge_view and cfg.prop_sweeps > 0):
-        state = view_propagation(state, cost_fn, cfg)
+        state = view_propagation(state, cost_fn, cfg, view)
     return plane_refinement(state, draws, iteration, cost_fn, cfg,
                             sparse_fn=sparse_fn)
 
@@ -333,8 +379,8 @@ def iteration_step(state: PMState, draws, iteration: int, cost_fn: CostFn,
 def iterate(state: PMState, first: int, stop: int, draws, cost_fn: CostFn,
             cfg: CSPMConfig, sparse_fn: CostFn | None = None, *,
             n_rank: int = 0,
-            on_iteration: Callable[[PMState, int], None] | None = None
-            ) -> PMState:
+            on_iteration: Callable[[PMState, int], None] | None = None,
+            neighbours=stencil_candidates, view=None) -> PMState:
     """Outer iterations first..stop-1 of the schedule, from `state` (the
     state after `first` iterations).
 
@@ -349,6 +395,7 @@ def iterate(state: PMState, first: int, stop: int, draws, cost_fn: CostFn,
 
     Args:
       on_iteration: called as on_iteration(state, i + 1) after iteration i.
+      neighbours / view: iteration_step's.
     """
     defer = cfg.prop_sweeps > 0
     for it in range(first, stop):
@@ -361,7 +408,8 @@ def iterate(state: PMState, first: int, stop: int, draws, cost_fn: CostFn,
                             cost=cost_fn(state.abc[:, None])[:, 0])
         cf, sf = (sparse_fn, None) if it < n_rank else (cost_fn, sparse_fn)
         state = iteration_step(state, draws, it, cf, cfg, sf,
-                               include_current=defer and it == n_rank)
+                               include_current=defer and it == n_rank,
+                               neighbours=neighbours, view=view)
         if on_iteration is not None:
             on_iteration(state, it + 1)
     return state
@@ -370,8 +418,9 @@ def iterate(state: PMState, first: int, stop: int, draws, cost_fn: CostFn,
 def patchmatch(draws, hw: Tuple[int, int], cost_fn: CostFn, cfg: CSPMConfig,
                sparse_fn: CostFn | None = None, *, device,
                start: Tuple[PMState, int] | None = None,
-               on_iteration: Callable[[PMState, int], None] | None = None
-               ) -> PMState:
+               stop: int | None = None,
+               on_iteration: Callable[[PMState, int], None] | None = None,
+               neighbours=stencil_candidates, view=None) -> PMState:
     """Full optimizer: init + max_iter outer iterations (see iterate).
 
     cfg.adopt_mode: "exact" adopts on cost_fn throughout; "rank" on the
@@ -381,8 +430,11 @@ def patchmatch(draws, hw: Tuple[int, int], cost_fn: CostFn, cfg: CSPMConfig,
     Args:
       start: (state, i), the state after i iterations, to continue from
         instead of a fresh init (a resumed run).
+      stop: the state after `stop` iterations is returned (cfg.max_iter if
+        None): a run in slices composes to the whole run.
       on_iteration: called as on_iteration(state, i) with the state after
         i iterations: after a fresh init (i = 0) and after each iteration.
+      neighbours / view: iteration_step's (a spatial tile's halos).
     """
     n_rank = cfg.rank_iters if sparse_fn is not None else 0
     if start is None:
@@ -391,8 +443,10 @@ def patchmatch(draws, hw: Tuple[int, int], cost_fn: CostFn, cfg: CSPMConfig,
         start = (init_state(draws, hw, init_fn, cfg, device=device), 0)
         if on_iteration is not None:
             on_iteration(*start)
-    return iterate(*start, cfg.max_iter, draws, cost_fn, cfg, sparse_fn,
-                   n_rank=n_rank, on_iteration=on_iteration)
+    return iterate(*start, cfg.max_iter if stop is None else stop, draws,
+                   cost_fn, cfg, sparse_fn, n_rank=n_rank,
+                   on_iteration=on_iteration, neighbours=neighbours,
+                   view=view)
 
 
 def plane_to_disp(abc: torch.Tensor, dis_scale: int) -> torch.Tensor:

@@ -94,7 +94,10 @@ def fill_invalid(dis: torch.Tensor, abc: torch.Tensor, valid: torch.Tensor,
 
 
 def weighted_median(dis: torch.Tensor, imgs: torch.Tensor,
-                    valid: torch.Tensor, cfg: CSPMConfig) -> torch.Tensor:
+                    valid: torch.Tensor, cfg: CSPMConfig,
+                    center_row0: int = 0, out_h: int | None = None,
+                    center_col0: int = 0,
+                    out_w: int | None = None) -> torch.Tensor:
     """Colour-weighted median of the valid window disparities, applied at
     the invalid pixels only.
 
@@ -111,12 +114,21 @@ def weighted_median(dis: torch.Tensor, imgs: torch.Tensor,
     replaced.
 
     Args:
-      dis / imgs / valid: u8[2, H, W] / u8[2, H, W, 3] / bool[2, H, W].
+      dis / imgs / valid: u8[2, Ha, Wa] / u8[2, Ha, Wa, 3] / bool[2, Ha, Wa].
+        Ha / Wa exceed the output when a spatial tile (parallel.tiled)
+        passes its block with halos; pixels past the global border must
+        carry valid = 0, which drops them like window pixels outside the
+        array.
+      center_row0 / center_col0: array position of output pixel (0, 0)
+        (the halo depth; 0 on one device).
+      out_h / out_w: the output's extent (defaults: Ha / Wa).
 
     Returns:
-      u8[2, H, W].
+      u8[2, out_h, out_w].
     """
     _, h, w = dis.shape
+    oh = h if out_h is None else out_h
+    ow = w if out_w is None else out_w
     hw = cfg.wnd_size // 2
     dev = dis.device
     lut = asw_lut(cfg.wmf_gamma, dev)
@@ -124,10 +136,16 @@ def weighted_median(dis: torch.Tensor, imgs: torch.Tensor,
     offs = torch.arange(-hw, hw + 1, device=dev)
 
     def per_view(dis_v, img_v, valid_v):
-        ys, xs = torch.nonzero(~valid_v, as_tuple=True)
+        out = dis_v[center_row0:center_row0 + oh,
+                    center_col0:center_col0 + ow]
+        ys, xs = torch.nonzero(~valid_v[center_row0:center_row0 + oh,
+                                        center_col0:center_col0 + ow],
+                               as_tuple=True)
         n = ys.numel()
         if n == 0:
-            return dis_v
+            return out
+        oys, oxs = ys, xs
+        ys, xs = ys + center_row0, xs + center_col0
         img_i = img_v.to(torch.int32)
         dis_i = dis_v.to(torch.int32)
         center = img_i[ys, xs]                                   # [N, 3]
@@ -150,9 +168,9 @@ def weighted_median(dis: torch.Tensor, imgs: torch.Tensor,
                     acc.add_(contrib[:, j])
         half_total = acc[:, -1] * 0.5
         median = (acc < half_total[:, None]).sum(-1).to(torch.uint8)
-        out = dis_v.clone()
+        out = out.clone()
         replace = half_total > 0
-        out[ys[replace], xs[replace]] = median[replace]
+        out[oys[replace], oxs[replace]] = median[replace]
         return out
 
     return torch.stack([per_view(dis[v], imgs[v], valid[v])

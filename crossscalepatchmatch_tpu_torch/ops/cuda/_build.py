@@ -37,16 +37,17 @@ _I = ctypes.c_int
 # cudaError_t)
 SOURCES = {
     "quadrant_build.cu": {
-        # img, vol (pair layout), vol_bf16, lut, bq, wq, H, W, D, half_wnd,
+        # img, vol (pair layout), vol_bf16, lut, bq, wq, H, W, D, band
+        # (host int[8]: Ho, Wo, oy, ox, ylo, yhi, xlo, xhi), half_wnd,
         # stride, stream
         "cspm_quadrant_build": (_P, _P, _I, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _P),
+                                _I, _I, _I, _P, _I, _I, _P),
     },
     "cross_scale_cost.cu": {
-        # per-level host arrays: imgs, vols, max_costs, hs, ws, ds, max_dis,
-        # wgts; levels, vol_bf16, abc, lut, out, K, H, W, half_wnd, stride,
-        # stream
-        "cspm_cross_scale_cost": (_P, _P, _P, _P, _P, _P, _P, _P,
+        # per-level host arrays: imgs, vols, max_costs, geom (int[10] a
+        # level: Hs, Ws, Ds, max_dis, oy, ox, ylo, yhi, xlo, xhi), wgts;
+        # levels, vol_bf16, abc, lut, out, K, H, W, half_wnd, stride, stream
+        "cspm_cross_scale_cost": (_P, _P, _P, _P, _P,
                                   _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _P),
     },

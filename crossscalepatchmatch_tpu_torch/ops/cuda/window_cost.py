@@ -16,6 +16,13 @@ packs the images, lays the volume out for the kernels (`pair_volume`) and
 builds the weight table; `window_cost_prepared` (K1, K3) and
 `quadrant_build.quadrant_volumes_prepared` (K2) then only launch.  On CPU
 tensors the same object routes to the plain versions.
+
+Band form (a spatial tile, parallel.tiled; JAX window_cost.py:458-540,
+694-740): `prepare_volumes(rows_extended=, cols_extended=)` takes the
+tile's block with a half_wnd halo on the extended axes, the output being
+the block, and the evaluators take the validity interval `bounds` = (ylo,
+yhi, xlo, xhi) in the output's coordinates (the global image is
+[-row0, H - row0) x [-col0, W - col0) there).
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import torch
 from .. import plane_cost
 from . import (_build, check_half_wnd, check_tensor, pack_bgr,
                pair_volume)
-from .cross_scale_cost import MAX_DIS_LIMIT, check_candidates, level_args
+from .cross_scale_cost import (MAX_DIS_LIMIT, Rect, band_rect,
+                               check_candidates, level_args, valid_vectors)
 
 # Kernel launches (plain counts; chip_smoke resets and reads them): all,
 # and those at wnd_stride > 1 (K3).
@@ -49,27 +57,45 @@ class PreparedVolumes:
     half_wnd: int
     max_dis: int
     gamma: float
-    hw: Tuple[int, int]
+    hw: Tuple[int, int]                 # the output's (H, W)
     device: torch.device
-    # the kernels' side (the card only): packed images i32[2, H, W], the
-    # pair-layout volume [2, H, W, D, 2], the weight table, and K1's
-    # one-level arguments of cspm_cross_scale_cost (with max_costs)
+    # the arrays' (Ha, Wa) and position of output pixel (0, 0): the halo
+    # depth on an extended axis
+    array_hw: Tuple[int, int] = (0, 0)
+    origin: Tuple[int, int] = (0, 0)
+    # the kernels' side (the card only): packed images i32[2, Ha, Wa], the
+    # pair-layout volume [2, Ha, Wa, D, 2], the weight table
     img: torch.Tensor | None = None
     pvols: torch.Tensor | None = None
     lut: torch.Tensor | None = None
-    args: tuple = ()
+
+    def rect(self, bounds: Rect | None) -> Rect:
+        """The validity rectangle of the arrays for `bounds` (band_rect)."""
+        return band_rect(self.array_hw, 0, self.origin, self.hw, bounds)
+
+    def plain_band(self, bounds: Rect | None) -> dict:
+        """The plain window cost's band arguments for `bounds`."""
+        if bounds is None and self.origin == (0, 0):
+            return {}
+        rv, cv = valid_vectors(self.rect(bounds), self.array_hw, self.device)
+        return dict(center_row0=self.origin[0], row_valid=rv,
+                    center_col0=self.origin[1], col_valid=cv)
 
 
 def prepare_volumes(imgs_u8: torch.Tensor, vols: torch.Tensor,
                     max_costs: torch.Tensor | None, *, half_wnd: int,
-                    max_dis: int, gamma: float) -> PreparedVolumes:
+                    max_dis: int, gamma: float, rows_extended: bool = False,
+                    cols_extended: bool = False) -> PreparedVolumes:
     """Everything of K1, K3 and K2 that does not depend on the candidates.
 
     Args:
-      imgs_u8: u8[2, H, W, 3] weight images.
-      vols: f32 or bf16 [2, H, W, D], D = max_dis + 1.
+      imgs_u8: u8[2, Ha, Wa, 3] weight images.
+      vols: f32 or bf16 [2, Ha, Wa, D], D = max_dis + 1.
       max_costs: f32[2] per-view saturation values (None where only the
         quadrant build runs).
+      rows_extended / cols_extended: the arrays' rows / columns carry a
+        half_wnd halo on each side (a spatial tile's block): the output is
+        Ha - 2 * half_wnd rows / Wa - 2 * half_wnd columns.
 
     On the card the volume is copied into the kernels' pair layout
     (pair_volume: twice its memory) and the caller's is not held; the plain
@@ -83,9 +109,15 @@ def prepare_volumes(imgs_u8: torch.Tensor, vols: torch.Tensor,
         raise ValueError(f"max_dis {max_dis} outside [0, {MAX_DIS_LIMIT})")
     _, h, w, _ = vols.shape
     dev = vols.device
+    origin = (half_wnd * rows_extended, half_wnd * cols_extended)
+    out_hw = (h - 2 * origin[0], w - 2 * origin[1])
+    if min(out_hw) < 1:
+        raise ValueError(f"vols shape {tuple(vols.shape)} holds no output "
+                         f"pixel inside a {half_wnd} halo")
     prep = PreparedVolumes(imgs_u8=imgs_u8, vols=vols, max_costs=max_costs,
                            half_wnd=half_wnd, max_dis=max_dis, gamma=gamma,
-                           hw=(h, w), device=dev)
+                           hw=out_hw, device=dev, array_hw=(h, w),
+                           origin=origin)
     if dev.type == "cpu":
         return prep
     d = max_dis + 1
@@ -99,25 +131,24 @@ def prepare_volumes(imgs_u8: torch.Tensor, vols: torch.Tensor,
     prep.img = pack_bgr(imgs_u8)
     prep.pvols = pair_volume(vols)
     prep.lut = plane_cost.asw_lut(gamma, dev)
-    if max_costs is not None:
-        prep.args = level_args([prep.img], [prep.pvols], [max_costs],
-                               [(h, w, d, max_dis)], [1.0])
     prep.vols = None  # the kernels read the copy
     return prep
 
 
 def window_cost_prepared(prep: PreparedVolumes, abc: torch.Tensor, *,
-                         half_wnd: int, max_dis: int,
-                         wnd_stride: int = 1) -> torch.Tensor:
+                         half_wnd: int, max_dis: int, wnd_stride: int = 1,
+                         bounds: Rect | None = None) -> torch.Tensor:
     """Window plane cost of K candidate plane fields in both views on a
     prepared pair.  The caller restates the geometry it assumes (half_wnd,
     max_dis); a mismatch with the prepared object, a wnd_stride below 1, or
     planes of another shape or device, raises ValueError.
 
     Args:
-      abc: f32[2, K, H, W, 3] candidate planes.
+      abc: f32[2, K, H, W, 3] candidate planes (H, W: the output's).
       wnd_stride: every wnd_stride-th window offset per axis from
         -half_wnd (the strided prescreen, K3); 1 for the exact cost.
+      bounds: the validity interval (ylo, yhi, xlo, xhi) in the output's
+        coordinates (band form); None: the whole arrays.
 
     Returns:
       f32[2, K, H, W].  A pair prepared from CPU tensors takes the plain
@@ -138,19 +169,23 @@ def window_cost_prepared(prep: PreparedVolumes, abc: torch.Tensor, *,
         raise ValueError(f"abc shape {tuple(abc.shape)} does not match the "
                          f"prepared (H, W) = {prep.hw}")
     if prep.device.type == "cpu":
+        band = prep.plain_band(bounds)
         return torch.stack([plane_cost.window_plane_cost(
             prep.imgs_u8[v], prep.vols[v], prep.max_costs[v], abc[v],
             half_wnd=half_wnd, max_dis=max_dis, gamma=prep.gamma,
-            wnd_stride=wnd_stride) for v in range(2)])
+            wnd_stride=wnd_stride, **band) for v in range(2)])
     k = abc.shape[1]
     h, w = prep.hw
     check_tensor("abc", abc, (torch.float32,), (2, k, h, w, 3))
     check_candidates(k, h, w)
     lib = _build.load()
+    args = level_args([prep.img], [prep.pvols], [prep.max_costs],
+                      [(*prep.array_hw, max_dis + 1, max_dis)], [1.0],
+                      [prep.origin], [prep.rect(bounds)])
     out = torch.empty((2, k, h, w), dtype=torch.float32, device=abc.device)
     err = lib.cspm_cross_scale_cost(
-        *prep.args, abc.data_ptr(), prep.lut.data_ptr(), out.data_ptr(), k,
-        h, w, half_wnd, wnd_stride, _build.stream_of(abc))
+        *args, abc.data_ptr(), prep.lut.data_ptr(), out.data_ptr(), k, h, w,
+        half_wnd, wnd_stride, _build.stream_of(abc))
     _build.check(err, "cspm_cross_scale_cost (K1)")
     launches += 1
     strided_launches += wnd_stride > 1

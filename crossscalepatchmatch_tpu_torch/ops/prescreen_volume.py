@@ -43,18 +43,23 @@ def quadrant_offsets(half_wnd: int, stride: int):
             list(range(0, half_wnd + 1, stride)))
 
 
-def build_quadrant_volumes(img_u8: torch.Tensor, vol: torch.Tensor, *,
+def build_quadrant_volumes(img_u8: torch.Tensor, vol: torch.Tensor,
+                           valid: torch.Tensor | None = None, *,
                            half_wnd: int, gamma: float, stride: int = 2):
     """ASW-weighted quadrant aggregation of one view's cost volume.
 
     Args:
-      img_u8: u8[H, W, 3] reference view.
+      img_u8: u8[H, W, 3] reference view (or a spatial tile's
+        halo-extended block).
       vol: f32[H, W, D].
+      valid: optional bool[H, W], the pixels inside the global image: a
+        tile passes its block's clip, so a neighbour's halo pixels count
+        and pixels past the global border do not.  Defaults to the array.
 
     Returns:
       (bq: f32[4, H, W, D], wq: f32[4, H, W]) in quadrant order
       (--), (-+), (+-), (++) like quadrant_anchors.  Window pixels
-      outside the image contribute nothing.
+      outside the (valid) image contribute nothing.
     """
     global launches
     launches += 1
@@ -78,6 +83,8 @@ def build_quadrant_volumes(img_u8: torch.Tensor, vol: torch.Tensor, *,
                     q_vol = torch.roll(vol, (-dy, -dx), dims=(0, 1))
                     ok = ((ys + dy >= 0) & (ys + dy < h)
                           & (xs + dx >= 0) & (xs + dx < w))
+                    if valid is not None:
+                        ok = ok & torch.roll(valid, (-dy, -dx), dims=(0, 1))
                     l1 = (q_img - img).abs().sum(-1).to(torch.float32)
                     wgt = torch.where(ok, asw_weight(l1, gamma), 0.0)
                     b = b + wgt[..., None] * q_vol

@@ -41,16 +41,20 @@ class TorchDraws:
     numpy's SeedSequence of (seed, *key): the same seed gives bit-identical
     draws on the same device, whatever order they are asked for in.
     `refine_phase` keys the refinement draws: PHASE_REFINE for a cold run,
-    PHASE_WARM for a warm start's iterations.
+    PHASE_WARM for a warm start's iterations.  `tile` (a spatial tile's
+    index, parallel.tiled) joins the seed: (seed, tile, *key).
     """
 
-    def __init__(self, seed: int, device, refine_phase: int = PHASE_REFINE):
+    def __init__(self, seed: int, device, refine_phase: int = PHASE_REFINE,
+                 tile: int | None = None):
         self.seed = int(seed)
         self.device = torch.device(device)
         self.refine_phase = refine_phase
+        self.tile = tile
 
     def _gen(self, *key: int) -> torch.Generator:
-        entropy = [self.seed % (1 << 63), *key]
+        tile = () if self.tile is None else (self.tile,)
+        entropy = [self.seed % (1 << 63), *tile, *key]
         s = int(np.random.SeedSequence(entropy).generate_state(
             1, np.uint64)[0])
         return torch.Generator(device=self.device).manual_seed(s)

@@ -828,3 +828,197 @@ def test_card_limits_refused_before_any_work(cuda):
         run_pair(pair.left, pair.right, 0,
                  CSPMConfig(max_dis=12, dis_scale=16, wnd_size=131))
     assert (window_cost.launches, quadrant_build.launches) == (0, 0)
+
+
+# -- band forms (a spatial tile of parallel.tiled) -----------------------------
+
+TILE = dict(n_ty=3, n_tx=2, ty=1, tx=1)   # the (1, 3, 2) mesh's middle tile
+
+
+def bench_tile(cfg, cuda):
+    """The bench scene's middle tile of a (1, 3, 2) mesh (rows [125, 250),
+    columns [225, 450): an odd origin): the block's weight images and
+    volumes with the 17-pixel halo on both axes (125 + 34 rows x 225 + 34
+    columns, zeros past the image), the whole coarser levels, the
+    saturation values, and each level's validity interval in the block's
+    coordinates (JAX tiled.py:336-350)."""
+    from crossscalepatchmatch_tpu_torch.parallel.tiled import _ext_from_full
+
+    pair = make_pair(h=375, w=450, max_dis=cfg.max_dis, seed=0)
+    vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
+                           torch.as_tensor(pair.right, device=cuda), cfg)
+    hs, ws = 375 // TILE["n_ty"], 450 // TILE["n_tx"]
+    row0, col0 = TILE["ty"] * hs, TILE["tx"] * ws
+    hw = cfg.half_wnd
+
+    def ext(x):
+        return _ext_from_full(_ext_from_full(x, row0, hs, hw, 1), col0, ws,
+                              hw, 2).contiguous()
+
+    imgs = [ext(vd.imgs[0])] + vd.imgs[1:]
+    vols = [ext(vd.vols[0])] + vd.vols[1:]
+    bounds = [(-row0, (im.shape[1] << s) - row0, -col0,
+               (im.shape[2] << s) - col0)
+              for s, im in enumerate(vd.imgs)]
+    bounds[0] = (-row0, 375 - row0, -col0, 450 - col0)
+    g_row = row0 + torch.arange(-hw, hs + hw, device=cuda)
+    g_col = col0 + torch.arange(-hw, ws + hw, device=cuda)
+    valid = ((g_row >= 0) & (g_row < 375), (g_col >= 0) & (g_col < 450))
+    return dict(pair=pair, imgs=imgs, vols=vols, mcs=vd.max_costs, hs=hs,
+                ws=ws, origin=(row0, col0), bounds=bounds, valid=valid)
+
+
+@pytest.mark.parametrize("k,stride", [(1, 1), (2, 1), (8, 2)])
+def test_k1_k3_band_form_bench_tile(cuda, k, stride):
+    """K1 (K = 1, 2) and K3's volume form (stride 2, K = 8) on the bench
+    tile's extended block, f32: bit-equal to the plain band form."""
+    cfg = README_DEMO
+    t = bench_tile(cfg, cuda)
+    hw, md = cfg.half_wnd, cfg.max_dis
+    prep = window_cost.prepare_volumes(
+        t["imgs"][0], t["vols"][0], t["mcs"][0], half_wnd=hw, max_dis=md,
+        gamma=cfg.wgt_gamma, rows_extended=True, cols_extended=True)
+    assert prep.hw == (t["hs"], t["ws"])
+    abc = torch.as_tensor(random_planes(k, t["hs"], t["ws"], md, seed=k,
+                                        wild=False), device=cuda)
+    n = window_cost.launches
+    got = window_cost.window_cost_prepared(prep, abc, half_wnd=hw,
+                                           max_dis=md, wnd_stride=stride,
+                                           bounds=t["bounds"][0])
+    assert window_cost.launches == n + 1
+    rv, cv = t["valid"]
+    want = torch.stack([plane_cost.window_plane_cost(
+        t["imgs"][0][v], t["vols"][0][v], t["mcs"][0][v], abc[v],
+        half_wnd=hw, max_dis=md, gamma=cfg.wgt_gamma, center_row0=hw,
+        row_valid=rv, center_col0=hw, col_valid=cv, wnd_stride=stride)
+        for v in range(2)])
+    assert torch.equal(got, want)
+
+
+def test_k2_band_form_bench_tile(cuda):
+    """K2 over the bench tile's own pixels, window pixels inside the global
+    image: bit-equal to the plain build over the extended block, sliced."""
+    cfg = README_DEMO
+    t = bench_tile(cfg, cuda)
+    hw, hs, ws = cfg.half_wnd, t["hs"], t["ws"]
+    prep = window_cost.prepare_volumes(
+        t["imgs"][0], t["vols"][0], None, half_wnd=hw, max_dis=cfg.max_dis,
+        gamma=cfg.wgt_gamma, rows_extended=True, cols_extended=True)
+    gb, gw = quadrant_build.quadrant_volumes_prepared(
+        prep, half_wnd=hw, gamma=cfg.wgt_gamma, stride=cfg.prescreen_stride,
+        bounds=t["bounds"][0])
+    rv, cv = t["valid"]
+    parts = [prescreen_volume.build_quadrant_volumes(
+        t["imgs"][0][v], t["vols"][0][v], rv[:, None] & cv[None, :],
+        half_wnd=hw, gamma=cfg.wgt_gamma, stride=cfg.prescreen_stride)
+        for v in range(2)]
+    wb, ww = (torch.stack([p[i] for p in parts])[:, :, hw:hw + hs,
+                                                   hw:hw + ws]
+              for i in range(2))
+    assert gb.shape == (2, 4, hs, ws, cfg.max_dis + 1)
+    assert torch.equal(gb, wb) and torch.equal(gw, ww)
+
+
+def test_k4_band_form_bench_tile(cuda):
+    """K4 over the 5-level census pyramid on the bench tile (level 0 the
+    extended block, levels 1-4 whole, the odd origin (125, 225)): f32
+    bit-equal to the plain band form."""
+    cfg = CEN_CS_PP
+    t = bench_tile(cfg, cuda)
+    hw = cfg.half_wnd
+    wgts = [float(x) for x in scale_weights(cfg.scale_num, cfg.reg_lambda)]
+    prep = cross_scale_cost.prepare_cross_scale(
+        t["imgs"], t["vols"], t["mcs"], wgts, half_wnd=hw,
+        max_dis=cfg.max_dis, gamma=cfg.wgt_gamma, rows_extended=True,
+        cols_extended=True, origin=t["origin"], bounds=t["bounds"])
+    abc = torch.as_tensor(random_planes(2, t["hs"], t["ws"], cfg.max_dis,
+                                        seed=7, wild=False), device=cuda)
+    got = cross_scale_cost.cross_scale_cost_prepared(
+        prep, abc, half_wnd=hw, max_dis=cfg.max_dis, levels=cfg.scale_num)
+    rv, cv = t["valid"]
+    origins = [(hw, hw)] + [t["origin"]] * (cfg.scale_num - 1)
+    want = torch.stack([plane_cost.cross_scale_plane_cost(
+        [im[v] for im in t["imgs"]], [vo[v] for vo in t["vols"]],
+        [mc[v] for mc in t["mcs"]], wgts, abc[v], half_wnd=hw,
+        max_dis=cfg.max_dis, gamma=cfg.wgt_gamma, origins=origins,
+        row_valids=[rv] + [None] * 4, col_valids=[cv] + [None] * 4)
+        for v in range(2)])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("row0,col0,levels", [(7, 9, 3), (13, 5, 4)])
+def test_k4_band_form_odd_origins(cuda, row0, col0, levels):
+    """K4's band form on small tiles at odd origins, a ragged block, with
+    NaN and wild planes, the halo partly past the global image: f32
+    bit-equal to the plain band form (the coarse center is (y + row0) >>
+    s, not (y >> s) + (row0 >> s))."""
+    hw, hs, ws, d = 9, 19, 37, 12
+    h_glob, w_glob = row0 + hs + 11, col0 + ws + 6
+    rng = np.random.default_rng(row0)
+    imgs, vols, mcs, bounds = [], [], [], []
+    md = d
+    for s in range(levels):
+        hl = (((h_glob - 1) >> s) + 1) if s else hs + 2 * hw
+        wl = (((w_glob - 1) >> s) + 1) if s else ws + 2 * hw
+        imgs.append(torch.as_tensor(rng.integers(0, 256, (2, hl, wl, 3),
+                                                 dtype=np.uint8), device=cuda))
+        vols.append(torch.as_tensor(rng.uniform(0, 2, (2, hl, wl, md + 1))
+                                    .astype(np.float32), device=cuda))
+        mcs.append(vols[-1].amax(dim=(1, 2, 3)))
+        bounds.append((-row0, (hl << s) - row0, -col0, (wl << s) - col0)
+                      if s else (-row0, h_glob - row0, -col0, w_glob - col0))
+        md //= 2
+    wgts = [1.0 / levels] * levels
+    prep = cross_scale_cost.prepare_cross_scale(
+        imgs, vols, mcs, wgts, half_wnd=hw, max_dis=d, gamma=10.0,
+        rows_extended=True, cols_extended=True, origin=(row0, col0),
+        bounds=bounds)
+    abc = torch.as_tensor(nan_planes(2, hs, ws, d, seed=row0), device=cuda)
+    got = cross_scale_cost.cross_scale_cost_prepared(prep, abc, half_wnd=hw,
+                                                     max_dis=d, levels=levels)
+    g_row = row0 + torch.arange(-hw, hs + hw, device=cuda)
+    g_col = col0 + torch.arange(-hw, ws + hw, device=cuda)
+    origins = [(hw, hw)] + [(row0, col0)] * (levels - 1)
+    want = torch.stack([plane_cost.cross_scale_plane_cost(
+        [im[v] for im in imgs], [vo[v] for vo in vols],
+        [mc[v] for mc in mcs], wgts, abc[v], half_wnd=hw, max_dis=d,
+        gamma=10.0, origins=origins,
+        row_valids=[(g_row >= 0) & (g_row < h_glob)] + [None] * (levels - 1),
+        col_valids=[(g_col >= 0) & (g_col < w_glob)] + [None] * (levels - 1))
+        for v in range(2)])
+    assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
+
+
+def test_sharded_pipeline_on_the_card(cuda, tmp_path):
+    """run_batch_sharded on a world of one rank on the card (a (1, 1, 1)
+    mesh, the in-process group) launches the band forms and no plain
+    version, and gives finite maps of the right shape."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch, numpy as np\n"
+        "from crossscalepatchmatch_tpu_torch import CSPMConfig\n"
+        "from crossscalepatchmatch_tpu_torch.data import make_pair\n"
+        "from crossscalepatchmatch_tpu_torch.ops import plane_cost, "
+        "prescreen_volume\n"
+        "from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost, "
+        "quadrant_build\n"
+        "from crossscalepatchmatch_tpu_torch.parallel.mesh import "
+        "initialize_multihost\n"
+        "from crossscalepatchmatch_tpu_torch.parallel.tiled import "
+        "run_batch_sharded\n"
+        "mesh = initialize_multihost()\n"
+        "p = make_pair(h=48, w=64, max_dis=12, seed=3)\n"
+        "cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11)\n"
+        "dis = run_batch_sharded(p.left[None], p.right[None], [0], cfg,\n"
+        "                        mesh)\n"
+        "assert dis.shape == (1, 2, 48, 64) and dis.is_cuda\n"
+        "assert window_cost.launches > 0 and quadrant_build.launches == 1\n"
+        "assert plane_cost.launches == prescreen_volume.launches == 0\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=str(__import__("pathlib").Path(
+                             __file__).resolve().parents[1]))
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
