@@ -28,7 +28,8 @@ Phases, each fatal on failure:
      relative of its plain version; every kernel is timed on prepared
      pairs (packing and layout copies outside the timed region);
   each kernel's bound: the larger of its bytes over the HBM rate and its
-  f32 operations, counted on this run's inputs, over the f32 peak; every
+  f32 operations, counted on this run's inputs, over the data sheet's f32
+  peak; every
   plain version is timed on its one comparison call, the kernels with
   CUDA events in turns after a warm-up;
   7. the main paths, each with every launch counter reset just before and
@@ -76,6 +77,27 @@ Phases, each fatal on failure:
      card against the same mesh on the CPU with the same draws; on a world
      of one rank (NCCL) run_sequence_batch and the no-volume data-only
      mesh, each byte-equal to its per-pair run.
+  11. accuracy parity against the native oracle (the port's evaluation
+     module, which tools/torch_eval.py and tools/torch_kitti_anchor.py
+     drive), each run a path of its own for the counters, at bf16 kernel
+     volumes: eval.py's 13-row matrix at 5 seeds a row (the photo rows
+     skipped, and listed, without matplotlib's photograph),
+     exposure_grd_pp again with adopt_mode="exact", the paired use_cs
+     ablation (5 scenes, printed beside the JAX engine's recorded column)
+     and the 256x832 d=96 GRD+PP anchor @3px, each scored against the
+     oracle's cached per-seed scores; fatal: a scored row (but the
+     default-schedule exposure_grd_pp, printed beside the JAX engine's
+     +0.0062 / CI +0.0065) or the anchor with the bootstrap's 95% upper
+     bound on the delta over 0.005, or fewer than the 11 rows without a
+     photo scored; then the port's GRD and CEN volumes (build_volume on
+     the card) against the oracle's cost_volume on a 64x96 d=12 scene
+     (rtol 1e-4), and the f32 ceiling (utils.roofline.measure_f32_peak:
+     csrc/f32_peak.cu, held against its plain version within 1e-5
+     relative on a small input, and every element of its timed launches
+     checked to equal its step count exactly) on a line of its own beside
+     the data sheet's.
+Every bound is counted by utils.roofline (bound, window_samples,
+quadrant_build_samples and the per-sample operation counts).
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 `python3 chip_smoke.py --shard-worker ...` is one rank of phase 10 (the
@@ -107,23 +129,6 @@ BAD_PIXEL_MAX = 0.01
 MANY_KS = (1, 2, 3, 5, 8)
 OTHER_HALF_WND = 8          # a window other than the presets' half_wnd 17
 SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level, card vs CPU
-# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and f32 FLOP/s
-# outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-# f32 operations per window sample of K1 / K4: dq (a*dx and two adds) and
-# the weighted accumulation (a multiply and an add) for every in-image
-# sample; the two-tap lerp ((f+1)-dq, 1-fw, two multiplies, an add) for an
-# in-range one
-FLOPS_IN_IMAGE = 5
-FLOPS_IN_RANGE = 5
-# the fly kernel's in-range sample: K5 adds to the lerp two GRD slice costs
-# (the colour sum's multiply by 1/3, |grad diff| (a subtract and an abs),
-# two mins, two multiplies, an add: 8 each); K6 instead the warp (other_x,
-# fw, 1-fw), four channel lerps (3 each), three |q - lerp| (2 each), their
-# two adds and 1/3, |grad diff| (2) and the mix (5)
-FLY_FLOPS_IN_RANGE = {"cost": FLOPS_IN_RANGE + 16, "image": 3 + 12 + 6 + 3
-                      + 2 + 5}
 # the sharding phase: the bench scene on a (data, ty, tx) = (1, 3, 2) mesh
 # of six gloo ranks on the one card, its band forms checked on the middle
 # tile (ty, tx) = (1, 1): rows [125, 250), columns [225, 450), an odd
@@ -133,6 +138,21 @@ TILE_INDEX = (1, 1)
 MESH_SMALL = (1, 2, 2)
 SHARDED_GAP_MAX = 0.005     # |bad-pixel sharded - one device| @1px
 RANK_TIMEOUT_S = 600
+# phase 11: the oracle volume check's scene (tests/test_oracle_native.py's)
+# and tolerance; the FMA chain's tolerance against its plain version; the
+# JAX engine's recorded accuracy (BASELINE.md: exposure_grd_pp delta / CI95
+# upper, default schedule and adopt_mode="exact"; the use_cs ablation's
+# engine column, ss, cs, delta)
+ORACLE_VOLUME_SHAPE = dict(h=64, w=96, max_dis=12)
+VOLUME_RTOL = 1e-4
+F32_CHAIN_REL_TOL = 1e-5
+JAX_EXPOSURE_DEFAULT = (0.0062, 0.0065)
+JAX_EXPOSURE_EXACT = (0.0039, 0.0046)
+JAX_CS_ABLATION = {"lowtex": (0.0839, 0.0711, -0.0129),
+                   "noisy": (0.0824, 0.0702, -0.0121),
+                   "noisy_lowtex": (0.1505, 0.1305, -0.0199),
+                   "photo": (0.0321, 0.0281, -0.0040),
+                   "clean": (0.0460, 0.0439, -0.0021)}
 
 
 def rel_err(got, want):
@@ -215,63 +235,6 @@ def test_planes(pair, max_dis, k, gen, device):
     return torch.stack(cands, dim=1).contiguous()
 
 
-def axis_count(n, hw, stride, s, origin=0, lo=0, hi=None):
-    """sum over the n fine positions p of the offsets o of range(-hw, hw +
-    1, stride) with lo <= ((p + origin) >> s) + o < hi (hi: the level size
-    ceil(n / 2^s) by default)."""
-    hi = ((n - 1) >> s) + 1 if hi is None else hi
-    return sum(sum(lo <= ((p + origin) >> s) + o < hi
-                   for o in range(-hw, hw + 1, stride)) for p in range(n))
-
-
-def window_samples(abc, levels, half_wnd, max_dis, stride=1, geoms=None):
-    """(in-image, in-range) window samples of K1 / K3 / K4 / K5 on these
-    planes: per level s (`levels` of them, max_dis >> s), every fine
-    pixel's level-s window at the stride; in range means
-    1 <= dq < max_dis_s.  geoms: per level the band form's (origin (oy,
-    ox), valid rectangle (ylo, yhi, xlo, xhi)); the window then centers at
-    ((y + oy) >> s, (x + ox) >> s) and counts inside the rectangle."""
-    import torch
-
-    nv, k, h, w, _ = abc.shape
-    dev = abc.device
-    ys = torch.arange(h, device=dev)[:, None]
-    xs = torch.arange(w, device=dev)[None, :]
-    a, b = abc[..., 0], abc[..., 1]
-    d0 = a * xs.float() + b * ys.float() + abc[..., 2]
-    n_img, n_rng = 0, torch.zeros((), dtype=torch.int64, device=dev)
-    md = max_dis
-    for s in range(levels):
-        (oy, ox), (ylo, yhi, xlo, xhi) = (
-            geoms[s] if geoms else
-            ((0, 0), (0, ((h - 1) >> s) + 1, 0, ((w - 1) >> s) + 1)))
-        cy, cx = (ys + oy) >> s, (xs + ox) >> s
-        d_f = d0 * (1.0 / (1 << s))
-        for dy in range(-half_wnd, half_wnd + 1, stride):
-            y_ok = (cy + dy >= ylo) & (cy + dy < yhi)
-            for dx in range(-half_wnd, half_wnd + 1, stride):
-                ok = y_ok & (cx + dx >= xlo) & (cx + dx < xhi)
-                dq = d_f + a * dx + b * dy
-                n_rng += ((dq >= 1.0) & (dq < float(md)) & ok).sum()
-        n_img += nv * k * (axis_count(h, half_wnd, stride, s, oy, ylo, yhi)
-                           * axis_count(w, half_wnd, stride, s, ox, xlo,
-                                        xhi))
-        md //= 2
-    return n_img, int(n_rng)
-
-
-def bound(bytes_, flops):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
-    operations over the f32 peak."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def reset_counts():
     """Every kernel's and plain version's launch counter to 0."""
     from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost,
@@ -326,6 +289,144 @@ def check_close(name, got, want):
     if rl > F32_REL_TOL:
         raise RuntimeError(f"{name}: f32 rel error {rl} > {F32_REL_TOL}")
     return ab, rl
+
+
+def phase11(dev, card, paths, check_counts):
+    """The port's accuracy scoring on the card (evaluation, the scoring of
+    tools/torch_eval.py and tools/torch_kitti_anchor.py), each run a path of
+    its own for the launch counters: eval.py's 13-row matrix at 5 seeds a
+    row, exposure_grd_pp again under adopt_mode="exact", the paired use_cs
+    ablation and the 256x832 d=96 anchor, all at bf16 kernel volumes
+    against the oracle's cached scores; the port's GRD and CEN volumes on
+    the card against the oracle's cost_volume; the f32 ceiling.  Raises on a
+    scored row (but the default-schedule exposure_grd_pp) or the anchor
+    over the bound on the bootstrap's upper end, fewer than the rows
+    without a photo scored, or a volume off the oracle's."""
+    import numpy as np
+    import torch
+
+    from crossscalepatchmatch_tpu_torch import CostMethod, CSPMConfig
+    from crossscalepatchmatch_tpu_torch import evaluation as ev
+    from crossscalepatchmatch_tpu_torch import oracle
+    from crossscalepatchmatch_tpu_torch.data import make_pair
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
+    from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume
+    from crossscalepatchmatch_tpu_torch.ops.cuda import f32_peak
+    from crossscalepatchmatch_tpu_torch.utils.roofline import (
+        F32_FLOP_PER_S, measure_f32_peak)
+
+    t0 = time.perf_counter()
+    engine = ev.engine_on(dev)
+    scores = ev.OracleScores()
+
+    def scored(name, kernels, run):
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        paths[name] = read_counts()
+        check_counts(name, paths[name], kernels)
+        return res
+
+    matrix = scored("eval matrix", ("k1", "k2", "k4"),
+                    lambda: ev.run_matrix(engine, scores))
+    exposure = next(c for c in ev.CONFIGS if c[0] == "exposure_grd_pp")
+    exact = scored("eval exposure exact", ("k1", "k2"), lambda: ev.run_matrix(
+        engine, scores, [exposure], engine_kw=dict(adopt_mode="exact")))
+    ablation = scored("CS ablation", ("k1", "k2", "k4"),
+                      lambda: ev.run_cs_ablation(engine, scores))
+    anchor = scored("anchor", ("k1", "k2"),
+                    lambda: ev.run_anchor(engine, scores))
+    for r in matrix["rows"] + exact["rows"]:
+        print(f"eval {r['config']}: port {r['bad_engine']:.4f} oracle "
+              f"{r['bad_oracle']:.4f} delta {r['delta']:+.4f} CI95 upper "
+              f"{r['delta_ci95_hi']:+.4f} {r['ms_pair']:.1f} ms/pair; per "
+              f"seed {[round(b, 4) for b in r['engine_bads']]}")
+    by_name = {r["config"]: r for r in matrix["rows"]}
+    ex_row, ex_exact = by_name.get("exposure_grd_pp"), exact["rows"][0]
+    if ex_row:
+        print(f"eval exposure_grd_pp, default schedule (printed, not "
+              f"gated): delta {ex_row['delta']:+.4f} CI95 upper "
+              f"{ex_row['delta_ci95_hi']:+.4f} beside the JAX engine's "
+              f"recorded {JAX_EXPOSURE_DEFAULT[0]:+.4f} / CI "
+              f"{JAX_EXPOSURE_DEFAULT[1]:+.4f}; adopt_mode=\"exact\" "
+              f"{ex_exact['delta']:+.4f} / CI {ex_exact['delta_ci95_hi']:+.4f}"
+              f" (JAX {JAX_EXPOSURE_EXACT[0]:+.4f} / CI "
+              f"{JAX_EXPOSURE_EXACT[1]:+.4f})")
+    for row in ablation["rows"]:
+        e, o = row["engine"], row["oracle"]
+        j = JAX_CS_ABLATION.get(row["scene"])
+        print(f"CS ablation {row['scene']}: port ss {e['ss']:.4f} cs "
+              f"{e['cs']:.4f} delta {e['delta']:+.4f} {e['delta_ci95']}; "
+              f"oracle delta {o['delta']:+.4f} {o['delta_ci95']}"
+              + (f"; JAX engine {j[0]:.4f} -> {j[1]:.4f} delta {j[2]:+.4f}"
+                 if j else ""))
+    if anchor is None:
+        raise RuntimeError("anchor: no cached oracle scores")
+    print(f"anchor {anchor['scene']} @3px: port {anchor['bad_engine']:.4f} "
+          f"(per seed {[round(b, 4) for b in anchor['engine_bads']]}) "
+          f"oracle {anchor['bad_oracle']:.4f} delta {anchor['delta']:+.4f} "
+          f"CI95 upper {anchor['delta_ci95_hi']:+.4f} "
+          f"{anchor['ms_pair']:.1f} ms/pair")
+    for name, res in (("eval", {"matrix": matrix, "exposure_exact": exact}),
+                      ("CS ablation", ablation), ("anchor", anchor)):
+        print(f"{name} JSON: {json.dumps(res)}")
+
+    # the port's volumes (build_volume on the card) against the oracle's
+    vpair = make_pair(**ORACLE_VOLUME_SHAPE, seed=11)
+    vl = bgr_to_rgb(torch.as_tensor(vpair.left, device=dev))
+    vr = bgr_to_rgb(torch.as_tensor(vpair.right, device=dev))
+    md = ORACLE_VOLUME_SHAPE["max_dis"]
+    vol_ok = True
+    for cc in ("GRD", "CEN"):
+        vcfg = CSPMConfig(max_dis=md, dis_scale=16,
+                          cost_method=CostMethod[cc])
+        for right in (False, True):
+            want = oracle.cost_volume(vpair.left, vpair.right, max_dis=md,
+                                      cc_name=cc, right=right)
+            got = np.moveaxis(build_volume(vl, vr, md, vcfg, right).double()
+                              .cpu().numpy(), -1, 0)
+            ok = got.shape == want.shape and np.allclose(
+                got, want, rtol=VOLUME_RTOL, atol=VOLUME_RTOL)
+            err = float(np.abs(got - want).max()) if ok else float("nan")
+            print(f"volume {cc} {'right' if right else 'left'} "
+                  f"{tuple(want.shape)} card vs oracle: max|d| {err:.3e} "
+                  f"within rtol {VOLUME_RTOL}: {ok}")
+            vol_ok &= ok
+
+    # the f32 ceiling: the FMA-chain kernel against its plain version, then
+    # timed (measure_f32_peak raises unless every element of the timed
+    # launches equals its step count)
+    x = torch.rand(4 * f32_peak.BLOCK_ELEMS, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    chain_err = 0.0
+    for m, c, iters in ((1.0, 1.0, 8), (0.75, 0.5, 8), (0.9999999, 1e-7, 64)):
+        want = f32_peak.fma_chain_plain(x, iters, m, c)
+        _, rl = rel_err(f32_peak.fma_chain(x, iters, m, c), want)
+        chain_err = max(chain_err, rl)
+    peak = measure_f32_peak(dev)
+    print(f"f32 ceiling: kernel vs plain max rel {chain_err:.3e}")
+    print(json.dumps({"f32_ceiling": {
+        "flop_per_s": peak, "data_sheet_flop_per_s": F32_FLOP_PER_S,
+        "share_of_data_sheet": peak / F32_FLOP_PER_S,
+        "kernel_vs_plain_max_rel": chain_err,
+        "source": "crossscalepatchmatch_tpu_torch/csrc/f32_peak.cu",
+        "card": card}}))
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+    photo_free = [c[0] for c in ev.CONFIGS if not c[8].get("photo")]
+    missing = [n for n in photo_free if n not in by_name]
+    over = [r["config"] for r in matrix["rows"]
+            if r["config"] != "exposure_grd_pp" and not r["within_bound"]]
+    if not ex_exact["within_bound"]:
+        over.append("exposure_grd_pp (adopt_mode=exact)")
+    if not anchor["within_bound"]:
+        over.append("anchor")
+    print(f"phase 11: {len(by_name)} rows scored, skipped "
+          f"{matrix['skipped']}; over the bound: {over}")
+    if missing or over or not vol_ok or chain_err > F32_CHAIN_REL_TOL:
+        raise RuntimeError(f"phase 11: rows not scored {missing}, over the "
+                           f"bound {over}, volumes agree {vol_ok}, FMA "
+                           f"chain rel error {chain_err}")
 
 
 def shard_worker(argv) -> int:
@@ -488,6 +589,9 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
         scale_weights)
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
+    from crossscalepatchmatch_tpu_torch.utils.roofline import (
+        FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE, bound, nbytes,
+        quadrant_build_samples, window_samples)
 
     pkg = "crossscalepatchmatch_tpu_torch"
     dev = torch.device("cuda:0")
@@ -611,14 +715,8 @@ def main() -> int:
               f"{rl_bf:.3e}")
         # every in-image offset of a quadrant adds w * vol[q, :] (2 flops
         # per slice) and w to the weight sum
-        neg, pos = prescreen_volume.quadrant_offsets(hw, stride)
         _, kh, kw_, d = k2_vols.shape
-
-        def axis_samples(n, offs):
-            return sum(sum(0 <= i + o < n for o in offs) for i in range(n))
-
-        samples = 2 * sum(axis_samples(kh, oy) * axis_samples(kw_, ox)
-                          for oy in (neg, pos) for ox in (neg, pos))
+        samples = quadrant_build_samples(kh, kw_, hw, stride)
         b_ms, b_by = bound(nbytes(k2_imgs, k2_bf16) + out_bytes,
                            samples * (2 * d + 1))
         print(f"{name}: D={d}, {samples} in-image samples; bound "
@@ -1361,16 +1459,8 @@ def main() -> int:
     del want_b, want_w, got_b, got_w
     t = time_turns({"f32": lambda: k2_band("f32"),
                     "bf16": lambda: k2_band("bf16")}, {"f32": 10, "bf16": 10})
-    neg, pos = prescreen_volume.quadrant_offsets(hw, stride)
-    (oy, ox), (ylo, yhi, xlo, xhi) = bt["origins"][0], bt["rects"][0]
-
-    def band_axis(n, origin, lo, hi, offs):
-        return sum(sum(lo <= p + origin + o < hi for o in offs)
-                   for p in range(n))
-
-    samples = 2 * sum(band_axis(ths, oy, ylo, yhi, oy_)
-                      * band_axis(tws, ox, xlo, xhi, ox_)
-                      for oy_ in (neg, pos) for ox_ in (neg, pos))
+    samples = quadrant_build_samples(ths, tws, hw, stride, bt["origins"][0],
+                                     bt["rects"][0])
     b_ms, b_by = bound(nbytes(b_imgs, b_bf16) + out_bytes,
                        samples * (2 * (md + 1) + 1))
     print(f"K2 band form (tile {ths}x{tws}): plain {plain_ms:.3f} ms | kernel "
@@ -1544,6 +1634,9 @@ def main() -> int:
                                "its per-pair run")
     finally:
         dist.destroy_process_group()
+
+    # -- 11. accuracy parity against the native oracle ------------------------
+    phase11(dev, card, paths, check_counts)
 
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
 

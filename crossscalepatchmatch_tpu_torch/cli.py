@@ -20,7 +20,6 @@ message (main(argv, device=...) takes another device, as the tests do).
 from __future__ import annotations
 
 import argparse
-import os
 import shlex
 import sys
 import time
@@ -172,6 +171,7 @@ def _run_one(args, device) -> int:
         import torch
 
         from .models.pipeline import run_pair_np
+        from .utils.profiling import trace
 
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -181,19 +181,7 @@ def _run_one(args, device) -> int:
             return 1
         cfg = config_from_args(args)
         t0 = time.perf_counter()
-        if args.profile_dir:
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU]
-            if dev.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            with profile(activities=acts) as prof:
-                out = run_pair_np(l_bgr, r_bgr, cfg, seed=args.seed,
-                                  device=dev)
-            os.makedirs(args.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                                  "trace.json"))
-        else:
+        with trace(args.profile_dir):
             out = run_pair_np(l_bgr, r_bgr, cfg, seed=args.seed, device=dev)
         dis = out["dis"]
     dt = time.perf_counter() - t0

@@ -1022,3 +1022,39 @@ def test_sharded_pipeline_on_the_card(cuda, tmp_path):
                          cwd=str(__import__("pathlib").Path(
                              __file__).resolve().parents[1]))
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.mark.parametrize("m,c,iters", [(1.0, 1.0, 8), (0.75, 0.5, 8),
+                                       (0.9999999, 1e-7, 64)])
+def test_f32_peak_chain(cuda, m, c, iters):
+    """The f32 ceiling's FMA-chain kernel (csrc/f32_peak.cu) against its
+    plain version on the card, within 1e-5 relative (m = c = 1 on integers
+    is exact: every element gains one a step)."""
+    from crossscalepatchmatch_tpu_torch.ops.cuda import f32_peak
+
+    x = torch.rand(4 * f32_peak.BLOCK_ELEMS, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(0))
+    n = f32_peak.launches
+    got = f32_peak.fma_chain(x, iters, m, c)
+    want = f32_peak.fma_chain_plain(x, iters, m, c)
+    assert f32_peak.launches == n + 1
+    err = ((got.double() - want.double()).abs()
+           / want.double().abs().clamp(min=1.0)).max().item()
+    assert err <= 1e-5, err
+    if (m, c) == (1.0, 1.0):
+        xi = torch.floor(x * 1000)
+        assert torch.equal(f32_peak.fma_chain(xi, iters, m, c),
+                           xi + iters * f32_peak.UNROLL)
+    with pytest.raises(ValueError):
+        f32_peak.fma_chain(x[:100], 1, m, c)
+
+
+def test_f32_ceiling(cuda):
+    """The measured f32 ceiling is positive and under 1.05x the H100 data
+    sheet's 67 TFLOP/s (measure_f32_peak itself raises unless every element
+    of its timed launches equals its step count)."""
+    from crossscalepatchmatch_tpu_torch.utils.roofline import (
+        F32_FLOP_PER_S, measure_f32_peak)
+
+    peak = measure_f32_peak(cuda)
+    assert 0 < peak < 1.05 * F32_FLOP_PER_S, peak

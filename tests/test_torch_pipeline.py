@@ -110,17 +110,27 @@ def test_run_pairs_is_a_loop_over_run_pair():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke, import without jax and
-    without any module of the JAX package; no source of the port, nor
-    chip_smoke.py, names the JAX package in an import statement (imports
-    inside chip_smoke.main() never run here)."""
+    """Every module of the port, chip_smoke and the port's tools
+    (tools/torch_eval.py, tools/torch_kitti_anchor.py) import without jax
+    and without any module of the JAX package; no source of the port, nor
+    chip_smoke.py nor those tools, names the JAX package in an import
+    statement (imports inside chip_smoke.main() never run here)."""
     code = (
-        "import importlib, json, pkgutil, sys\n"
+        "import importlib, importlib.util, json, pkgutil, sys\n"
         "import crossscalepatchmatch_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "for t in ('torch_eval', 'torch_kitti_anchor'):\n"
+        "    spec = importlib.util.spec_from_file_location(t, "
+        "'tools/' + t + '.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    try:\n"
+        "        mod.main(['--help'])\n"
+        "    except SystemExit:\n"
+        "        pass\n"
         "ref = [k for k in sys.modules if k == 'crossscalepatchmatch_tpu' "
         "or k.startswith('crossscalepatchmatch_tpu.')]\n"
         "print(json.dumps([len(names), 'jax' in sys.modules, "
@@ -136,7 +146,9 @@ def test_port_imports_no_jax():
     pkg = os.path.join(REPO, "crossscalepatchmatch_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
              for f in fs if f.endswith(".py")]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "tools", "torch_eval.py"),
+              os.path.join(REPO, "tools", "torch_kitti_anchor.py")]
     assert len(files) >= 20
     bad = []
     for path in files:

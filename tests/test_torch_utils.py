@@ -1,0 +1,280 @@
+"""The port's utils/ (profiling, roofline, debug) against the JAX package's,
+on the CPU.
+
+roofline.count_plane_cost_work must give the JAX launch model's dict for
+every config, and the port's optimizer must launch what it counts;
+pipeline_flops' semantic count is the JAX formula; the card's bound helpers
+(moved out of chip_smoke.py) keep the values they gave there.  debug's
+functions give the same text, dicts and pixels as JAX's.
+"""
+
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from crossscalepatchmatch_tpu import config as jconfig
+from crossscalepatchmatch_tpu.utils import debug as jdebug
+from crossscalepatchmatch_tpu.utils import profiling as jprofiling
+from crossscalepatchmatch_tpu.utils import roofline as jroofline
+from crossscalepatchmatch_tpu_torch import config as tconfig
+from crossscalepatchmatch_tpu_torch.data import make_pair
+from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair_np
+from crossscalepatchmatch_tpu_torch.ops import plane_cost
+from crossscalepatchmatch_tpu_torch.ops.cuda import f32_peak
+from crossscalepatchmatch_tpu_torch.utils import debug, profiling, roofline
+
+SCHEDULES = {
+    "default": {},
+    "exact": dict(adopt_mode="exact"),
+    "merge_view": dict(merge_view=True),
+    "no_sweeps": dict(prop_sweeps=0),
+    "sequential_refine": dict(batch_refine=False),
+    "window_prescreen": dict(prescreen_mode="window"),
+    "cross_scale": dict(use_cs=True, scale_num=3, reg_lambda=0.3),
+    "no_far_rings": dict(far_offsets=()),
+    "no_prescreen": dict(adopt_mode="exact", prescreen_stride=1),
+    "cross_scale_window": dict(use_cs=True, prescreen_mode="window"),
+    "rank_only": dict(adopt_mode="rank", refine_stages=1),
+}
+
+
+def both(**kw):
+    return jconfig.CSPMConfig(**kw), tconfig.CSPMConfig(**kw)
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+def test_count_plane_cost_work_matches_jax(name):
+    jcfg, tcfg = both(**SCHEDULES[name])
+    assert roofline.count_plane_cost_work(tcfg) == \
+        jroofline.count_plane_cost_work(jcfg)
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+def test_semantic_flops_match_jax(name):
+    jcfg, tcfg = both(**SCHEDULES[name])
+    got = roofline.pipeline_flops(tcfg, 375, 450)
+    want = jroofline.pipeline_flops(jcfg, 375, 450)
+    assert set(got) == set(want)
+    assert got["semantic_flops"] == want["semantic_flops"]
+    assert got["transcendentals"] == want["transcendentals"]
+    assert got["executed"] > 0 and got["hbm_bytes"] > 0
+
+
+def test_executed_counts_follow_the_schedule_and_the_volume_type():
+    """More exact launches execute more; bf16 kernel volumes read half the
+    f32 pair-layout bytes; the executed count of the default schedule is
+    its window samples (exact border counts) plus the ranking and K2."""
+    cfg = tconfig.CSPMConfig()
+    dflt = roofline.pipeline_flops(cfg, 375, 450)
+    exact = roofline.pipeline_flops(tconfig.CSPMConfig(adopt_mode="exact"),
+                                    375, 450)
+    f32 = roofline.pipeline_flops(tconfig.CSPMConfig(vol_dtype="f32"),
+                                  375, 450)
+    assert exact["executed"] > dflt["executed"]
+    assert f32["hbm_bytes"] > dflt["hbm_bytes"]
+    assert f32["executed"] == dflt["executed"]
+    c = roofline.count_plane_cost_work(cfg)
+    hw, d = cfg.half_wnd, cfg.max_dis + 1
+    window = 2 * roofline.axis_count(375, hw, 1, 0) * roofline.axis_count(
+        450, hw, 1, 0)
+    k_total = 11          # the launches' candidates (JAX test_roofline)
+    want = (k_total * window * (roofline.FLOPS_IN_IMAGE
+                                + roofline.FLOPS_IN_RANGE)
+            + c["rank_cands"] * 375 * 450 * 2 * (
+                roofline.RANK_FLOPS_CENTER
+                + 4 * roofline.RANK_FLOPS_PER_QUADRANT)
+            + roofline.quadrant_build_samples(375, 450, hw, 2) * (2 * d + 1))
+    assert dflt["executed"] == want
+    assert dflt["kernel_launches"] == c["launches"] + 1
+
+
+@pytest.mark.parametrize("name", ["default", "exact", "merge_view",
+                                  "no_sweeps", "window_prescreen",
+                                  "cross_scale"])
+def test_port_launches_what_the_model_counts(name):
+    """A 32x48 CPU run of the port: one plain window-cost call (cross-scale
+    or single-scale, window prescreen included) per view and launch of
+    the model."""
+    kw = dict(SCHEDULES[name])
+    if kw.get("use_cs"):
+        kw["scale_num"] = 2
+    cfg = tconfig.CSPMConfig(max_dis=8, dis_scale=16, wnd_size=7, **kw)
+    pair = make_pair(h=32, w=48, max_dis=8, seed=1)
+    plane_cost.launches = plane_cost.cross_scale_launches = 0
+    run_pair_np(pair.left, pair.right, cfg, device="cpu")
+    plain = (plane_cost.cross_scale_launches if cfg.use_cs
+             else plane_cost.launches)
+    assert plain == 2 * roofline.count_plane_cost_work(cfg)["launches"]
+
+
+def pinned_planes():
+    rng = np.random.default_rng(5)
+    return torch.as_tensor(np.stack([
+        rng.uniform(-0.3, 0.3, (2, 2, 9, 13)),
+        rng.uniform(-0.3, 0.3, (2, 2, 9, 13)),
+        rng.uniform(-2, 14, (2, 2, 9, 13))], -1).astype(np.float32))
+
+
+def test_bound_helpers_keep_their_values():
+    """The values chip_smoke.py's own copies gave before they moved here."""
+    assert [roofline.axis_count(13, 3, 1, 0), roofline.axis_count(13, 3, 2, 0),
+            roofline.axis_count(13, 3, 1, 1),
+            roofline.axis_count(9, 2, 1, 2, 1, 0, 3),
+            roofline.axis_count(375, 17, 1, 0),
+            roofline.axis_count(1242, 17, 2, 0)] == \
+        [79, 44, 70, 27, 12819, 22194]
+    abc = pinned_planes()
+    assert roofline.window_samples(abc, 1, 3, 12) == (16116, 11235)
+    assert roofline.window_samples(abc, 1, 3, 12, 2) == (4928, 3438)
+    assert roofline.window_samples(abc, 3, 2, 12) == (21980, 13946)
+    assert roofline.window_samples(
+        abc, 2, 2, 12, 1, [((2, 3), (0, 5, 1, 7)),
+                           ((2, 3), (0, 3, 0, 4))]) == (2928, 1930)
+    assert roofline.bound(1e6, 1e6) == (1e6 / 3.35e12 * 1e3, "bytes")
+    assert roofline.bound(1e6, 1e9) == (1e9 / 67e12 * 1e3, "operations")
+    assert roofline.bound(12345678, 3.3e9)[1] == "operations"
+    assert roofline.nbytes(abc, torch.zeros(3, 5, dtype=torch.bfloat16)) \
+        == 5646
+
+
+def test_quadrant_build_samples():
+    """K2's in-image samples, counted directly over the offsets; the band
+    form at origin 0 over the whole image is the plain count."""
+    h, w, hw, s = 11, 14, 4, 2
+    neg, pos = list(range(-hw, 0, s)), list(range(0, hw + 1, s))
+    want = 2 * sum(
+        1 for offs_y in (neg, pos) for offs_x in (neg, pos)
+        for y in range(h) for x in range(w) for oy in offs_y for ox in offs_x
+        if 0 <= y + oy < h and 0 <= x + ox < w)
+    assert roofline.quadrant_build_samples(h, w, hw, s) == want
+    assert roofline.quadrant_build_samples(h, w, hw, s, (0, 0),
+                                           (0, h, 0, w)) == want
+    assert roofline.quadrant_build_samples(h, w, hw, s, (2, 3),
+                                           (0, h + 4, 0, w + 6)) > want
+
+
+def test_fma_chain_plain_and_no_cpu_ceiling():
+    """On the CPU the chain is its plain version: with m = c = 1 every
+    element gains exactly one per step; measure_f32_peak has no CPU
+    figure."""
+    x = torch.arange(f32_peak.BLOCK_ELEMS, dtype=torch.float32)
+    n = f32_peak.launches
+    out = f32_peak.fma_chain(x, 3, 1.0, 1.0)
+    assert torch.equal(out, x + 3 * f32_peak.UNROLL)
+    assert f32_peak.launches == n
+    got = f32_peak.fma_chain(x[:8], 2, 0.5, 1.0)
+    want = x[:8].double()
+    for _ in range(2 * f32_peak.UNROLL):
+        want = want * 0.5 + 1.0
+    assert torch.allclose(got.double(), want, rtol=1e-6)
+    with pytest.raises(RuntimeError):
+        roofline.measure_f32_peak("cpu")
+
+
+def test_phase_timer():
+    """JAX tests/test_profiling.py's checks, with a holder carrying a dict
+    of tensors as run_pair returns."""
+    t = profiling.PhaseTimer()
+    with t.phase("a") as h:
+        h.append({"dis": torch.arange(10).sum(), "x": [torch.ones(2)]})
+    with t.phase("a") as h:
+        h.append(torch.arange(5).sum())
+    with t.phase("b", sync=False):
+        pass
+    with t.phase("c"):
+        pass
+    assert t.counts["a"] == 2 and t.counts["b"] == 1 and t.counts["c"] == 1
+    rep = t.report()
+    assert "a" in rep and "%" in rep
+    assert set(t.as_dict()) == {"a", "b", "c"}
+    jt = jprofiling.PhaseTimer()
+    with jt.phase("a"):
+        pass
+    assert rep.splitlines()[0] == jt.report().splitlines()[0]
+
+
+def test_throughput():
+    m = profiling.throughput(10, 2.0, n_chips=4)
+    assert m == jprofiling.throughput(10, 2.0, n_chips=4)
+    assert m["pairs_per_s"] == 5.0 and m["pairs_per_s_per_chip"] == 1.25
+    assert profiling.throughput(3, 0.0, n_chips=1)["pairs_per_s"] == 0.0
+    # no card here: one device
+    assert profiling.throughput(10, 2.0)["n_chips"] == 1
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    with profiling.trace(None):
+        torch.ones(3).sum()
+    d = tmp_path / "prof"
+    with profiling.trace(str(d)):
+        torch.ones(64, 64).matmul(torch.ones(64, 64))
+    path = d / "trace.json"
+    assert path.exists() and path.stat().st_size > 0
+    assert "traceEvents" in path.read_text()
+
+
+def debug_out(h=8, w=10):
+    return {
+        "abc": np.random.default_rng(0).normal(size=(2, h, w, 3)).astype(
+            np.float32),
+        "cost": np.random.default_rng(1).random((2, h, w)).astype(
+            np.float32),
+        "dis": (np.random.default_rng(2).random((2, h, w)) * 60).astype(
+            np.uint8),
+        "valid": np.random.default_rng(3).random((2, h, w)) < 0.8,
+    }
+
+
+@pytest.mark.parametrize("max_val", [None, 60, 255])
+def test_disparity_to_color_matches_jax(max_val):
+    dis = np.random.default_rng(7).integers(0, 256, (2, 17, 23),
+                                            dtype=np.uint8)
+    for v in range(2):
+        want = jdebug.disparity_to_color(dis[v], max_val)
+        got = debug.disparity_to_color(dis[v], max_val)
+        assert got.dtype == np.uint8 and got.tobytes() == want.tobytes()
+        assert debug.disparity_to_color(torch.as_tensor(dis[v]),
+                                        max_val).tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_pixel_info_and_print_array_match_jax(as_tensor):
+    out = debug_out()
+    port_out = ({k: torch.as_tensor(v) for k, v in out.items()}
+                if as_tensor else out)
+    for x, y, scale in ((3, 4, 1), (9, 7, 4)):
+        want_txt, got_txt = io.StringIO(), io.StringIO()
+        want = jdebug.pixel_info(out, x, y, scale, file=want_txt)
+        got = debug.pixel_info(port_out, x, y, scale, file=got_txt)
+        assert got == want and got_txt.getvalue() == want_txt.getvalue()
+    no_valid = {k: v for k, v in out.items() if k != "valid"}
+    want_txt, got_txt = io.StringIO(), io.StringIO()
+    assert debug.pixel_info(no_valid, 1, 2, file=got_txt) == \
+        jdebug.pixel_info(no_valid, 1, 2, file=want_txt)
+    assert got_txt.getvalue() == want_txt.getvalue()
+    for name, arr in (("cost", out["cost"]), ("abc", out["abc"][0, :2])):
+        want_txt, got_txt = io.StringIO(), io.StringIO()
+        jdebug.print_array(name, arr, file=want_txt)
+        debug.print_array(name, torch.as_tensor(arr) if as_tensor else arr,
+                          file=got_txt)
+        assert got_txt.getvalue() == want_txt.getvalue()
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_save_debug_dumps_match_jax(tmp_path, as_tensor):
+    out = debug_out()
+    port_out = ({k: torch.as_tensor(v) for k, v in out.items()}
+                if as_tensor else out)
+    want = jdebug.save_debug_dumps(out, str(tmp_path / "jax"))
+    got = debug.save_debug_dumps(port_out, str(tmp_path / "port"))
+    assert len(got) == 6
+    assert [os.path.basename(p)[len("port"):] for p in got] == \
+        [os.path.basename(p)[len("jax"):] for p in want]
+    for g, w in zip(got, want):
+        a, b = Image.open(g), Image.open(w)
+        assert a.mode == b.mode
+        assert np.array_equal(np.asarray(a), np.asarray(b))
