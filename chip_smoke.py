@@ -96,6 +96,10 @@ Phases, each fatal on failure:
      relative on a small input, and every element of its timed launches
      checked to equal its step count exactly) on a line of its own beside
      the data sheet's.
+  12. the benchmark's readme_demo cell (bench_torch.run_cell, in process,
+     5 timed pairs; a path of its own for the counters): its record must
+     make bench_torch's result line (bench.py's keys), every pair within
+     its bad-pixel gate; its ms/pair printed.
 Every bound is counted by utils.roofline (bound, window_samples,
 quadrant_build_samples and the per-sample operation counts).
 The line before the last is the kernels' JSON record, the last line the
@@ -1637,6 +1641,32 @@ def main() -> int:
 
     # -- 11. accuracy parity against the native oracle ------------------------
     phase11(dev, card, paths, check_counts)
+
+    # -- 12. the benchmark's readme_demo cell ---------------------------------
+    import bench_torch
+
+    cell = bench_torch.CELLS[0]
+    reset_counts()
+    res = bench_torch.run_cell(cell, dev, pairs=5)
+    torch.cuda.synchronize()
+    paths["bench readme_demo"] = read_counts()
+    check_counts("bench readme_demo", paths["bench readme_demo"],
+                 ("k1", "k2"))
+    line = json.loads(json.dumps(bench_torch.result_line(
+        {cell.name: res}, bench_torch.describe_device(dev))))
+    keys = ("metric", "value", "unit", "vs_baseline")
+    if (any(k not in line for k in keys)
+            or line["metric"] != "stereo_pairs_per_second_per_chip"
+            or not line["value"] > 0
+            or line["cells"][cell.name]["bad_pixel"]["max"] > cell.gate):
+        raise RuntimeError(f"phase 12: bad result line {line}")
+    q = res["ms_pair"]
+    print(f"phase 12: bench {cell.name} {q['median']:.1f} ms/pair "
+          f"(quartiles {q['q1']:.1f} / {q['q3']:.1f}, 5 pairs), "
+          f"{line['value']:.3f} pairs/s, vs_baseline "
+          f"{line['vs_baseline']:.1f}, bad-pixel @1px max "
+          f"{res['bad_pixel']['max']:.4f}, idle share "
+          f"{res['profile']['idle_share']:.3f}")
 
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
 

@@ -110,10 +110,11 @@ def test_run_pairs_is_a_loop_over_run_pair():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke and the port's tools
-    (tools/torch_eval.py, tools/torch_kitti_anchor.py) import without jax
-    and without any module of the JAX package; no source of the port, nor
-    chip_smoke.py nor those tools, names the JAX package in an import
+    """Every module of the port, chip_smoke, bench_torch and the port's
+    tools (tools/torch_eval.py, tools/torch_kitti_anchor.py) import without
+    jax and without any module of the JAX package; no source of the port,
+    nor chip_smoke.py, bench_torch.py nor those tools and
+    tools/torch_profile_pair.py, names the JAX package in an import
     statement (imports inside chip_smoke.main() never run here)."""
     code = (
         "import importlib, importlib.util, json, pkgutil, sys\n"
@@ -121,7 +122,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_torch\n"
         "for t in ('torch_eval', 'torch_kitti_anchor'):\n"
         "    spec = importlib.util.spec_from_file_location(t, "
         "'tools/' + t + '.py')\n"
@@ -148,7 +149,9 @@ def test_port_imports_no_jax():
              for f in fs if f.endswith(".py")]
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "tools", "torch_eval.py"),
-              os.path.join(REPO, "tools", "torch_kitti_anchor.py")]
+              os.path.join(REPO, "tools", "torch_kitti_anchor.py"),
+              os.path.join(REPO, "bench_torch.py"),
+              os.path.join(REPO, "tools", "torch_profile_pair.py")]
     assert len(files) >= 20
     bad = []
     for path in files:
