@@ -100,6 +100,19 @@ Phases, each fatal on failure:
      5 timed pairs; a path of its own for the counters): its record must
      make bench_torch's result line (bench.py's keys), every pair within
      its bad-pixel gate; its ms/pair printed.
+  13. the scaling bench (bench_scaling_torch.py, 384x448 d=60 wnd 35).
+     First the band forms of K1 (K = 1, 2) and K2, bit-equal in f32 to
+     their plain band forms on the bench's tiles (the whole image of the
+     (1, 1, 1) mesh, both row bands of the (1, 2, 1) mesh: rows extended,
+     columns not), the same inputs on the card for both sides.  Then the
+     bench, 3 timed calls a mesh, in subprocesses under torchrun: one
+     rank (NCCL, mesh ty=1) and two ranks sharing the card (gloo, meshes
+     ty=1 over rank 0 and ty=2); each must exit 0 and print one JSON
+     line per mesh with bench_scaling.py's keys, every call within its
+     bad-pixel gate, the efficiency value / (value at n = 1 * n), and the
+     band forms of K1 and K2 launched and no plain version (each run's
+     meshes are paths of their own for the counters: the bench reads the
+     counters around its timed calls on every rank); the lines printed.
 Every bound is counted by utils.roofline (bound, window_samples,
 quadrant_build_samples and the per-sample operation counts).
 The line before the last is the kernels' JSON record, the last line the
@@ -113,6 +126,7 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -142,6 +156,9 @@ TILE_INDEX = (1, 1)
 MESH_SMALL = (1, 2, 2)
 SHARDED_GAP_MAX = 0.005     # |bad-pixel sharded - one device| @1px
 RANK_TIMEOUT_S = 600
+# phase 13: bench_scaling_torch.py's runs, (ranks, backend, meshes)
+SCALING_RUNS = ((1, "nccl", ["ty=1"]), (2, "gloo", ["ty=1", "ty=2"]))
+SCALING_REPS = 3
 # phase 11: the oracle volume check's scene (tests/test_oracle_native.py's)
 # and tolerance; the FMA chain's tolerance against its plain version; the
 # JAX engine's recorded accuracy (BASELINE.md: exposure_grd_pp delta / CI95
@@ -239,48 +256,6 @@ def test_planes(pair, max_dis, k, gen, device):
     return torch.stack(cands, dim=1).contiguous()
 
 
-def reset_counts():
-    """Every kernel's and plain version's launch counter to 0."""
-    from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost,
-                                                    plane_cost,
-                                                    prescreen_volume)
-    from crossscalepatchmatch_tpu_torch.ops.cuda import (cross_scale_cost,
-                                                         fly_cost,
-                                                         quadrant_build,
-                                                         window_cost)
-
-    window_cost.launches = window_cost.strided_launches = 0
-    quadrant_build.launches = cross_scale_cost.launches = 0
-    fly_cost.launches.clear()
-    plane_cost.launches = prescreen_volume.launches = 0
-    plane_cost.cross_scale_launches = onthefly_cost.launches = 0
-
-
-def read_counts():
-    """The launch counters, by kernel (plain versions: *_plain)."""
-    from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost,
-                                                    plane_cost,
-                                                    prescreen_volume)
-    from crossscalepatchmatch_tpu_torch.ops.cuda import (cross_scale_cost,
-                                                         fly_cost,
-                                                         quadrant_build,
-                                                         window_cost)
-
-    return {"k1": window_cost.launches - window_cost.strided_launches,
-            "k3_volume": window_cost.strided_launches,
-            "k2": quadrant_build.launches,
-            "k4": cross_scale_cost.launches,
-            "k3_fly": fly_cost.count(strided=True),
-            "k5": fly_cost.count(lerp="cost"),
-            "k6": fly_cost.count(lerp="image"),
-            "k7": fly_cost.count(lab=True),
-            "fly": fly_cost.count(),
-            "k1_plain": plane_cost.launches,
-            "k2_plain": prescreen_volume.launches,
-            "k4_plain": plane_cost.cross_scale_launches,
-            "fly_plain": onthefly_cost.launches}
-
-
 def check_close(name, got, want):
     """(max |d|, max rel); raises on a bad shape, a non-finite value or an
     f32 error over the tolerance."""
@@ -316,6 +291,8 @@ def phase11(dev, card, paths, check_counts):
     from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume
     from crossscalepatchmatch_tpu_torch.ops.cuda import f32_peak
+    from crossscalepatchmatch_tpu_torch.utils.profiling import (
+        launch_counts as read_counts, reset_launch_counts as reset_counts)
     from crossscalepatchmatch_tpu_torch.utils.roofline import (
         F32_FLOP_PER_S, measure_f32_peak)
 
@@ -453,6 +430,8 @@ def shard_worker(argv) -> int:
     from crossscalepatchmatch_tpu_torch.parallel.tiled import (
         run_batch_sharded)
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
+    from crossscalepatchmatch_tpu_torch.utils.profiling import (
+        launch_counts as read_counts, reset_launch_counts as reset_counts)
 
     ap = argparse.ArgumentParser()
     for flag in ("--rank", "--world"):
@@ -562,6 +541,29 @@ def spawn_ranks(job, mesh, device):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def run_scaling_bench(nproc: int) -> list:
+    """bench_scaling_torch.py under torchrun on `nproc` ranks (3 timed calls
+    a mesh): its JSON lines; raises if it fails or outlives
+    RANK_TIMEOUT_S (its process group is killed)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}",
+           os.path.join(REPO, "bench_scaling_torch.py"), "--reps",
+           str(SCALING_REPS)]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=RANK_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode:
+        raise RuntimeError(f"scaling bench, {nproc} ranks: exit "
+                           f"{proc.returncode}:\n{err[-3000:]}")
+    return [json.loads(line) for line in out.strip().splitlines()]
+
+
 def main() -> int:
     import torch
 
@@ -592,6 +594,8 @@ def main() -> int:
                                                          window_cost)
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
         scale_weights)
+    from crossscalepatchmatch_tpu_torch.utils.profiling import (
+        launch_counts as read_counts, reset_launch_counts as reset_counts)
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
     from crossscalepatchmatch_tpu_torch.utils.roofline import (
         FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE, bound, nbytes,
@@ -1667,6 +1671,99 @@ def main() -> int:
           f"{line['vs_baseline']:.1f}, bad-pixel @1px max "
           f"{res['bad_pixel']['max']:.4f}, idle share "
           f"{res['profile']['idle_share']:.3f}")
+
+    # -- 13. the scaling bench under torchrun ---------------------------------
+    import bench_scaling_torch
+
+    # 13.1 the band forms of K1 and K2 against their plain band forms on
+    # the tiles the scaling bench gives them at its default shape: the
+    # whole image on the (1, 1, 1) mesh and both tiles of the (1, 2, 1)
+    # mesh, rows extended by the half window (zeros past the image),
+    # columns not; the same f32 inputs on the card for both sides
+    t0 = time.perf_counter()
+    sargs = bench_scaling_torch.parser().parse_args([])
+    scfg = bench_scaling_torch.workload_cfg(sargs)
+    sh, sw = sargs.h, sargs.w
+    s_hw, s_md, s_gamma = scfg.half_wnd, scfg.max_dis, scfg.wgt_gamma
+    s_stride = max(scfg.prescreen_stride, 1)
+    spair = make_pair(h=sh, w=sw, max_dis=sargs.max_dis, seed=0)
+    svd = build_volume_data(torch.as_tensor(spair.left, device=dev),
+                            torch.as_tensor(spair.right, device=dev), scfg)
+    s_imgs, s_vols, s_mc = (svd.imgs[0], svd.vols[0].float(),
+                            svd.max_costs[0])
+    del svd
+    scaling_tiles = (("(1, 1, 1) whole image", 0, sh),
+                     ("(1, 2, 1) tile ty=0", 0, sh // 2),
+                     ("(1, 2, 1) tile ty=1", sh // 2, sh // 2))
+    for tname, trow0, ths_s in scaling_tiles:
+        t_imgs = _ext_from_full(s_imgs, trow0, ths_s, s_hw, 1).contiguous()
+        t_vols = _ext_from_full(s_vols, trow0, ths_s, s_hw, 1).contiguous()
+        t_bounds = (-trow0, sh - trow0, 0, sw)
+        t_prep = window_cost.prepare_volumes(
+            t_imgs, t_vols, s_mc, half_wnd=s_hw, max_dis=s_md, gamma=s_gamma,
+            rows_extended=True, cols_extended=False)
+        t_band = t_prep.plain_band(t_bounds)
+        for k in (1, 2):
+            full = test_planes(spair, s_md, k, gen, dev)[
+                :, :, trow0:trow0 + ths_s]
+            abc = torch.cat([full[..., :2], (full[..., 2] + full[..., 1]
+                                             * trow0)[..., None]],
+                            -1).contiguous()
+            got = window_cost.window_cost_prepared(
+                t_prep, abc, half_wnd=s_hw, max_dis=s_md, bounds=t_bounds)
+            want = torch.stack([plane_cost.window_plane_cost(
+                t_imgs[v], t_vols[v], s_mc[v], abc[v], half_wnd=s_hw,
+                max_dis=s_md, gamma=s_gamma, **t_band) for v in range(2)])
+            rec["k1_band"]["max_abs_err"] = max(
+                rec["k1_band"]["max_abs_err"], check_bit_equal(
+                    f"phase 13.1: K1 band form K={k}, {tname} of "
+                    f"{sh}x{sw}", got, want))
+            del full, abc, got, want
+        got_b, got_w = quadrant_build.quadrant_volumes_prepared(
+            t_prep, half_wnd=s_hw, gamma=s_gamma, stride=s_stride,
+            bounds=t_bounds)
+        rv, cv = cross_scale_cost.valid_vectors(
+            t_prep.rect(t_bounds), t_prep.array_hw, dev)
+        parts = [prescreen_volume.build_quadrant_volumes(
+            t_imgs[v], t_vols[v], rv[:, None] & cv[None, :], half_wnd=s_hw,
+            gamma=s_gamma, stride=s_stride) for v in range(2)]
+        for i, (qname, got_q) in enumerate((("bq", got_b), ("wq", got_w))):
+            want_q = torch.stack([p[i] for p in parts])[
+                :, :, s_hw:s_hw + ths_s]
+            rec["k2_band"]["max_abs_err"] = max(
+                rec["k2_band"]["max_abs_err"], check_bit_equal(
+                    f"phase 13.1: K2 band form {qname}, {tname} of "
+                    f"{sh}x{sw}", got_q, want_q))
+        del t_prep, t_imgs, t_vols, got_b, got_w, parts, want_q
+    for key in ("k1_band", "k2_band"):
+        rec[key]["scaling_tiles"] = [t[0] for t in scaling_tiles]
+    del s_imgs, s_vols, s_mc
+    torch.cuda.empty_cache()
+    print(f"phase 13.1: K1 and K2 band forms bit-equal on the scaling "
+          f"bench's tiles, {time.perf_counter() - t0:.1f} s")
+
+    for nproc, backend, meshes in SCALING_RUNS:
+        t0 = time.perf_counter()
+        rows = run_scaling_bench(nproc)
+        took = time.perf_counter() - t0
+        if [row["mesh"] for row in rows] != meshes:
+            raise RuntimeError(f"scaling bench, {nproc} ranks: meshes "
+                               f"{[row['mesh'] for row in rows]}")
+        for n, row in zip((1, nproc), rows):
+            name = f"sharded scaling {row['mesh']} ({nproc} ranks)"
+            paths[name] = row["launches"]
+            check_counts(name, row["launches"], ("k1", "k2"))
+            eff = row["value"] / (rows[0]["value"] * n)
+            if (row["platform"] != "gpu" or row["world"] != nproc
+                    or not row["transport"].startswith(backend)
+                    or (row["note"] == "real devices") != (backend == "nccl")
+                    or row["efficiency_vs_1dev"] != eff
+                    or row["reps"] != SCALING_REPS
+                    or row["bad_pixel"]["max"] > BAD_PIXEL_MAX):
+                raise RuntimeError(f"scaling bench: bad line {row}")
+            print(json.dumps(row))
+        print(f"phase 13: scaling bench, {nproc} rank(s): {took:.1f} s with "
+              f"the processes' start")
 
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
 

@@ -109,12 +109,15 @@ def run_batch_sharded_resumable(l_bgr, r_bgr, seeds, cfg: CSPMConfig, mesh,
     call of parallel.tiled.run_batch_sharded_steps runs the rest of the
     schedule (the volumes built once) and saves after each iteration.
 
-    Returns u8[B, 2, H, W] like run_batch_sharded.
+    Returns u8[B, 2, H, W] like run_batch_sharded; None at once on a rank
+    outside the mesh (which reads and writes no file).
     """
     import torch.distributed as dist
 
     from .parallel.tiled import run_batch_sharded_steps
 
+    if mesh.get_coordinate() is None:
+        return None
     path = f"{ckpt_path}.rank{dist.get_rank()}"
     meta = dict(cfg=np.bytes_(_fingerprint(cfg).encode()),
                 mesh=np.asarray(mesh.shape, np.int64),

@@ -83,7 +83,8 @@ def extend_axis(x: torch.Tensor, halo: int, dim: int,
     at distance j moves in one distance-j point-to-point exchange
     (batch_isend_irecv), so a far ring or a window halo is never truncated
     by small blocks.  Ranks at the mesh edge receive zeros past the global
-    image (the caller masks them by validity)."""
+    image (the caller masks them by validity); only the slices sent to a
+    peer travel (or are staged through the host)."""
     if halo == 0:
         return x
     dim = dim % x.dim()
@@ -94,26 +95,25 @@ def extend_axis(x: torch.Tensor, halo: int, dim: int,
     lo, hi = [], []
     for j in range(hops, 0, -1):                  # farthest block first
         take = rem if j == hops else size
-        tail = _wire(x.narrow(dim, size - take, take), ax.via_host)
-        head = _wire(x.narrow(dim, 0, take), ax.via_host)
-        from_lo = torch.zeros_like(tail)          # the tail of rank i - j
-        from_hi = torch.zeros_like(head)          # the head of rank i + j
+        zeros = torch.zeros_like(x.narrow(dim, 0, take))
         ops = []
         if i + j < n:
+            tail = _wire(x.narrow(dim, size - take, take), ax.via_host)
+            from_hi = torch.zeros_like(tail)      # the head of rank i + j
             peer = ax.ranks[i + j]
             ops += [dist.P2POp(dist.isend, tail, peer, ax.group),
                     dist.P2POp(dist.irecv, from_hi, peer, ax.group)]
         if i - j >= 0:
+            head = _wire(x.narrow(dim, 0, take), ax.via_host)
+            from_lo = torch.zeros_like(head)      # the tail of rank i - j
             peer = ax.ranks[i - j]
             ops += [dist.P2POp(dist.isend, head, peer, ax.group),
                     dist.P2POp(dist.irecv, from_lo, peer, ax.group)]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        lo.append(_land(from_lo, x) if i - j >= 0
-                  else torch.zeros_like(x.narrow(dim, 0, take)))
-        hi.append(_land(from_hi, x) if i + j < n
-                  else torch.zeros_like(x.narrow(dim, 0, take)))
+        lo.append(_land(from_lo, x) if i - j >= 0 else zeros)
+        hi.append(_land(from_hi, x) if i + j < n else zeros)
     return torch.cat(lo + [x] + hi[::-1], dim=dim)
 
 
@@ -136,13 +136,3 @@ def all_max(x: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
             dist.all_reduce(w, op=dist.ReduceOp.MAX, group=ax.group)
             x = _land(w, x)
     return x
-
-
-def gather_world(x: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's x (the same shape on every rank), in rank order."""
-    if dist.get_world_size() == 1:
-        return [x]
-    w = _wire(x, dist.get_backend() == "gloo")
-    parts = [torch.empty_like(w) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, w)
-    return [_land(p, x) for p in parts]

@@ -9,7 +9,8 @@ through a file store, and checks the maps' shape and that they are not all
 zero.  Under torchrun (`torchrun --nproc-per-node=N -m ...dryrun N`) every
 rank joins torchrun's group instead (parallel.mesh.initialize_multihost:
 NCCL where each rank has a card of its own), and inside an initialised
-process group of N ranks every rank calls dryrun_multichip(N) itself.
+process group of N or more ranks every rank calls dryrun_multichip(N)
+itself: the mesh spans the first N ranks and the others return at once.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def mesh_shape(n_ranks: int):
 
 
 def _run(n_ranks: int, production: bool, device) -> None:
-    """One rank's part of the dry run (the process group is initialised)."""
+    """One rank's part of the dry run (the process group is initialised;
+    nothing to do on a rank outside the first n_ranks)."""
     import torch.distributed as dist
 
     from ..config import CostMethod, CSPMConfig
@@ -62,6 +64,8 @@ def _run(n_ranks: int, production: bool, device) -> None:
     r = np.stack([p.right for p in pairs])
     dis = run_batch_sharded(l, r, list(range(n_data)), cfg, mesh,
                             device=device)
+    if dis is None:
+        return
     assert tuple(dis.shape) == (n_data, 2, h, w), dis.shape
     assert int(dis.max()) > 0, "dry run produced an all-zero map"
     print(f"dryrun_multichip ok: mesh=({n_data},{n_ty},{n_tx}) "
@@ -73,7 +77,9 @@ def dryrun_multichip(n_ranks: int, production: bool = False,
     """Run the sharded step over an n_ranks mesh (JAX
     __graft_entry__.py:30-82: the same mesh layout and geometries).
 
-    Inside an initialised process group of n_ranks every rank calls this.
+    Inside an initialised process group of n_ranks or more every rank
+    calls this: the mesh takes the first n_ranks ranks and the others
+    return at once (a smaller group raises ValueError).
     Under torchrun's environment every rank joins torchrun's group
     (initialize_multihost) and leaves it at the end.  Otherwise it starts
     n_ranks processes joined by gloo and raises RuntimeError if any fails.
@@ -91,9 +97,6 @@ def dryrun_multichip(n_ranks: int, production: bool = False,
             dist.destroy_process_group()
         return
     if dist.is_initialized():
-        if dist.get_world_size() != n_ranks:
-            raise ValueError(f"{n_ranks} ranks asked, the process group "
-                             f"has {dist.get_world_size()}")
         _run(n_ranks, production, device)
         return
     root = os.path.dirname(os.path.dirname(os.path.dirname(

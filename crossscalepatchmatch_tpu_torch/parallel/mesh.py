@@ -32,12 +32,16 @@ TIMEOUT = datetime.timedelta(seconds=300)
 
 def make_mesh(n_data: int = 1, n_ty: Optional[int] = None, n_tx: int = 1
               ) -> DeviceMesh:
-    """A (data, ty, tx) mesh over every rank of the default process group,
-    in rank order (rank = (d * n_ty + ty) * n_tx + tx).
+    """A (data, ty, tx) mesh over the first n_data * n_ty * n_tx ranks of
+    the default process group, in rank order (rank = (d * n_ty + ty) *
+    n_tx + tx; JAX make_mesh with devices=jax.devices()[:n]).
 
     n_ty defaults to what the world leaves: world // (n_data * n_tx).
-    Raises ValueError unless the mesh covers the world exactly (a rank
-    outside it would have no part to play), and RuntimeError if no
+    Every rank of the process group calls make_mesh, in the mesh or not:
+    the mesh's groups are made collectively.  On a rank outside the mesh
+    `get_coordinate()` is None, and the sharded entry points
+    (parallel.tiled) return at once there.  Raises ValueError when the
+    mesh needs more ranks than the world has, and RuntimeError if no
     process group is initialised (initialize_multihost makes one).
     """
     if not dist.is_initialized():
@@ -47,8 +51,8 @@ def make_mesh(n_data: int = 1, n_ty: Optional[int] = None, n_tx: int = 1
     if n_ty is None:
         n_ty = world // (n_data * n_tx)
     n = n_data * n_ty * n_tx
-    if min(n_data, n_ty, n_tx) < 1 or n != world:
-        raise ValueError(f"mesh {n_data}x{n_ty}x{n_tx} does not cover the "
+    if min(n_data, n_ty, n_tx) < 1 or n > world:
+        raise ValueError(f"mesh {n_data}x{n_ty}x{n_tx} needs more than the "
                          f"{world} ranks of the process group")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type,

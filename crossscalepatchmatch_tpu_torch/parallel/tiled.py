@@ -29,10 +29,21 @@ level).  The cost functions are the kernels' band forms on the tile
 halo-extended block with the validity interval of the global image, K2
 over the block's own pixels; on CPU tensors their plain band forms.
 
-API: every rank calls an entry point with the same global u8[B, H, W, 3]
-batch (what the JAX single controller sees), computes its block and gets
-the global u8[B, 2, H, W] maps back (the maps are small; one gather at the
-end).  B must divide by the "data" size, H by "ty" and W by "tx".
+API: every rank of the mesh calls an entry point with the same global
+u8[B, H, W, 3] batch (what the JAX single controller sees), computes its
+block and gets the global u8[B, 2, H, W] maps back (the maps are small;
+gathered at the end along "tx", "ty" and "data" in turn).  B must divide
+by the "data" size, H by "ty" and W by "tx".  A mesh may span the first n
+ranks of a larger process group (parallel.mesh.make_mesh): a rank outside
+it gets None from every entry point at once and takes part in none of the
+mesh's collectives, which run on the mesh's own axis groups only.
+
+NCCL asks that the first point-to-point call on a group include every
+rank of the group.  A halo exchange (parallel._comm.extend_axis) skips a
+rank with no neighbour at some hop distance, so a tile's first
+communication on each axis is a collective every rank of the axis joins:
+the images' gather along "tx", and along "ty" the gather of the full
+images or the max of the volumes (_TilePair), before any halo exchange.
 
 Draws: `draws(seed, tile)` makes a tile's draw source (utils.rng), tile =
 ty * n_tx + tx; by default TorchDraws keyed by (seed, tile).  A test may
@@ -68,8 +79,10 @@ DrawFactory = Callable[[int, int], object]
 def rank_device(device="cuda") -> torch.device:
     """The device this rank computes on.  "cuda" without an index is card
     LOCAL_RANK % device_count (one rank a process; ranks share a card where
-    the host has fewer cards than ranks); anything else is taken as given.
-    Raises RuntimeError for "cuda" on a host without a card."""
+    the host has fewer cards than ranks; a mesh over the first n ranks of
+    a larger group keeps each rank on its own card); anything else is
+    taken as given.  Raises RuntimeError for "cuda" on a host without a
+    card."""
     dev = torch.device(device)
     if dev.type != "cuda" or dev.index is not None:
         return dev
@@ -164,6 +177,7 @@ class _Ctx:
     d: int
     ty: int
     tx: int
+    ax_data: Axis
     ax_ty: Axis
     ax_tx: Axis
 
@@ -176,14 +190,18 @@ class _Ctx:
         return self.ty * self.n_tx + self.tx
 
 
-def _context(mesh: DeviceMesh, cfg: CSPMConfig, device) -> _Ctx:
+def _context(mesh: DeviceMesh, cfg: CSPMConfig, device) -> Optional[_Ctx]:
+    """This rank's context, or None on a rank outside the mesh."""
     if tuple(mesh.mesh_dim_names or ()) != ("data", "ty", "tx"):
         raise ValueError(f"mesh dims {mesh.mesh_dim_names}: expected "
                          "('data', 'ty', 'tx') (parallel.mesh.make_mesh)")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return None
     n_data, n_ty, n_tx = mesh.shape
-    d, ty, tx = mesh.get_coordinate()
+    d, ty, tx = coord
     return _Ctx(mesh, cfg, rank_device(device), n_data, n_ty, n_tx, d, ty,
-                tx, _comm.axis(mesh, "ty"), _comm.axis(mesh, "tx"))
+                tx, *(_comm.axis(mesh, name) for name in mesh.mesh_dim_names))
 
 
 class _TilePair:
@@ -224,14 +242,16 @@ class _TilePair:
         # fine-level volumes and the global saturation values
         if cfg.cost_method == CostMethod.GRD and not aggregated:
             # row-local GRD: built on the full-width band, the column
-            # block cut out, the row halos exchanged
+            # block cut out, the row halos exchanged (after the max: the
+            # axis's first communication is a collective, module note)
             l_rgb, r_rgb = bgr_to_rgb(imgs_roww[0]), bgr_to_rgb(imgs_roww[1])
             vols_cb = col_block(torch.stack(
                 [build_volume(l_rgb, r_rgb, cfg.max_dis, cfg, right=False),
                  build_volume(l_rgb, r_rgb, cfg.max_dis, cfg, right=True)]),
                 hw)
-            ext_vols = extend_rows(vols_cb, hw, ctx.mesh, dim=1)
             vols = vols_cb[:, :, hw:hw + ws] if n_tx > 1 else vols_cb
+            max_cost = all_max(vols.amax(dim=(1, 2, 3)), ctx.spatial)
+            ext_vols = extend_rows(vols_cb, hw, ctx.mesh, dim=1)
         else:
             lf, rf = bgr_to_rgb(full_imgs[0]), bgr_to_rgb(full_imgs[1])
             vols_full = torch.stack([
@@ -243,7 +263,7 @@ class _TilePair:
                                  hw)
             vols = (ext_vols[:, hw:hw + hs, hw:hw + ws] if n_tx > 1
                     else ext_vols[:, hw:hw + hs])
-        max_cost = all_max(vols.amax(dim=(1, 2, 3)), ctx.spatial)
+            max_cost = all_max(vols.amax(dim=(1, 2, 3)), ctx.spatial)
         del vols
 
         # image halos and the validity of the extended rows / columns
@@ -412,18 +432,11 @@ def _block(x: torch.Tensor, ctx: _Ctx) -> torch.Tensor:
 def _assemble(blk: torch.Tensor, ctx: _Ctx, row_dim: int) -> torch.Tensor:
     """Every rank's [B/n_data, ..., Hs, Ws, ...] block (rows at `row_dim`,
     columns after) gathered into the global [B, ..., H, W, ...] on every
-    rank."""
-    parts = _comm.gather_world(blk)
-    shape = ctx.mesh.mesh.shape
-    pairs = []
-    for d in range(ctx.n_data):
-        rows = []
-        for ty in range(ctx.n_ty):
-            rows.append(torch.cat(
-                [parts[int(ctx.mesh.mesh[d, ty, tx])]
-                 for tx in range(shape[2])], dim=row_dim + 1))
-        pairs.append(torch.cat(rows, dim=row_dim))
-    return torch.cat(pairs, dim=0)
+    rank of the mesh: along "tx", then "ty", then "data", each in its
+    axis's order (the mesh's own groups)."""
+    rows = all_gather(blk, row_dim + 1, ctx.ax_tx)
+    pair = all_gather(rows, row_dim, ctx.ax_ty)
+    return all_gather(pair, 0, ctx.ax_data)
 
 
 def _default_draws(ctx: _Ctx) -> DrawFactory:
@@ -451,12 +464,15 @@ def run_batch_sharded(l_bgr, r_bgr, seeds, cfg: CSPMConfig,
       draws: draws(seed, tile) -> draw source (see the module note).
 
     Returns:
-      u8[B, 2, H, W] scaled disparity maps, on every rank (on its device).
+      u8[B, 2, H, W] scaled disparity maps, on every rank of the mesh (on
+      its device); None at once on a rank outside the mesh.
 
     Without a volume (precompute_volume=False) the mesh must be data-only:
     each pair then runs whole, models.pipeline.run_pair with its seed.
     """
     ctx = _context(mesh, cfg, device)
+    if ctx is None:
+        return None
     l, r, seeds = _batch(l_bgr, r_bgr, seeds, ctx)
     if not cfg.precompute_volume:
         if ctx.n_ty > 1 or ctx.n_tx > 1:
@@ -492,7 +508,8 @@ def run_batch_sharded_steps(l_bgr, r_bgr, seeds, cfg: CSPMConfig,
     (i = 0) and after every iteration i with this rank's block states (a
     models.patchmatch.PMState of [2, Hs, Ws] each of its pairs).  The draws
     are keyed by iteration, so calls over [0, a) then [a, b) compose to the
-    uninterrupted run bit for bit.
+    uninterrupted run bit for bit.  A rank outside the mesh gets None at
+    once.
     """
     if not cfg.precompute_volume:
         raise NotImplementedError(
@@ -502,6 +519,8 @@ def run_batch_sharded_steps(l_bgr, r_bgr, seeds, cfg: CSPMConfig,
     if state is None and it_lo:
         raise ValueError(f"no state to start from at iteration {it_lo}")
     ctx = _context(mesh, cfg, device)
+    if ctx is None:
+        return None
     l, r, seeds = _batch(l_bgr, r_bgr, seeds, ctx)
     tiles = _tiles(l, r, seeds, ctx, draws)
     if state is None:
@@ -542,9 +561,11 @@ def run_sequence_batch(frames, cfg: CSPMConfig, mesh: DeviceMesh,
       mesh: a (data, 1, 1) mesh.
 
     Yields per frame: {"dis": u8[B, 2, H, W], "abc": f32[B, 2, H, W, 3]} on
-    every rank.
+    every rank of the mesh; nothing on a rank outside it.
     """
     ctx = _context(mesh, cfg, device)
+    if ctx is None:
+        return
     if ctx.n_ty > 1 or ctx.n_tx > 1:
         raise NotImplementedError(
             "run_sequence_batch shards streams over 'data' only; use a "

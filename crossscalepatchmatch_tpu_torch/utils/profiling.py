@@ -14,7 +14,9 @@ and cout progress lines (main.cc:92,122-125).  Here:
     phase by phase, under torch.profiler, and its per-phase summary (host
     and device ms, launches, the device's idle share and where the host
     held it idle, device time per kernel), which bench_torch.py and
-    tools/torch_profile_pair.py print.
+    tools/torch_profile_pair.py print;
+  * reset_launch_counts() / launch_counts(): the kernels' and plain
+    versions' launch counters (chip_smoke.py, bench_scaling_torch.py).
 """
 
 from __future__ import annotations
@@ -191,6 +193,40 @@ def run_pair_phases(l_bgr_u8, r_bgr_u8, seed: int, cfg, *, device="cuda",
     else:
         valid = torch.ones((2, *hw), dtype=torch.bool, device=device)
     return {"dis": dis, "abc": st.abc, "cost": st.cost, "valid": valid}
+
+
+def reset_launch_counts() -> None:
+    """Every kernel's and plain version's launch counter to 0."""
+    from ..ops import onthefly_cost, plane_cost, prescreen_volume
+    from ..ops.cuda import (cross_scale_cost, fly_cost, quadrant_build,
+                            window_cost)
+
+    window_cost.launches = window_cost.strided_launches = 0
+    quadrant_build.launches = cross_scale_cost.launches = 0
+    fly_cost.launches.clear()
+    plane_cost.launches = prescreen_volume.launches = 0
+    plane_cost.cross_scale_launches = onthefly_cost.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """The launch counters, by kernel (plain versions: *_plain)."""
+    from ..ops import onthefly_cost, plane_cost, prescreen_volume
+    from ..ops.cuda import (cross_scale_cost, fly_cost, quadrant_build,
+                            window_cost)
+
+    return {"k1": window_cost.launches - window_cost.strided_launches,
+            "k3_volume": window_cost.strided_launches,
+            "k2": quadrant_build.launches,
+            "k4": cross_scale_cost.launches,
+            "k3_fly": fly_cost.count(strided=True),
+            "k5": fly_cost.count(lerp="cost"),
+            "k6": fly_cost.count(lerp="image"),
+            "k7": fly_cost.count(lab=True),
+            "fly": fly_cost.count(),
+            "k1_plain": plane_cost.launches,
+            "k2_plain": prescreen_volume.launches,
+            "k4_plain": plane_cost.cross_scale_launches,
+            "fly_plain": onthefly_cost.launches}
 
 
 def busy_union(intervals) -> float:

@@ -110,10 +110,11 @@ def test_run_pairs_is_a_loop_over_run_pair():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke, bench_torch and the port's
-    tools (tools/torch_eval.py, tools/torch_kitti_anchor.py) import without
-    jax and without any module of the JAX package; no source of the port,
-    nor chip_smoke.py, bench_torch.py nor those tools and
+    """Every module of the port, chip_smoke, bench_torch,
+    bench_scaling_torch and the port's tools (tools/torch_eval.py,
+    tools/torch_kitti_anchor.py) import without jax and without any module
+    of the JAX package; no source of the port, nor chip_smoke.py,
+    bench_torch.py, bench_scaling_torch.py nor those tools and
     tools/torch_profile_pair.py, names the JAX package in an import
     statement (imports inside chip_smoke.main() never run here)."""
     code = (
@@ -122,7 +123,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke, bench_torch\n"
+        "import chip_smoke, bench_torch, bench_scaling_torch\n"
         "for t in ('torch_eval', 'torch_kitti_anchor'):\n"
         "    spec = importlib.util.spec_from_file_location(t, "
         "'tools/' + t + '.py')\n"
@@ -151,6 +152,7 @@ def test_port_imports_no_jax():
               os.path.join(REPO, "tools", "torch_eval.py"),
               os.path.join(REPO, "tools", "torch_kitti_anchor.py"),
               os.path.join(REPO, "bench_torch.py"),
+              os.path.join(REPO, "bench_scaling_torch.py"),
               os.path.join(REPO, "tools", "torch_profile_pair.py")]
     assert len(files) >= 20
     bad = []

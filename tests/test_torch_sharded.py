@@ -34,6 +34,7 @@ from crossscalepatchmatch_tpu.ops import plane_cost as jpc
 from crossscalepatchmatch_tpu.ops import prescreen_volume as jpv
 from crossscalepatchmatch_tpu.parallel import tiled as jtiled
 from crossscalepatchmatch_tpu.parallel.mesh import make_mesh as j_make_mesh
+from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models import postprocess as tpp
 from crossscalepatchmatch_tpu_torch.ops import plane_cost as tpc
 from crossscalepatchmatch_tpu_torch.ops import prescreen_volume as tpv
@@ -284,8 +285,8 @@ def test_prepared_band_forms_route_to_the_plain_band_forms():
 def test_refusals(tmp_path):
     """A height the mesh does not divide, a seed count that is not the
     batch's, the no-volume cost (and resume slicing) on a spatial mesh, a
-    sequence batch on a spatial mesh and a mesh that does not cover the
-    world are refused."""
+    sequence batch on a spatial mesh and a mesh larger than the world are
+    refused."""
     kw = dict(max_dis=8, dis_scale=16, wnd_size=7, max_iter=1)
     got = spawn(dict(job="refusals", mesh=(1, 2, 1), cfg=kw), 2,
                 str(tmp_path))
@@ -293,6 +294,88 @@ def test_refusals(tmp_path):
         "height": "ValueError", "seeds": "ValueError",
         "fly": "NotImplementedError", "fly_steps": "NotImplementedError",
         "sequence": "NotImplementedError", "mesh": "ValueError"}
+
+
+SUB_KW = dict(max_dis=12, dis_scale=16, wnd_size=7, max_iter=1,
+              cost_method="GRD", use_cs=False, use_pp=False)
+
+
+def subworld_case(mesh, case_dir, dryrun=None):
+    """A 32x48 pair with the JAX engine's draws of each tile of `mesh`,
+    for job_subworld (its checkpoints in case_dir/ck)."""
+    from test_torch_sharded_pipeline import tile_draws
+
+    jcfg, cfg = config_pair(**SUB_KW)
+    pair = make_pair(h=32, w=48, max_dis=12, seed=5)
+    hw = (32 // mesh[1], 48 // mesh[2])
+    draws = {(3, t): tile_draws(3, t, hw, jcfg, cfg)
+             for t in range(mesh[1] * mesh[2])}
+    os.makedirs(case_dir / "ck")
+    return dict(job="subworld", mesh=mesh, cfg=SUB_KW, l=pair.left[None],
+                r=pair.right[None], seeds=[3], draws=draws,
+                ckpt=str(case_dir / "ck" / "ck"), dryrun=dryrun)
+
+
+def assert_outside(res):
+    """What a rank outside the mesh gets: nothing, at once."""
+    assert res["coordinate"] is None
+    assert res["dis"] is None and res["steps"] is None
+    assert res["resumable"] is None and res["sequence"] == []
+    assert res["dryrun"] == ""
+
+
+def test_mesh_over_the_first_rank_of_two(tmp_path):
+    """make_mesh(1, 1, 1) in a world of two spans rank 0 (JAX make_mesh's
+    devices=): rank 0's maps (run_batch_sharded, run_batch_sharded_steps,
+    run_batch_sharded_resumable) are byte-equal to the world-of-one run,
+    and held against JAX run_batch_sharded on make_mesh(1, 1, devices=
+    jax.devices()[:1]) with the same draws at the single-device parity
+    bound (near-tie adoptions may differ); rank 1 gets None and no
+    sequence frame at once, writes no checkpoint and blocks nothing; the
+    dry run over one rank runs on rank 0 alone."""
+    two = spawn(subworld_case((1, 1, 1), tmp_path / "two", dryrun=1), 2,
+                str(tmp_path / "two"), timeout=300)
+    one = spawn(subworld_case((1, 1, 1), tmp_path / "one", dryrun=1), 1,
+                str(tmp_path / "one"), timeout=300)
+    ref = one[0]["dis"]
+    assert ref.shape == (1, 2, 32, 48) and ref.max() > 0
+    for key in ("dis", "steps", "resumable"):
+        np.testing.assert_array_equal(two[0][key], ref, err_msg=key)
+    assert two[0]["coordinate"] == (0, 0, 0)
+    assert two[0]["sequence"][0].shape == (1, 2, 32, 48)
+    assert two[0]["dryrun"].startswith("dryrun_multichip ok: mesh=(1,1,1)")
+    assert_outside(two[1])
+    assert sorted(os.listdir(tmp_path / "two" / "ck")) == ["ck.rank0"]
+    jcfg, _ = config_pair(**SUB_KW)
+    pair = make_pair(h=32, w=48, max_dis=12, seed=5)
+    want = np.asarray(jtiled.jit_run_batch_sharded(
+        jcfg, j_make_mesh(1, 1, devices=jax.devices()[:1]))(
+        jnp.asarray(pair.left[None]), jnp.asarray(pair.right[None]),
+        jnp.asarray([3], jnp.int32)))
+    from test_torch_sharded_pipeline import assert_parity
+
+    assert_parity(two[0]["dis"], want, [pair], config_pair(**SUB_KW)[1])
+
+
+def test_mesh_over_the_first_two_ranks_of_three(tmp_path):
+    """A (1, 2, 1) mesh in a world of three equals the (1, 2, 1) mesh that
+    covers a world of two, byte for byte on both of its ranks; rank 2 gets
+    nothing and blocks nothing, the dry run over two ranks ((2, 1, 1))
+    runs on ranks 0 and 1."""
+    three = spawn(subworld_case((1, 2, 1), tmp_path / "three", dryrun=2), 3,
+                  str(tmp_path / "three"), timeout=300)
+    two = spawn(subworld_case((1, 2, 1), tmp_path / "two"), 2,
+                str(tmp_path / "two"), timeout=300)
+    for rank in (0, 1):
+        assert three[rank]["coordinate"] == (0, rank, 0)
+        for key in ("dis", "steps", "resumable"):
+            np.testing.assert_array_equal(three[rank][key], two[0]["dis"],
+                                          err_msg=f"{key} rank {rank}")
+        assert three[rank]["dryrun"].startswith(
+            "dryrun_multichip ok: mesh=(2,1,1)")
+    assert_outside(three[2])
+    assert sorted(os.listdir(tmp_path / "three" / "ck")) == [
+        "ck.rank0", "ck.rank1"]
 
 
 def test_initialize_multihost_and_dryrun():

@@ -156,6 +156,43 @@ def job_resume(case):
                 refused=refused, iterations=sorted(saved))
 
 
+def job_subworld(case):
+    """The sharded entry points on a mesh over the first ranks of the
+    group (case["mesh"]): each result on every rank (None, or no frame, on
+    a rank outside the mesh), then a barrier of the whole group; with
+    case["dryrun"] = n, also the dry run over the first n ranks (what it
+    printed)."""
+    import contextlib
+    import io
+
+    from crossscalepatchmatch_tpu_torch import checkpoint
+    from crossscalepatchmatch_tpu_torch.parallel import dryrun
+
+    l, r, seeds, cfg = _inputs(case)
+    mesh = make_mesh(*case["mesh"])
+    kw = dict(device="cpu", draws=draw_factory(case))
+    out = dict(coordinate=mesh.get_coordinate())
+
+    def arr(x):
+        return None if x is None else x.numpy()
+
+    out["dis"] = arr(tiled.run_batch_sharded(l, r, seeds, cfg, mesh, **kw))
+    out["steps"] = arr(tiled.run_batch_sharded_steps(
+        l, r, seeds, cfg, mesh, finalize=True, **kw))
+    out["resumable"] = arr(checkpoint.run_batch_sharded_resumable(
+        l, r, seeds, cfg, mesh, case["ckpt"], **kw))
+    seq_mesh = make_mesh(mesh.shape[0], 1, 1)
+    out["sequence"] = [arr(f["dis"]) for f in tiled.run_sequence_batch(
+        [(l, r)], cfg, seq_mesh, device="cpu")]
+    if case.get("dryrun"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dryrun.dryrun_multichip(case["dryrun"], device="cpu")
+        out["dryrun"] = buf.getvalue()
+    dist.barrier()
+    return out
+
+
 def job_refusals(case):
     """What each entry point raises on inputs the mesh refuses."""
     cfg = port_cfg(case["cfg"])
