@@ -43,7 +43,15 @@ Phases, each fatal on failure:
      bit-identical on rerun, and a digest of its `dis` bytes printed (to
      compare two checkouts on one card); ms/pair and peak device memory;
      for CEN_CS_PP
-     also the time and launch count of postprocess;
+     also the time and launch count of postprocess; the paths with
+     post-processing (CEN_CS_PP, KITTI-fly, KITTI) must have launched WMF
+     and never the plain weighted median;
+  7b. WMF, the weighted median: the kernel against its plain version on the
+     card on the real inputs of the seed-0 CEN_CS_PP (375x450, wnd 35) and
+     KITTI (375x1242) pairs (their filled maps and LR-invalid masks): 0
+     differing u8 pixels, and equal to the pipeline's output; N (the
+     invalid pixels), kernel and plain ms (CUDA events, in turns) and the
+     bound (utils.roofline.median_samples);
   8. small pairs run on the card and on the CPU (plain versions) from the
      same draws must agree (README_DEMO-like, CEN_CS_PP-like, the volume
      path's window prescreen, and without a volume: cost lerp, image lerp
@@ -68,9 +76,11 @@ Phases, each fatal on failure:
      levels) on the bench scene's middle tile of a (1, 3, 2) mesh (125 +
      34 rows x 225 + 34 columns, origin (125, 225)) against their plain
      band forms, f32 bit-equal (bf16 census volumes too for K4), timed
-     beside the whole-image forms; a (1, 3, 2) mesh of six gloo ranks on
-     the one card (halos staged through the host) runs README_DEMO and
-     CEN_CS_PP on the bench scene (bad-pixel @1px <= 0.01 and within
+     beside the whole-image forms; WMF's band form on the same tile (the
+     seed-0 CEN_CS_PP maps, halo-extended) u8-equal to its plain band form
+     and to the whole-image result's tile; a (1, 3, 2) mesh of six gloo
+     ranks on the one card (halos staged through the host) runs README_DEMO
+     and CEN_CS_PP on the bench scene (bad-pixel @1px <= 0.01 and within
      0.005 of phase 7's one-device run, the band forms launched and no
      plain version, a rerun bit-identical; ms/pair and the bytes staged
      through the host printed); a small pair on a (1, 2, 2) mesh on the
@@ -99,7 +109,9 @@ Phases, each fatal on failure:
   12. the benchmark's readme_demo cell (bench_torch.run_cell, in process,
      5 timed pairs; a path of its own for the counters): its record must
      make bench_torch's result line (bench.py's keys), every pair within
-     its bad-pixel gate; its ms/pair printed.
+     its bad-pixel gate; its ms/pair printed; then the cen_cs_pp cell (3
+     timed pairs, a path of its own: K4, K2 and WMF launched, no plain
+     version).
   13. the scaling bench (bench_scaling_torch.py, 384x448 d=60 wnd 35).
      First the band forms of K1 (K = 1, 2) and K2, bit-equal in f32 to
      their plain band forms on the bench's tiles (the whole image of the
@@ -114,7 +126,8 @@ Phases, each fatal on failure:
      meshes are paths of their own for the counters: the bench reads the
      counters around its timed calls on every rank); the lines printed.
 Every bound is counted by utils.roofline (bound, window_samples,
-quadrant_build_samples and the per-sample operation counts).
+quadrant_build_samples, median_samples and the per-sample operation
+counts).
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 `python3 chip_smoke.py --shard-worker ...` is one rank of phase 10 (the
@@ -308,14 +321,15 @@ def phase11(dev, card, paths, check_counts):
         check_counts(name, paths[name], kernels)
         return res
 
-    matrix = scored("eval matrix", ("k1", "k2", "k4"),
+    matrix = scored("eval matrix", ("k1", "k2", "k4", "wmf"),
                     lambda: ev.run_matrix(engine, scores))
     exposure = next(c for c in ev.CONFIGS if c[0] == "exposure_grd_pp")
-    exact = scored("eval exposure exact", ("k1", "k2"), lambda: ev.run_matrix(
-        engine, scores, [exposure], engine_kw=dict(adopt_mode="exact")))
+    exact = scored("eval exposure exact", ("k1", "k2", "wmf"),
+                   lambda: ev.run_matrix(engine, scores, [exposure],
+                                         engine_kw=dict(adopt_mode="exact")))
     ablation = scored("CS ablation", ("k1", "k2", "k4"),
                       lambda: ev.run_cs_ablation(engine, scores))
-    anchor = scored("anchor", ("k1", "k2"),
+    anchor = scored("anchor", ("k1", "k2", "wmf"),
                     lambda: ev.run_anchor(engine, scores))
     for r in matrix["rows"] + exact["rows"]:
         print(f"eval {r['config']}: port {r['bad_engine']:.4f} oracle "
@@ -580,6 +594,7 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.data import make_pair
     from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
     from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
+    from crossscalepatchmatch_tpu_torch.models import postprocess as pp_mod
     from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                                 run_pair_np)
     from crossscalepatchmatch_tpu_torch.models.postprocess import postprocess
@@ -592,13 +607,15 @@ def main() -> int:
                                                          fly_cost,
                                                          quadrant_build,
                                                          window_cost)
+    from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
         scale_weights)
     from crossscalepatchmatch_tpu_torch.utils.profiling import (
         launch_counts as read_counts, reset_launch_counts as reset_counts)
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
     from crossscalepatchmatch_tpu_torch.utils.roofline import (
-        FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE, bound, nbytes,
+        FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE,
+        WMF_OPS_PER_SAMPLE, bound, median_samples, nbytes,
         quadrant_build_samples, window_samples)
 
     pkg = "crossscalepatchmatch_tpu_torch"
@@ -1038,13 +1055,15 @@ def main() -> int:
     _, paths["README_DEMO"], bf16_bads["README_DEMO"] = main_path(
         "README_DEMO", README_DEMO, ("k1", "k2"), bench, (0, 1, 2, 0), 1.0)
     outs_cs, paths["CEN_CS_PP"], bf16_bads["CEN_CS_PP"] = main_path(
-        "CEN_CS_PP", CEN_CS_PP, ("k4", "k2"), bench, (0, 1, 2, 0), 1.0)
+        "CEN_CS_PP", CEN_CS_PP, ("k4", "k2", "wmf"), bench, (0, 1, 2, 0),
+        1.0)
     _, paths["README_DEMO-fly"], _ = main_path(
         "README_DEMO-fly", fcfg, ("k5", "k3_fly"), bench, (0, 1, 2, 0), 1.0)
     _, paths["KITTI-fly"], _ = main_path("KITTI-fly", kitti_fly,
-                                         ("k5", "k3_fly"), kitti, (0, 0), 3.0)
-    _, paths["KITTI"], bf16_bads["KITTI"] = main_path(
-        "KITTI", KITTI, ("k1", "k2"), kitti, (0,), 3.0)
+                                         ("k5", "k3_fly", "wmf"), kitti,
+                                         (0, 0), 3.0)
+    outs_k, paths["KITTI"], bf16_bads["KITTI"] = main_path(
+        "KITTI", KITTI, ("k1", "k2", "wmf"), kitti, (0,), 3.0)
 
     # postprocess alone on the seed-0 planes: time, launches, same output
     from torch.profiler import ProfilerActivity, profile
@@ -1070,6 +1089,70 @@ def main() -> int:
     print(f"CEN_CS_PP postprocess: ms per call {pp_ms}; "
           f"{pp_launches} kernel launches; {n_invalid} LR-invalid pixels")
 
+    # -- 7b. WMF: the weighted median against its plain version -------------
+    def wmf_inputs(out, pcfg, pl, pr):
+        """The weighted median's inputs in postprocess, from a pipeline
+        output: the filled maps, the images, the LR mask."""
+        valid = out["valid"]
+        dis = pp_mod.fill_invalid(pm.plane_to_disp(out["abc"],
+                                                   pcfg.dis_scale),
+                                  out["abc"], valid, pcfg)
+        return dis, torch.stack([pl, pr]), valid
+
+    def wmf_phase(name, pcfg, inputs, reps, want_out, **band):
+        """WMF against its plain version on the card (u8, every pixel), and
+        against want_out (the pipeline's map, or the whole image's tile);
+        timed in turns."""
+        w_dis, w_imgs, w_valid = inputs
+        lut = plane_cost.asw_lut(pcfg.wmf_gamma, dev)
+
+        def kernel():
+            return wmf.weighted_median_cuda(w_dis, w_imgs, w_valid, lut,
+                                            half_wnd=pcfg.half_wnd, **band)
+
+        def plain():
+            return pp_mod.weighted_median_plain(w_dis, w_imgs, w_valid, pcfg,
+                                                **band)
+
+        got, want = kernel(), plain()
+        r0, c0 = band.get("center_row0", 0), band.get("center_col0", 0)
+        region = (slice(None), slice(r0, r0 + got.shape[1]),
+                  slice(c0, c0 + got.shape[2]))
+        n = int((~w_valid[region]).sum())
+        diff = int((got != want).sum()) if got.shape == want.shape else -1
+        err = int((got.int() - want.int()).abs().max())
+        print(f"WMF {name}: {n} invalid pixels, "
+              f"{int((got != w_dis[region]).sum())} replaced; kernel vs "
+              f"plain {diff} differing u8 pixels (max |d| {err}); equal to "
+              f"the reference map {torch.equal(got, want_out)}")
+        if diff != 0 or not torch.equal(got, want_out):
+            raise RuntimeError(f"WMF {name}: {diff} pixels differ from the "
+                               "plain version, or the map differs from the "
+                               "reference")
+        t = time_turns({"kernel": kernel, "plain": plain},
+                       {"kernel": reps, "plain": 1})
+        samples = median_samples(w_valid, pcfg.half_wnd, **band)
+        b_ms, b_by = bound(nbytes(w_dis, w_imgs, w_valid, lut, got),
+                           WMF_OPS_PER_SAMPLE * samples)
+        print(f"WMF {name}: plain {t['plain']:.3f} ms | kernel "
+              f"{t['kernel']:.3f} ms | {samples} window samples; bound "
+              f"{b_ms:.4f} ms ({b_by}); {card}")
+        return dict(max_abs_err=float(err), differing_pixels=diff,
+                    n_invalid=n, samples=samples, ms=t["kernel"],
+                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+
+    cs_wmf_in = wmf_inputs(outs_cs[0], CEN_CS_PP, l, r)
+    rec["wmf"] = wmf_phase("CEN_CS_PP seed 0 (375x450)", CEN_CS_PP,
+                           cs_wmf_in, 10, outs_cs[0]["dis"])
+    wmf_kitti = wmf_phase("KITTI seed 0 (375x1242)", KITTI,
+                          wmf_inputs(outs_k[0], KITTI, kl, kr), 5,
+                          outs_k[0]["dis"])
+    rec["wmf"].update({f"{key}_kitti": val for key, val in wmf_kitti.items()
+                       if key != "bound_by"})
+    rec["wmf"]["max_abs_err"] = max(rec["wmf"]["max_abs_err"],
+                                    wmf_kitti["max_abs_err"])
+    del outs_k, wmf_kitti
+
     # -- 8. small pairs: card (kernels) vs CPU (plain versions), same draws -----
     small = make_pair(h=48, w=64, max_dis=12, seed=3)
     base = dict(max_dis=12, dis_scale=16, wnd_size=11, vol_dtype="f32")
@@ -1094,7 +1177,7 @@ def main() -> int:
 
     for name, kernels, scfg in (
             ("README_DEMO-like", ("k1", "k2"), CSPMConfig(**base)),
-            ("CEN_CS_PP-like", ("k4", "k2"), CSPMConfig(
+            ("CEN_CS_PP-like", ("k4", "k2", "wmf"), CSPMConfig(
                 cost_method=CostMethod.CEN, use_cs=True, use_pp=True,
                 reg_lambda=0.3, scale_num=3, **base)),
             ("window-prescreen", ("k1", "k3_volume"), CSPMConfig(
@@ -1319,8 +1402,8 @@ def main() -> int:
     for name, pcfg, kernels, scene, seeds, px in (
             ("README_DEMO", README_DEMO, ("k1", "k2"), bench, (0, 1, 2),
              1.0),
-            ("CEN_CS_PP", CEN_CS_PP, ("k4", "k2"), bench, (0,), 1.0),
-            ("KITTI", KITTI, ("k1", "k2"), kitti, (0,), 3.0),
+            ("CEN_CS_PP", CEN_CS_PP, ("k4", "k2", "wmf"), bench, (0,), 1.0),
+            ("KITTI", KITTI, ("k1", "k2", "wmf"), kitti, (0,), 3.0),
             *((f"README_DEMO-{agg.value}",
                dataclasses.replace(README_DEMO, aggregator=agg), ("k1", "k2"),
                bench, (0,), 1.0)
@@ -1539,6 +1622,22 @@ def main() -> int:
     rec["k4_band"] = k4b
     del k4_band_preps, c_bf16, ct
 
+    # WMF over the tile's own pixels: the seed-0 CEN_CS_PP maps and mask
+    # with the half-window halo (zeros, so invalid, past the image), as
+    # parallel.tiled passes them
+    def wmf_ext(x):
+        return _ext_from_full(_ext_from_full(x, row0, ths, chw, 1), col0,
+                              tws, chw, 2).contiguous()
+
+    c_dis, c_imgs, c_valid = cs_wmf_in
+    rec["wmf_band"] = wmf_phase(
+        f"band form (tile {ths}x{tws} of a {MESH_BENCH} mesh)", CEN_CS_PP,
+        (wmf_ext(c_dis), wmf_ext(c_imgs),
+         wmf_ext(c_valid.to(torch.uint8)).bool()), 10,
+        outs_cs[0]["dis"][:, row0:row0 + ths, col0:col0 + tws],
+        center_row0=chw, out_h=ths, center_col0=chw, out_w=tws)
+    del cs_wmf_in, c_dis, c_imgs, c_valid
+
     # 10.2 a (1, 3, 2) gloo mesh of six ranks on the one card: README_DEMO
     # and CEN_CS_PP on the bench scene through the band forms
     t0 = time.perf_counter()
@@ -1547,7 +1646,7 @@ def main() -> int:
           f"{ranks[0]['transport']}, {time.perf_counter() - t0:.1f} s with "
           f"the processes' start")
     for name, kernels in (("README_DEMO", ("k1", "k2")),
-                          ("CEN_CS_PP", ("k4", "k2"))):
+                          ("CEN_CS_PP", ("k4", "k2", "wmf"))):
         runs = [rk["runs"][name] for rk in ranks]
         counts = {key: sum(rn["counts"][key] for rn in runs)
                   for key in runs[0]["counts"]}
@@ -1576,7 +1675,7 @@ def main() -> int:
     # same draws
     on_card = spawn_ranks("small", MESH_SMALL, "cuda")
     on_cpu = spawn_ranks("small", MESH_SMALL, "cpu")
-    for name, kernels in (("small", ("k1", "k2")),
+    for name, kernels in (("small", ("k1", "k2", "wmf")),
                           ("small window-prescreen", ("k1", "k3_volume"))):
         counts = {key: sum(rk["runs"][name]["counts"][key] for rk in on_card)
                   for key in on_card[0]["runs"][name]["counts"]}
@@ -1671,6 +1770,21 @@ def main() -> int:
           f"{line['vs_baseline']:.1f}, bad-pixel @1px max "
           f"{res['bad_pixel']['max']:.4f}, idle share "
           f"{res['profile']['idle_share']:.3f}")
+    # the cell with post-processing at the bench shape: WMF on its path
+    cell = next(c for c in bench_torch.CELLS if c.name == "cen_cs_pp")
+    reset_counts()
+    res = bench_torch.run_cell(cell, dev, pairs=3)
+    torch.cuda.synchronize()
+    paths["bench cen_cs_pp"] = read_counts()
+    check_counts("bench cen_cs_pp", paths["bench cen_cs_pp"],
+                 ("k4", "k2", "wmf"))
+    pp_phase = next(p for p in res["profile"]["phases"]
+                    if p["name"] == "postprocess")
+    print(f"phase 12: bench {cell.name} {res['ms_pair']['median']:.1f} "
+          f"ms/pair (3 pairs), bad-pixel @1px max "
+          f"{res['bad_pixel']['max']:.4f}; profiled pair's postprocess "
+          f"{pp_phase['device_ms']:.1f} device ms, {pp_phase['launches']} "
+          f"launches")
 
     # -- 13. the scaling bench under torchrun ---------------------------------
     import bench_scaling_torch
@@ -1766,6 +1880,7 @@ def main() -> int:
               f"the processes' start")
 
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
+    wmed = "crossscalepatchmatch_tpu/models/postprocess.py:151"
 
     def entry(name, key, source, replaces, band=False):
         """A kernel's record; a band form's launches are those of the
@@ -1799,6 +1914,11 @@ def main() -> int:
         entry("quadrant_build band form (K2)", "k2_band", "quadrant_build.cu",
               "crossscalepatchmatch_tpu/ops/pallas/quadrant_build.py:45",
               band=True),
+        # not a TPU kernel: the JAX engine's device loop (lax.fori_loop over
+        # the window offsets, :151, inside the 8-step bisection, :185)
+        entry("weighted_median (WMF)", "wmf", "weighted_median.cu", wmed),
+        entry("weighted_median band form (WMF)", "wmf_band",
+              "weighted_median.cu", wmed, band=True),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "card check")

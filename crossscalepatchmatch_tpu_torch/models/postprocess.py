@@ -9,7 +9,9 @@ device; cs_patchmatch.cc:347-588).
     scans; their planes are extrapolated at the filled pixel.
   * weighted_median (cs_patchmatch.cc:430-506): at each invalid pixel, the
     smallest d whose colour-weighted count of valid window disparities
-    <= d reaches half the window's total weight.
+    <= d reaches half the window's total weight; on the card kernel WMF
+    (ops.cuda.weighted_median), on the CPU its plain version
+    weighted_median_plain.
 """
 
 from __future__ import annotations
@@ -20,12 +22,17 @@ import torch
 
 from ..config import CSPMConfig
 from ..ops import plane
+from ..ops.cuda import weighted_median as wmf
 from ..ops.plane_cost import asw_lut
 
 # Disparity levels of a u8 map.
 N_LEVELS = 256
 # Budget of one block of weighted-median contributions, in f32 elements.
 WMF_BLOCK_ELEMS = 1 << 26
+
+# Calls of weighted_median_plain (a plain count; chip_smoke reads it to show
+# the card's paths never came through here).
+plain_launches = 0
 
 
 def lr_check(dis: torch.Tensor, cfg: CSPMConfig) -> torch.Tensor:
@@ -98,6 +105,22 @@ def weighted_median(dis: torch.Tensor, imgs: torch.Tensor,
                     center_row0: int = 0, out_h: int | None = None,
                     center_col0: int = 0,
                     out_w: int | None = None) -> torch.Tensor:
+    """weighted_median_plain's result: CPU tensors take it, CUDA tensors
+    kernel WMF (u8-equal to it); any other device raises ValueError."""
+    if dis.device.type == "cpu":
+        return weighted_median_plain(dis, imgs, valid, cfg, center_row0,
+                                     out_h, center_col0, out_w)
+    return wmf.weighted_median_cuda(
+        dis, imgs, valid, asw_lut(cfg.wmf_gamma, dis.device),
+        half_wnd=cfg.wnd_size // 2, center_row0=center_row0, out_h=out_h,
+        center_col0=center_col0, out_w=out_w)
+
+
+def weighted_median_plain(dis: torch.Tensor, imgs: torch.Tensor,
+                          valid: torch.Tensor, cfg: CSPMConfig,
+                          center_row0: int = 0, out_h: int | None = None,
+                          center_col0: int = 0,
+                          out_w: int | None = None) -> torch.Tensor:
     """Colour-weighted median of the valid window disparities, applied at
     the invalid pixels only.
 
@@ -126,6 +149,8 @@ def weighted_median(dis: torch.Tensor, imgs: torch.Tensor,
     Returns:
       u8[2, out_h, out_w].
     """
+    global plain_launches
+    plain_launches += 1
     _, h, w = dis.shape
     oh = h if out_h is None else out_h
     ow = w if out_w is None else out_w

@@ -58,6 +58,12 @@ SOURCES = {
         "cspm_fly_cost": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                           _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "weighted_median.cu": {
+        # pix, key, lut, idx, n (device), out, H, W, Ho, Wo, oy, ox,
+        # half_wnd, stream
+        "cspm_weighted_median": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _P),
+    },
     "f32_peak.cu": {
         # x, out, n, iters, m, c, stream
         "cspm_f32_peak": (_P, _P, ctypes.c_long, _I, ctypes.c_float,

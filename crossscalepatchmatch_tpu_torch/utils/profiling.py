@@ -197,22 +197,25 @@ def run_pair_phases(l_bgr_u8, r_bgr_u8, seed: int, cfg, *, device="cuda",
 
 def reset_launch_counts() -> None:
     """Every kernel's and plain version's launch counter to 0."""
+    from ..models import postprocess
     from ..ops import onthefly_cost, plane_cost, prescreen_volume
     from ..ops.cuda import (cross_scale_cost, fly_cost, quadrant_build,
-                            window_cost)
+                            weighted_median, window_cost)
 
     window_cost.launches = window_cost.strided_launches = 0
     quadrant_build.launches = cross_scale_cost.launches = 0
     fly_cost.launches.clear()
+    weighted_median.launches = postprocess.plain_launches = 0
     plane_cost.launches = prescreen_volume.launches = 0
     plane_cost.cross_scale_launches = onthefly_cost.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """The launch counters, by kernel (plain versions: *_plain)."""
+    from ..models import postprocess
     from ..ops import onthefly_cost, plane_cost, prescreen_volume
     from ..ops.cuda import (cross_scale_cost, fly_cost, quadrant_build,
-                            window_cost)
+                            weighted_median, window_cost)
 
     return {"k1": window_cost.launches - window_cost.strided_launches,
             "k3_volume": window_cost.strided_launches,
@@ -223,10 +226,12 @@ def launch_counts() -> Dict[str, int]:
             "k6": fly_cost.count(lerp="image"),
             "k7": fly_cost.count(lab=True),
             "fly": fly_cost.count(),
+            "wmf": weighted_median.launches,
             "k1_plain": plane_cost.launches,
             "k2_plain": prescreen_volume.launches,
             "k4_plain": plane_cost.cross_scale_launches,
-            "fly_plain": onthefly_cost.launches}
+            "fly_plain": onthefly_cost.launches,
+            "wmf_plain": postprocess.plain_launches}
 
 
 def busy_union(intervals) -> float:
@@ -244,14 +249,16 @@ def busy_union(intervals) -> float:
 
 def kernel_family(name: str, cfg) -> str:
     """The port's kernel a device op is (K1 / K4: the window-cost kernel at
-    one level or over the pyramid; K2; fly: the no-volume kernel, K5 / K3),
-    "other" for PyTorch's own ops."""
+    one level or over the pyramid; K2; fly: the no-volume kernel, K5 / K3;
+    WMF: the weighted median), "other" for PyTorch's own ops."""
     if "cross_scale_kernel" in name:
         return "K4" if cfg.use_cs else "K1"
     if "quadrant_build_kernel" in name:
         return "K2"
     if "fly_cost_kernel" in name:
         return "fly"
+    if "weighted_median_kernel" in name:
+        return "WMF"
     return "other"
 
 

@@ -13,6 +13,8 @@ crossscalepatchmatch_tpu utils/roofline.py).
     window-sample counts of a launch on given planes (axis_count,
     window_samples), bound() and nbytes(); chip_smoke.py reads its kernels'
     bounds from these;
+  * median_samples: the window samples the weighted median (kernel WMF)
+    reads on a validity mask, with WMF_OPS_PER_SAMPLE;
   * measure_f32_peak: the f32 ceiling the card sustains, from a
     hand-written FMA-chain kernel (csrc/f32_peak.cu).
 """
@@ -48,6 +50,10 @@ FLY_FLOPS_IN_RANGE = {"cost": FLOPS_IN_RANGE + 16, "image": 3 + 12 + 6 + 3
 # the two-tap lerp (two multiplies, an add) and the running sum
 RANK_FLOPS_CENTER = 4
 RANK_FLOPS_PER_QUADRANT = 10
+# the weighted median's window sample (kernel WMF, every pass): the L1
+# distance (three absolute differences, two adds), the threshold test and
+# the f32 add; counted at the f32 rate
+WMF_OPS_PER_SAMPLE = 7
 
 # the JAX model's semantic op counts (crossscalepatchmatch_tpu
 # utils/roofline.py): per (center, offset, candidate) the plane at q (2
@@ -235,6 +241,43 @@ def quadrant_build_samples(h: int, w: int, half_wnd: int, stride: int,
     return 2 * sum(axis(h, origin[0], ylo, yhi, oy)
                    * axis(w, origin[1], xlo, xhi, ox)
                    for oy in (neg, pos) for ox in (neg, pos))
+
+
+def median_samples(valid: torch.Tensor, half_wnd: int, center_row0: int = 0,
+                   out_h: int | None = None, center_col0: int = 0,
+                   out_w: int | None = None) -> int:
+    """Window samples kernel WMF reads on this mask (models.postprocess.
+    weighted_median's arguments): at each invalid output pixel of both
+    views, its window's pixels inside the array, once for the total and 8
+    more times (the bisection) where the window holds a valid pixel, the
+    total then being positive (the table's weights are all positive for
+    wmf_gamma > 765 / 103, where exp(-765 / gamma) is no f32 zero).
+
+    Args:
+      valid: bool[2, Ha, Wa]; the output window as weighted_median's.
+    """
+    _, h, w = valid.shape
+    oh = h if out_h is None else out_h
+    ow = w if out_w is None else out_w
+    dev = valid.device
+
+    def spans(c0, n, size):
+        c = torch.arange(c0, c0 + n, device=dev)
+        return (c - half_wnd).clamp(min=0), (c + half_wnd).clamp(max=size - 1)
+
+    y0, y1 = spans(center_row0, oh, h)
+    x0, x1 = spans(center_col0, ow, w)
+    area = (y1 - y0 + 1)[:, None] * (x1 - x0 + 1)[None, :]
+    # valid pixels in each window, from a summed-area table
+    sat = torch.nn.functional.pad(
+        valid.to(torch.int64).cumsum(1).cumsum(2), (1, 0, 1, 0))
+    y0, y1, x0, x1 = y0[:, None], y1[:, None] + 1, x0[None, :], x1[None, :] + 1
+    held = (sat[:, y1, x1] - sat[:, y0, x1] - sat[:, y1, x0]
+            + sat[:, y0, x0])
+    invalid = ~valid[:, center_row0:center_row0 + oh,
+                     center_col0:center_col0 + ow]
+    passes = 1 + 8 * (held > 0).to(torch.int64)
+    return int((invalid * area * passes).sum())
 
 
 def pipeline_flops(cfg: CSPMConfig, h: int, w: int) -> Dict[str, float]:

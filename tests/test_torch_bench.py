@@ -112,6 +112,9 @@ def test_summary_of_device_events():
                                    ) == "K4"
     assert profiling.kernel_family("fly_cost_kernel<false, false>", KITTI
                                    ) == "fly"
+    assert profiling.kernel_family(
+        "(anonymous namespace)::weighted_median_kernel(unsigned int const*)",
+        KITTI) == "WMF"
     assert any("idle gaps" in line for line in profiling.format_profile(s))
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1 (window cost), K2 (quadrant build), K3 (the
 strided window, volume and fly forms), K4 (cross-scale window cost), K5
-(the no-volume fly cost), K6 (its image-space lerp) and K7 (its Lab
-weights) against their plain PyTorch versions, on the card; and the entry
+(the no-volume fly cost), K6 (its image-space lerp), K7 (its Lab
+weights) and WMF (the weighted median of post-processing) against their
+plain PyTorch versions, on the card; and the entry
 points (the command line, a warm start, checkpoint and resume, the
 up-front refusal of a window the kernels do not take) running through
 them.
@@ -20,7 +21,8 @@ the exp/sum-order freedom the contract allows); a bf16 volume is compared
 with the plain version on the same bf16-rounded values widened to f32, at
 the same tolerance.  K4 is held tighter: bit-equal in f32, and bit-equal
 with bf16 census volumes (integer costs, exact in bf16).  The fly kernel
-(f32 throughout) is held at the f32 tolerance.
+(f32 throughout) is held at the f32 tolerance.  WMF's u8 maps are held
+equal to its plain version's, pixel for pixel.
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ import torch
 
 from crossscalepatchmatch_tpu_torch import CEN_CS_PP, README_DEMO, CSPMConfig
 from crossscalepatchmatch_tpu_torch.data import make_pair
+from crossscalepatchmatch_tpu_torch.models import postprocess
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
 from crossscalepatchmatch_tpu_torch.ops import onthefly_cost, plane_cost
 from crossscalepatchmatch_tpu_torch.ops import prescreen_volume
@@ -36,8 +39,11 @@ from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
 from crossscalepatchmatch_tpu_torch.ops.cuda import cross_scale_cost
 from crossscalepatchmatch_tpu_torch.ops.cuda import fly_cost
 from crossscalepatchmatch_tpu_torch.ops.cuda import quadrant_build
+from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
 from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost
 from crossscalepatchmatch_tpu_torch.ops.scale_weights import scale_weights
+from crossscalepatchmatch_tpu_torch.utils.profiling import (
+    reset_launch_counts as reset_counts)
 
 pytestmark = pytest.mark.gpu
 
@@ -675,24 +681,19 @@ def test_prepared_volumes_reject_what_the_kernels_do_not_take(cuda):
         window_cost.window_cost_prepared(deep, abc, half_wnd=1, max_dis=256)
 
 
-def reset_counts():
-    window_cost.launches = quadrant_build.launches = 0
-    window_cost.strided_launches = 0
-    cross_scale_cost.launches = 0
-    fly_cost.launches.clear()
-    plane_cost.launches = prescreen_volume.launches = 0
-    plane_cost.cross_scale_launches = onthefly_cost.launches = 0
-
-
-def test_pipeline_runs_through_the_kernels(cuda):
+@pytest.mark.parametrize("use_pp", [False, True])
+def test_pipeline_runs_through_the_kernels(cuda, use_pp):
+    """K1 for every exact evaluation, K2 once; with use_pp the weighted
+    median is one WMF launch and never its plain version."""
     pair = make_pair(h=48, w=64, max_dis=12, seed=3)
-    cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11)
+    cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11, use_pp=use_pp)
     reset_counts()
     out = run_pair(pair.left, pair.right, 0, cfg, device=cuda)
     torch.cuda.synchronize()
     assert out["dis"].shape == (2, 48, 64)
     assert window_cost.launches == 10 and quadrant_build.launches == 1
     assert plane_cost.launches == 0 and prescreen_volume.launches == 0
+    assert wmf.launches == int(use_pp) and postprocess.plain_launches == 0
 
 
 def test_cross_scale_pipeline_runs_through_the_kernels(cuda):
@@ -1058,3 +1059,129 @@ def test_f32_ceiling(cuda):
 
     peak = measure_f32_peak(cuda)
     assert 0 < peak < 1.05 * F32_FLOP_PER_S, peak
+
+
+# -- WMF, the weighted median ---------------------------------------------
+
+def wmf_scene(h, w, seed, invalid_share, cuda, levels=256, colours=None):
+    """u8 maps, images and a validity mask with `invalid_share` of the
+    pixels invalid; `levels` / `colours` few: many ties of S(t)."""
+    rng = np.random.default_rng(seed)
+    dis = (rng.integers(0, levels, (2, h, w)) * (255 // max(levels - 1, 1))
+           ).astype(np.uint8)
+    if colours:
+        palette = rng.integers(0, 256, (colours, 3), dtype=np.uint8)
+        imgs = palette[rng.integers(0, colours, (2, h, w))]
+    else:
+        imgs = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    valid = rng.uniform(size=(2, h, w)) >= invalid_share
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                 for a in (dis, imgs, valid))
+
+
+def wmf_both(dis, imgs, valid, wnd, **kw):
+    """(kernel, plain) on the same CUDA tensors; the kernel launched once."""
+    cfg = CSPMConfig(max_dis=12, dis_scale=8, wnd_size=wnd)
+    n = wmf.launches
+    got = postprocess.weighted_median(dis, imgs, valid, cfg, **kw)
+    torch.cuda.synchronize()
+    assert wmf.launches == n + 1
+    want = postprocess.weighted_median_plain(dis, imgs, valid, cfg, **kw)
+    assert got.dtype == torch.uint8 and got.device == dis.device
+    return got, want
+
+
+@pytest.mark.parametrize("wnd", [3, 11, 35])
+@pytest.mark.parametrize("share", [0.0, 0.002, 0.3, 1.0])
+@pytest.mark.parametrize("ties", [False, True])
+def test_wmf_equals_plain(cuda, wnd, share, ties):
+    """u8-equal to the plain version with no, a few, many and all pixels
+    invalid, on random scenes and on scenes with many ties of S(t)."""
+    kw = dict(levels=4, colours=2) if ties else {}
+    dis, imgs, valid = wmf_scene(40, 56, wnd, share, cuda, **kw)
+    got, want = wmf_both(dis, imgs, valid, wnd)
+    assert torch.equal(got, want)
+    if share == 0.3:
+        assert (got != dis).any()
+    elif share in (0.0, 1.0):
+        assert torch.equal(got, dis)
+
+
+def test_wmf_zero_total_pixels(cuda):
+    """Invalid pixels whose window holds no valid pixel keep dis."""
+    dis, imgs, valid = wmf_scene(30, 40, 5, 0.2, cuda, levels=4, colours=2)
+    valid[:, 5:20, 5:25] = False
+    got, want = wmf_both(dis, imgs, valid, 5)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:, 7:18, 7:23], dis[:, 7:18, 7:23])
+
+
+@pytest.mark.parametrize("wnd,hs,ws", [(11, 37, 51), (35, 125, 225)])
+def test_wmf_band_form(cuda, wnd, hs, ws):
+    """The band arguments as parallel.tiled passes them: a block with its
+    half-window halo, rows and columns past the global image invalid."""
+    hw = wnd // 2
+    dis, imgs, valid = wmf_scene(hs + 2 * hw, ws + 2 * hw, wnd, 0.1, cuda)
+    valid[:, :hw] = False
+    valid[:, :, -hw:] = False
+    kw = dict(center_row0=hw, out_h=hs, center_col0=hw, out_w=ws)
+    got, want = wmf_both(dis, imgs, valid, wnd, **kw)
+    assert got.shape == (2, hs, ws)
+    assert torch.equal(got, want)
+    # the block's centre with the halo as rows only (columns whole)
+    kw = dict(center_row0=hw, out_h=hs)
+    got, want = wmf_both(dis[:, :, hw:-hw].contiguous(),
+                         imgs[:, :, hw:-hw].contiguous(),
+                         valid[:, :, hw:-hw].contiguous(), wnd, **kw)
+    assert torch.equal(got, want)
+
+
+def test_wmf_kitti_shape(cuda):
+    """At KITTI's 375 x 1242, wnd 35, on the LR-invalid mask of a noisy
+    plane field around the scene's ground truth."""
+    from crossscalepatchmatch_tpu_torch import KITTI
+    from crossscalepatchmatch_tpu_torch.models.patchmatch import plane_to_disp
+    from crossscalepatchmatch_tpu_torch.ops import plane
+
+    pair = make_pair(h=375, w=1242, max_dis=128, seed=0)
+    rng = np.random.default_rng(0)
+    gt = np.stack([pair.disp_left, pair.disp_right])
+    dc = gt + rng.normal(0, 0.05, gt.shape).astype(np.float32)
+    wrong = rng.uniform(size=gt.shape) < 0.05
+    dc[wrong] = rng.uniform(0, 128, wrong.sum())
+    xs, ys = plane.pixel_grid(375, 1242, cuda)
+    abc = plane.reanchor(torch.zeros((2, 375, 1242, 2), device=cuda), xs, ys,
+                         torch.from_numpy(dc).to(cuda))
+    dis = plane_to_disp(abc, KITTI.dis_scale)
+    valid = postprocess.lr_check(dis, KITTI)
+    dis = postprocess.fill_invalid(dis, abc, valid, KITTI)
+    imgs = torch.from_numpy(np.stack([pair.left, pair.right])).to(cuda)
+    got, want = wmf_both(dis, imgs, valid, KITTI.wnd_size)
+    assert 0.01 < float((~valid).float().mean()) < 0.5
+    assert torch.equal(got, want)
+
+
+def test_wmf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    dis, imgs, valid = wmf_scene(12, 16, 1, 0.3, cuda)
+    lut = plane_cost.asw_lut(10.0, cuda)
+    n = wmf.launches
+    bad = [
+        ((dis.float(), imgs, valid, lut), {}),
+        ((dis, imgs.to(torch.int32), valid, lut), {}),
+        ((dis, imgs, valid.to(torch.uint8), lut), {}),
+        ((dis, imgs, valid, lut.half()), {}),
+        ((dis[:1], imgs[:1], valid[:1], lut), {}),
+        ((dis, imgs[..., :2], valid, lut), {}),
+        ((dis, imgs, valid, lut[:-1]), {}),
+        ((dis, imgs, valid, torch.stack([lut, lut], 1)[:, 0]), {}),
+        ((dis, imgs.cpu(), valid, lut), {}),
+        ((dis, imgs, valid, lut.cpu()), {}),
+        ((dis.cpu(), imgs.cpu(), valid.cpu(), lut.cpu()), {}),
+        ((dis, imgs, valid, lut), dict(half_wnd=-1)),
+        ((dis, imgs, valid, lut), dict(center_row0=1, out_h=12)),
+        ((dis, imgs, valid, lut), dict(center_col0=4, out_w=13)),
+    ]
+    for args, kw in bad:
+        with pytest.raises(ValueError):
+            wmf.weighted_median_cuda(*args, **{"half_wnd": 2, **kw})
+    assert wmf.launches == n

@@ -122,6 +122,7 @@ def test_port_imports_no_jax():
         "import crossscalepatchmatch_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
+        "assert p.__name__ + '.ops.cuda.weighted_median' in names\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke, bench_torch, bench_scaling_torch\n"
         "for t in ('torch_eval', 'torch_kitti_anchor'):\n"

@@ -8,7 +8,10 @@ Tolerances:
     holds XLA:CPU's own exp values; with PyTorch's exp (which differs from
     XLA:CPU's in the last ulp at some of the 766 integer L1 distances) at
     most 1 level on at most 0.5 % of the replaced pixels, the one freedom
-    allowed.
+    allowed;
+  * kernel WMF's order (a total, then 8 bisection passes of sequential
+    sums; csrc/weighted_median.cu) against the plain weighted median, both
+    in plain torch: exact (u8), ties included.
 """
 
 import jax
@@ -134,3 +137,179 @@ def test_postprocess(scene, monkeypatch, xla_weights):
     else:
         assert diff.max() <= 1
         assert (diff > 0).sum() <= EXP_ULP_SHARE * (~got_valid).sum()
+
+
+# -- the weighted-median kernel's order (csrc/weighted_median.cu), on the CPU
+
+def kernel_order_median(dis, imgs, valid, cfg, center_row0=0, out_h=None,
+                        center_col0=0, out_w=None):
+    """The weighted median in kernel WMF's order, in plain torch: at each
+    invalid output pixel one pass forms the total S(255), then 8 bisection
+    passes each form S(mid); every pass is one sequential f32 sum over the
+    window in dy-major order, adding lut[L1] only where q lies in the
+    array, is valid and has dis_q <= t (an invalid q carries key 256)."""
+    _, h, w = dis.shape
+    oh = h if out_h is None else out_h
+    ow = w if out_w is None else out_w
+    hw = cfg.wnd_size // 2
+    lut = pp.asw_lut(cfg.wmf_gamma, "cpu")
+    key = torch.where(valid, dis.to(torch.int64), 256)
+    img = imgs.to(torch.int64)
+    out = dis[:, center_row0:center_row0 + oh,
+              center_col0:center_col0 + ow].clone()
+    for v in range(2):
+        ys, xs = torch.nonzero(~valid[v, center_row0:center_row0 + oh,
+                                      center_col0:center_col0 + ow],
+                               as_tuple=True)
+        py, px = ys + center_row0, xs + center_col0
+        center = img[v, py, px]
+
+        def window_sum(t):
+            s = torch.zeros(len(py), dtype=torch.float32)
+            for dy in range(-hw, hw + 1):
+                for dx in range(-hw, hw + 1):
+                    qy, qx = py + dy, px + dx
+                    inside = (qy >= 0) & (qy < h) & (qx >= 0) & (qx < w)
+                    qy, qx = qy.clamp(0, h - 1), qx.clamp(0, w - 1)
+                    take = inside & (key[v, qy, qx] <= t)
+                    l1 = (img[v, qy, qx] - center).abs().sum(-1)
+                    s = torch.where(take, s + lut[l1], s)
+            return s
+
+        half = window_sum(torch.full((len(py),), 255)) * 0.5
+        lo = torch.zeros(len(py), dtype=torch.int64)
+        hi = torch.full((len(py),), 255)
+        for _ in range(8):
+            mid = (lo + hi) >> 1
+            ge = window_sum(mid) >= half
+            lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
+        rep = half > 0
+        out[v, ys[rep], xs[rep]] = lo[rep].to(torch.uint8)
+    return out
+
+
+def tie_scene(h, w, seed, invalid_share, levels=4, colours=2):
+    """u8 maps of a few disparity levels over images of a few colours, so
+    that many weights are equal and S(t) often lands exactly on half the
+    total; `invalid_share` of the pixels invalid."""
+    rng = np.random.default_rng(seed)
+    dis = rng.integers(0, levels, (2, h, w)).astype(np.uint8) * 60
+    palette = rng.integers(0, 256, (colours, 3), dtype=np.uint8)
+    imgs = palette[rng.integers(0, colours, (2, h, w))]
+    valid = rng.uniform(size=(2, h, w)) >= invalid_share
+    return (torch.from_numpy(dis), torch.from_numpy(np.ascontiguousarray(
+        imgs)), torch.from_numpy(valid))
+
+
+def median_cfg(wnd):
+    return config_pair(max_dis=12, dis_scale=8, wnd_size=wnd)[1]
+
+
+@pytest.mark.parametrize("wnd", [3, 11, 35])
+@pytest.mark.parametrize("kind", ["ties", "random"])
+def test_kernel_order_equals_plain_weighted_median(wnd, kind):
+    """The kernel's order (a total, then 8 bisection passes of sequential
+    sums) picks the plain version's t at every pixel, on scenes with many
+    exact ties of S(t) and on random ones."""
+    if kind == "ties":
+        dis, imgs, valid = tie_scene(18, 22, wnd, 0.4)
+    else:
+        rng = np.random.default_rng(wnd)
+        dis = torch.from_numpy(rng.integers(0, 256, (2, 18, 22),
+                                            dtype=np.uint8))
+        imgs = torch.from_numpy(rng.integers(0, 256, (2, 18, 22, 3),
+                                             dtype=np.uint8))
+        valid = torch.from_numpy(rng.uniform(size=(2, 18, 22)) >= 0.3)
+    cfg = median_cfg(wnd)
+    want = pp.weighted_median_plain(dis, imgs, valid, cfg)
+    got = kernel_order_median(dis, imgs, valid, cfg)
+    assert torch.equal(got, want)
+    assert torch.equal(pp.weighted_median(dis, imgs, valid, cfg), want)
+    assert (want != dis).any()                 # it replaced pixels
+
+
+@pytest.mark.parametrize("case", ["none_invalid", "all_invalid",
+                                  "zero_total"])
+def test_kernel_order_edge_masks(case):
+    """No invalid pixel (nothing replaced), every pixel invalid (every total
+    0: nothing replaced) and invalid pixels whose window holds no valid
+    pixel (a zero total: kept) beside replaced ones."""
+    dis, imgs, valid = tie_scene(16, 20, 7, 0.3)
+    if case == "none_invalid":
+        valid[:] = True
+    elif case == "all_invalid":
+        valid[:] = False
+    else:
+        valid[:, :7, :7] = False               # a 3x3 window sees none
+    cfg = median_cfg(3)
+    want = pp.weighted_median_plain(dis, imgs, valid, cfg)
+    assert torch.equal(kernel_order_median(dis, imgs, valid, cfg), want)
+    if case == "zero_total":
+        assert torch.equal(want[:, 1:6, 1:6], dis[:, 1:6, 1:6])
+        assert (want != dis).any()
+    else:
+        assert torch.equal(want, dis)
+
+
+@pytest.mark.parametrize("wnd", [3, 11])
+def test_kernel_order_band_form(wnd):
+    """The band arguments as parallel.tiled passes them: a tile's block with
+    its half-window halo, rows above the global image invalid, the output
+    the block's centre (odd origin, columns extended too)."""
+    hw, hs, ws = wnd // 2, 9, 13
+    dis, imgs, valid = tie_scene(hs + 2 * hw, ws + 2 * hw, 11, 0.35)
+    valid[:, :hw] = False                      # rows past the global image
+    kw = dict(center_row0=hw, out_h=hs, center_col0=hw, out_w=ws)
+    cfg = median_cfg(wnd)
+    want = pp.weighted_median_plain(dis, imgs, valid, cfg, **kw)
+    assert want.shape == (2, hs, ws)
+    assert torch.equal(kernel_order_median(dis, imgs, valid, cfg, **kw),
+                       want)
+    assert torch.equal(pp.weighted_median(dis, imgs, valid, cfg, **kw), want)
+
+
+def test_cpu_run_never_calls_the_kernel(scene):
+    """Post-processing on CPU tensors takes the plain weighted median: the
+    kernel's counter stays 0."""
+    from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median
+    from crossscalepatchmatch_tpu_torch.utils import profiling
+
+    profiling.reset_launch_counts()
+    pp.postprocess(scene["dis"], scene["abc"], scene["imgs"], scene["cfg"])
+    counts = profiling.launch_counts()
+    assert counts["wmf"] == weighted_median.launches == 0
+    assert counts["wmf_plain"] == pp.plain_launches == 1
+
+
+def test_wmf_wrapper_checks_without_a_card():
+    """The kernel's wrapper raises on a dtype, a shape or an output window
+    it does not take, and on tensors off the card, before any launch."""
+    from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
+
+    dis, imgs, valid = tie_scene(8, 10, 1, 0.3)
+    lut = pp.asw_lut(10.0, "cpu")
+    n = wmf.launches
+    cases = [
+        ((dis.to(torch.int32), imgs, valid, lut), {}, "dis: dtype"),
+        ((dis, imgs.float(), valid, lut), {}, "imgs: dtype"),
+        ((dis, imgs, valid.to(torch.uint8), lut), {}, "valid: dtype"),
+        ((dis, imgs, valid, lut.double()), {}, "lut: dtype"),
+        ((dis[0], imgs, valid, lut), {}, "dis: shape"),
+        ((dis, imgs[:, :, :9], valid, lut), {}, "imgs: shape"),
+        ((dis, imgs, valid[:1], lut), {}, "valid: shape"),
+        ((dis, imgs, valid, lut[:10]), {}, "lut: shape"),
+        ((dis, imgs, valid, lut), dict(half_wnd=-1), "half_wnd"),
+        ((dis, imgs, valid, lut), dict(center_row0=2, out_h=7),
+         "output window"),
+        ((dis, imgs, valid, lut), dict(center_col0=-1, out_w=4),
+         "output window"),
+        ((dis, imgs, valid, lut), {}, "expected a CUDA tensor"),
+    ]
+    for args, kw, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            wmf.weighted_median_cuda(*args, **{"half_wnd": 1, **kw})
+    # the dispatcher sends a tensor on neither the CPU nor the card there
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        pp.weighted_median(dis.to("meta"), imgs.to("meta"),
+                           valid.to("meta"), median_cfg(3))
+    assert wmf.launches == n

@@ -157,6 +157,32 @@ def test_quadrant_build_samples():
                                            (0, h + 4, 0, w + 6)) > want
 
 
+@pytest.mark.parametrize("h,w,hw,band", [
+    (9, 11, 2, {}),
+    (14, 15, 3, dict(center_row0=3, out_h=8, center_col0=3, out_w=9)),
+    (6, 7, 5, dict(center_row0=1, out_h=4))])
+def test_median_samples(h, w, hw, band):
+    """WMF's window samples, counted directly: at each invalid output pixel
+    its in-array window pixels, 1 pass, or 9 where one of them is valid."""
+    valid = torch.from_numpy(
+        np.random.default_rng(h).uniform(size=(2, h, w)) > 0.6)
+    valid[:, :2, :3] = False
+    r0, c0 = band.get("center_row0", 0), band.get("center_col0", 0)
+    oh, ow = band.get("out_h", h), band.get("out_w", w)
+    want = 0
+    for v in range(2):
+        for y in range(r0, r0 + oh):
+            for x in range(c0, c0 + ow):
+                if valid[v, y, x]:
+                    continue
+                win = [(qy, qx) for qy in range(y - hw, y + hw + 1)
+                       for qx in range(x - hw, x + hw + 1)
+                       if 0 <= qy < h and 0 <= qx < w]
+                held = any(valid[v, qy, qx] for qy, qx in win)
+                want += len(win) * (9 if held else 1)
+    assert roofline.median_samples(valid, hw, **band) == want
+
+
 def test_fma_chain_plain_and_no_cpu_ceiling():
     """On the CPU the chain is its plain version: with m = c = 1 every
     element gains exactly one per step; measure_f32_peak has no CPU
