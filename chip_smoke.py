@@ -13,6 +13,15 @@ Phases, each fatal on failure:
      and bf16 volumes; K3's volume form (stride 2, K=8) the same;
   4. K2, the quadrant-volume build: the same at the bench shape; K2 and K1
      (K=1) again on the KITTI scene's 129 slices (375x1242, max_dis=128);
+  4b. GRDV (the GRD cost volume) and QRANK (the quadrant ranking) against
+     their plain versions on the card, on the seed-0 bench (d=60) and
+     KITTI (d=128) scenes: GRDV both views, QRANK on K2's output over the
+     scene's volumes at K = 8 and 1 (test_planes); 0 differing f32
+     elements each; the plain GRD volume on the card against the CPU's
+     (the elements PyTorch's CUDA division by 3.0, a multiply by f32(1/3),
+     rounds apart from the CPU's true division: why GRDV multiplies);
+     kernel (GRDV: the wrapper and the launch alone, one view), plain and
+     bound ms (utils.roofline.grd_volume_work, quadrant_rank_work);
   5. K4, the cross-scale window cost: the same on the 5-level census
      pyramid of the bench scene (CEN_CS_PP); f32 within 2e-5 relative, and
      bf16 census volumes (integers, exact in bf16) bit-equal; K = 2, 3, 5,
@@ -39,7 +48,8 @@ Phases, each fatal on failure:
      left view), KITTI without a volume on a 375x1242 max_dis=128 scene for
      seeds 0 and 0 again (@3px <= 0.01, @1px printed) and KITTI with its
      volumes for seed 0 (the K2 repair, and the memory comparison); the
-     path's kernels must have launched and no plain version; seed 0
+     path's kernels must have launched (GRDV and QRANK on every volume
+     path: GRD volumes, the quadrant ranking) and no plain version; seed 0
      bit-identical on rerun, and a digest of its `dis` bytes printed (to
      compare two checkouts on one card); ms/pair and peak device memory;
      for CEN_CS_PP
@@ -76,7 +86,9 @@ Phases, each fatal on failure:
      levels) on the bench scene's middle tile of a (1, 3, 2) mesh (125 +
      34 rows x 225 + 34 columns, origin (125, 225)) against their plain
      band forms, f32 bit-equal (bf16 census volumes too for K4), timed
-     beside the whole-image forms; WMF's band form on the same tile (the
+     beside the whole-image forms; QRANK on K2's band-form output (K = 8,
+     1) and GRDV on the tile's full-width row band, 0 differing elements;
+     WMF's band form on the same tile (the
      seed-0 CEN_CS_PP maps, halo-extended) u8-equal to its plain band form
      and to the whole-image result's tile; a (1, 3, 2) mesh of six gloo
      ranks on the one card (halos staged through the host) runs README_DEMO
@@ -99,7 +111,7 @@ Phases, each fatal on failure:
      default-schedule exposure_grd_pp, printed beside the JAX engine's
      +0.0062 / CI +0.0065) or the anchor with the bootstrap's 95% upper
      bound on the delta over 0.005, or fewer than the 11 rows without a
-     photo scored; then the port's GRD and CEN volumes (build_volume on
+     photo scored; then the port's GRD and CEN volumes (build_volumes on
      the card) against the oracle's cost_volume on a 64x96 d=12 scene
      (rtol 1e-4), and the f32 ceiling (utils.roofline.measure_f32_peak:
      csrc/f32_peak.cu, held against its plain version within 1e-5
@@ -109,9 +121,9 @@ Phases, each fatal on failure:
   12. the benchmark's readme_demo cell (bench_torch.run_cell, in process,
      5 timed pairs; a path of its own for the counters): its record must
      make bench_torch's result line (bench.py's keys), every pair within
-     its bad-pixel gate; its ms/pair printed; then the cen_cs_pp cell (3
-     timed pairs, a path of its own: K4, K2 and WMF launched, no plain
-     version).
+     its bad-pixel gate, K1, K2, GRDV and QRANK launched; its ms/pair
+     printed; then the cen_cs_pp cell (3 timed pairs, a path of its own:
+     K4, K2, QRANK and WMF launched, no plain version).
   13. the scaling bench (bench_scaling_torch.py, 384x448 d=60 wnd 35).
      First the band forms of K1 (K = 1, 2) and K2, bit-equal in f32 to
      their plain band forms on the bench's tiles (the whole image of the
@@ -122,12 +134,13 @@ Phases, each fatal on failure:
      ty=1 over rank 0 and ty=2); each must exit 0 and print one JSON
      line per mesh with bench_scaling.py's keys, every call within its
      bad-pixel gate, the efficiency value / (value at n = 1 * n), and the
-     band forms of K1 and K2 launched and no plain version (each run's
+     band forms of K1, K2, GRDV and QRANK launched and no plain version
+     (each run's
      meshes are paths of their own for the counters: the bench reads the
      counters around its timed calls on every rank); the lines printed.
 Every bound is counted by utils.roofline (bound, window_samples,
-quadrant_build_samples, median_samples and the per-sample operation
-counts).
+quadrant_build_samples, median_samples, grd_volume_work,
+quadrant_rank_work and the per-sample operation counts).
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 `python3 chip_smoke.py --shard-worker ...` is one rank of phase 10 (the
@@ -158,6 +171,10 @@ F32_REL_TOL = 2e-5          # |kernel - plain| <= tol * max(1, |plain|)
 BAD_PIXEL_MAX = 0.01
 # candidate counts of the optimizer's batches (exact 1-3, prescreen 4-8)
 MANY_KS = (1, 2, 3, 5, 8)
+# the kernels a volume path launches: GRD volumes (GRDV) ranked on the
+# quadrant volumes (K2, QRANK) with K1 exact; census (no GRDV) with K4
+GRD_PATH = ("k1", "k2", "grdv", "qrank")
+CEN_CS_PATH = ("k4", "k2", "qrank")
 OTHER_HALF_WND = 8          # a window other than the presets' half_wnd 17
 SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level, card vs CPU
 # the sharding phase: the bench scene on a (data, ty, tx) = (1, 3, 2) mesh
@@ -302,7 +319,7 @@ def phase11(dev, card, paths, check_counts):
     from crossscalepatchmatch_tpu_torch import oracle
     from crossscalepatchmatch_tpu_torch.data import make_pair
     from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
-    from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume
+    from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volumes
     from crossscalepatchmatch_tpu_torch.ops.cuda import f32_peak
     from crossscalepatchmatch_tpu_torch.utils.profiling import (
         launch_counts as read_counts, reset_launch_counts as reset_counts)
@@ -366,7 +383,7 @@ def phase11(dev, card, paths, check_counts):
                       ("CS ablation", ablation), ("anchor", anchor)):
         print(f"{name} JSON: {json.dumps(res)}")
 
-    # the port's volumes (build_volume on the card) against the oracle's
+    # the port's volumes (build_volumes on the card) against the oracle's
     vpair = make_pair(**ORACLE_VOLUME_SHAPE, seed=11)
     vl = bgr_to_rgb(torch.as_tensor(vpair.left, device=dev))
     vr = bgr_to_rgb(torch.as_tensor(vpair.right, device=dev))
@@ -375,11 +392,11 @@ def phase11(dev, card, paths, check_counts):
     for cc in ("GRD", "CEN"):
         vcfg = CSPMConfig(max_dis=md, dis_scale=16,
                           cost_method=CostMethod[cc])
+        both = build_volumes(vl, vr, md, vcfg).double().cpu().numpy()
         for right in (False, True):
             want = oracle.cost_volume(vpair.left, vpair.right, max_dis=md,
                                       cc_name=cc, right=right)
-            got = np.moveaxis(build_volume(vl, vr, md, vcfg, right).double()
-                              .cpu().numpy(), -1, 0)
+            got = np.moveaxis(both[int(right)], -1, 0)
             ok = got.shape == want.shape and np.allclose(
                 got, want, rtol=VOLUME_RTOL, atol=VOLUME_RTOL)
             err = float(np.abs(got - want).max()) if ok else float("nan")
@@ -598,14 +615,18 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                                 run_pair_np)
     from crossscalepatchmatch_tpu_torch.models.postprocess import postprocess
-    from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost, plane_cost,
+    from crossscalepatchmatch_tpu_torch.ops import (onthefly_cost,
+                                                    plane_cost,
                                                     prescreen_volume)
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
         build_volume_data)
     from crossscalepatchmatch_tpu_torch.ops.cuda import (_build,
                                                          cross_scale_cost,
                                                          fly_cost,
+                                                         grd_volume,
                                                          quadrant_build,
+                                                         quadrant_rank,
                                                          window_cost)
     from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
@@ -615,8 +636,8 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
     from crossscalepatchmatch_tpu_torch.utils.roofline import (
         FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE,
-        WMF_OPS_PER_SAMPLE, bound, median_samples, nbytes,
-        quadrant_build_samples, window_samples)
+        WMF_OPS_PER_SAMPLE, bound, grd_volume_work, median_samples, nbytes,
+        quadrant_build_samples, quadrant_rank_work, window_samples)
 
     pkg = "crossscalepatchmatch_tpu_torch"
     dev = torch.device("cuda:0")
@@ -769,6 +790,120 @@ def main() -> int:
     rec["k1"]["max_abs_err"] = max(rec["k1"]["max_abs_err"],
                                    k1_129["max_abs_err"])
     del kvd
+
+    # -- 4b. GRDV and QRANK ---------------------------------------------------
+    def grdv_check(name, gl, gr, gcfg, reps):
+        """GRDV against its plain version on the card, both views (0
+        differing elements), the plain volumes on the card against the
+        CPU's (the elements the x 1/3 rounds apart), and the pair's
+        wrapper (one packing, two launches), its two launches alone and
+        the plain version timed in turns."""
+        gmd = gcfg.max_dis
+        gkw = dict(alpha=gcfg.cost_alpha, tau_clr=gcfg.tau_clr,
+                   tau_grd=gcfg.tau_grd, border_thres=gcfg.border_thres)
+        got = grd_volume.grd_volumes(gl, gr, gmd, **gkw)
+        want = grd_volume.grd_volumes_plain(gl, gr, gmd, **gkw)
+        if got.shape != want.shape:
+            raise RuntimeError(f"GRDV {name}: bad output {got.shape}")
+        diff = int((got != want).sum())
+        ab = float((got - want).abs().max())
+        del got
+        third = int((want.cpu() != grd_volume.grd_volumes_plain(
+            gl.cpu(), gr.cpu(), gmd, **gkw)).sum())
+        del want
+        print(f"GRDV {name}: kernel vs plain on the card {diff} differing "
+              f"f32 elements (both views); plain card vs CPU {third} "
+              f"differing elements (the x 1/3 rounding)")
+        if diff:
+            raise RuntimeError(f"GRDV {name}: {diff} elements differ from "
+                               "the plain version")
+        pix = grd_volume.pack_views(gl, gr)
+        t = time_turns({
+            "kernel": lambda: grd_volume.grd_volumes(gl, gr, gmd, **gkw),
+            "launch": lambda: [grd_volume.grd_volume_packed(
+                pix, gmd, right=right, **gkw) for right in (False, True)],
+            "plain": lambda: grd_volume.grd_volumes_plain(gl, gr, gmd,
+                                                          **gkw)},
+            {"kernel": reps, "launch": reps, "plain": 1})
+        gh, gw_ = gl.shape[:2]
+        b_ms, b_by = bound(*grd_volume_work(gh, gw_, gmd))
+        print(f"GRDV {name} (both views, 2x{gh}x{gw_}x{gmd + 1}): plain "
+              f"{t['plain']:.3f} ms | wrapper {t['kernel']:.3f} ms | two "
+              f"launches alone {t['launch']:.3f} ms | bound {b_ms:.4f} ms "
+              f"({b_by}); {card}")
+        return dict(max_abs_err=ab, differing_elements=diff,
+                    third_rounding_elements=third, ms=t["kernel"],
+                    launch_ms=t["launch"], plain_ms=t["plain"], bound_ms=b_ms,
+                    bound_by=b_by)
+
+    def qrank_check(name, bq, wq, qmc, abc, qhw, qmd, reps):
+        """QRANK against the plain ranking of each view on the card (0
+        differing elements), both timed in turns."""
+        def kernel():
+            return quadrant_rank.quadrant_rank(bq, wq, qmc, abc,
+                                               half_wnd=qhw, max_dis=qmd)
+
+        def plain():
+            return torch.stack([prescreen_volume.quadrant_prescreen_cost(
+                bq[v], wq[v], qmc[v], abc[v], half_wnd=qhw, max_dis=qmd)
+                for v in range(2)])
+
+        got, want = kernel(), plain()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"QRANK {name}: bad output {got.shape}")
+        diff = int((got != want).sum())
+        ab = float((got - want).abs().max())
+        del got, want
+        t = time_turns({"kernel": kernel, "plain": plain},
+                       {"kernel": reps, "plain": 1})
+        q_bytes, q_ops = quadrant_rank_work(abc, qhw, qmd)
+        b_ms, b_by = bound(q_bytes, q_ops)
+        print(f"QRANK {name}: kernel vs plain {diff} differing f32 elements; "
+              f"plain {t['plain']:.3f} ms | kernel {t['kernel']:.3f} ms | "
+              f"{q_bytes} bytes; bound {b_ms:.4f} ms ({b_by}); {card}")
+        if diff:
+            raise RuntimeError(f"QRANK {name}: {diff} elements differ from "
+                               "the plain version")
+        return dict(max_abs_err=ab, differing_elements=diff, ms=t["kernel"],
+                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+
+    def grd_rank_phase(name, p, pl, pr, pcfg, reps):
+        """GRDV on a scene's views, then QRANK at K = 8 and 1 on K2's
+        output over the scene's GRDV volumes (f32)."""
+        out = {"grdv": grdv_check(name, bgr_to_rgb(pl), bgr_to_rgb(pr), pcfg,
+                                  reps)}
+        pvd = build_volume_data(pl, pr, pcfg)
+        prep = window_cost.prepare_volumes(
+            pvd.imgs[0], pvd.vols[0], pvd.max_costs[0], half_wnd=pcfg.half_wnd,
+            max_dis=pcfg.max_dis, gamma=pcfg.wgt_gamma)
+        del pvd
+        bq, wq = quadrant_build.quadrant_volumes_prepared(
+            prep, half_wnd=pcfg.half_wnd, gamma=pcfg.wgt_gamma,
+            stride=max(pcfg.prescreen_stride, 1))
+        for k in (8, 1):
+            abc = test_planes(p, pcfg.max_dis, k, gen, dev)
+            out[f"qrank_k{k}"] = qrank_check(
+                f"{name} K={k}", bq, wq, prep.max_costs, abc, pcfg.half_wnd,
+                pcfg.max_dis, reps)
+        return out
+
+    gr_bench = grd_rank_phase("bench seed 0", pair, l, r, cfg, 10)
+    gr_kitti = grd_rank_phase("KITTI seed 0", kpair, kl, kr, KITTI, 5)
+    rec["grdv"] = dict(gr_bench["grdv"], **{
+        f"{key}_kitti": val for key, val in gr_kitti["grdv"].items()
+        if key != "bound_by"})
+    rec["qrank"] = dict(gr_bench["qrank_k8"], **{
+        f"{key}_k1": val for key, val in gr_bench["qrank_k1"].items()
+        if key != "bound_by"}, **{
+        f"{key}_kitti": val for key, val in gr_kitti["qrank_k8"].items()
+        if key != "bound_by"}, **{
+        f"{key}_kitti_k1": val for key, val in gr_kitti["qrank_k1"].items()
+        if key != "bound_by"})
+    for key in ("grdv", "qrank"):
+        rec[key]["max_abs_err"] = max(v for f, v in rec[key].items()
+                                      if f.startswith("max_abs_err"))
+    del gr_bench, gr_kitti
+    torch.cuda.empty_cache()
 
     # -- 5. K4 ----------------------------------------------------------------
     ccfg = CEN_CS_PP
@@ -1053,9 +1188,9 @@ def main() -> int:
     bench = (pair, l, r)
     paths, bf16_bads = {}, {}
     _, paths["README_DEMO"], bf16_bads["README_DEMO"] = main_path(
-        "README_DEMO", README_DEMO, ("k1", "k2"), bench, (0, 1, 2, 0), 1.0)
+        "README_DEMO", README_DEMO, GRD_PATH, bench, (0, 1, 2, 0), 1.0)
     outs_cs, paths["CEN_CS_PP"], bf16_bads["CEN_CS_PP"] = main_path(
-        "CEN_CS_PP", CEN_CS_PP, ("k4", "k2", "wmf"), bench, (0, 1, 2, 0),
+        "CEN_CS_PP", CEN_CS_PP, (*CEN_CS_PATH, "wmf"), bench, (0, 1, 2, 0),
         1.0)
     _, paths["README_DEMO-fly"], _ = main_path(
         "README_DEMO-fly", fcfg, ("k5", "k3_fly"), bench, (0, 1, 2, 0), 1.0)
@@ -1063,7 +1198,7 @@ def main() -> int:
                                          ("k5", "k3_fly", "wmf"), kitti,
                                          (0, 0), 3.0)
     outs_k, paths["KITTI"], bf16_bads["KITTI"] = main_path(
-        "KITTI", KITTI, ("k1", "k2", "wmf"), kitti, (0,), 3.0)
+        "KITTI", KITTI, (*GRD_PATH, "wmf"), kitti, (0,), 3.0)
 
     # postprocess alone on the seed-0 planes: time, launches, same output
     from torch.profiler import ProfilerActivity, profile
@@ -1176,11 +1311,11 @@ def main() -> int:
                                f"{SMALL_AGREE_MIN}")
 
     for name, kernels, scfg in (
-            ("README_DEMO-like", ("k1", "k2"), CSPMConfig(**base)),
-            ("CEN_CS_PP-like", ("k4", "k2", "wmf"), CSPMConfig(
+            ("README_DEMO-like", GRD_PATH, CSPMConfig(**base)),
+            ("CEN_CS_PP-like", (*CEN_CS_PATH, "wmf"), CSPMConfig(
                 cost_method=CostMethod.CEN, use_cs=True, use_pp=True,
                 reg_lambda=0.3, scale_num=3, **base)),
-            ("window-prescreen", ("k1", "k3_volume"), CSPMConfig(
+            ("window-prescreen", ("k1", "k3_volume", "grdv"), CSPMConfig(
                 prescreen_mode="window", **base)),
             ("fly-cost", ("k5", "k3_fly"), CSPMConfig(
                 precompute_volume=False, **base)),
@@ -1251,7 +1386,7 @@ def main() -> int:
             raise RuntimeError("CLI in-process: non-zero exit")
         torch.cuda.synchronize()
         paths["CLI"] = read_counts()
-        check_counts("CLI (in process)", paths["CLI"], ("k1", "k2"))
+        check_counts("CLI (in process)", paths["CLI"], GRD_PATH)
         want = run_pair_np(pair.left, pair.right, cli.config_from_args(
             cli.build_parser().parse_args(flags("x"))), seed=0)["dis"]
         same = [np.array_equal(cli_maps(t), want) for t in ("sub", "inproc")]
@@ -1298,7 +1433,7 @@ def main() -> int:
         seq, ms = sequence()
         paths["warm sequence"] = read_counts()
         peak = torch.cuda.max_memory_allocated(dev)
-        check_counts("warm sequence", paths["warm sequence"], ("k1", "k2"))
+        check_counts("warm sequence", paths["warm sequence"], GRD_PATH)
         again, ms2 = sequence()
         same = all(np.array_equal(a[k], b[k])
                    for a, b in zip(seq, again) for k in a)
@@ -1330,7 +1465,7 @@ def main() -> int:
         finally:
             checkpoint.save_state = save_state
         paths["resume"] = read_counts()
-        check_counts("resume", paths["resume"], ("k1", "k2"))
+        check_counts("resume", paths["resume"], GRD_PATH)
         plain = run_pair_np(pair.left, pair.right, README_DEMO, seed=0)
         same = [all(np.array_equal(full[k], plain[k]) for k in plain)]
         for rewind in (1, 2):
@@ -1363,7 +1498,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated(dev)
         paths[f"aggregator {agg.value}"] = read_counts()
         check_counts(f"aggregator {agg.value}",
-                     paths[f"aggregator {agg.value}"], ("k1", "k2"))
+                     paths[f"aggregator {agg.value}"], GRD_PATH)
         _, agg_ms = timed_once(lambda: [aggregate_volume(
             plain_vd.vols[0][v], plain_vd.imgs[0][v], acfg)
             for v in range(2)])
@@ -1378,20 +1513,20 @@ def main() -> int:
     # frame (both from the CPU's cold planes, the same warm draws)
     for agg in ("BOX", "GF", "BF"):
         scfg = CSPMConfig(aggregator=Aggregator(agg), **base)
-        card_vs_cpu(f"aggregator {agg}", ("k1", "k2"),
+        card_vs_cpu(f"aggregator {agg}", GRD_PATH,
                     lambda d, c=scfg: run_pair_np(
                         small.left, small.right, c, device=d,
                         draws=TorchDraws(0, "cpu"))["dis"])
     scfg = CSPMConfig(cost_method=CostMethod.CEN, use_cs=True,
                       reg_lambda=0.3, scale_num=3, aggregator=Aggregator.BOX,
                       **base)
-    card_vs_cpu("CEN+CS+BOX", ("k4", "k2"), lambda d: run_pair_np(
+    card_vs_cpu("CEN+CS+BOX", CEN_CS_PATH, lambda d: run_pair_np(
         small.left, small.right, scfg, device=d,
         draws=TorchDraws(0, "cpu"))["dis"])
     scfg = CSPMConfig(**base)
     prior = run_pair_np(small.left, small.right, scfg, device="cpu",
                         draws=TorchDraws(0, "cpu"))["abc"]
-    card_vs_cpu("warm frame", ("k1", "k2"), lambda d: run_pair_warm(
+    card_vs_cpu("warm frame", GRD_PATH, lambda d: run_pair_warm(
         small.left, small.right, 1, prior, scfg, device=d,
         draws=TorchDraws(1, "cpu", refine_phase=PHASE_WARM))[
             "dis"].cpu().numpy())
@@ -1400,12 +1535,12 @@ def main() -> int:
     # seed (printed, not gated: the JAX engine has the same bf16 default);
     # the aggregators' filtered volumes are not integers, so bf16 rounds them
     for name, pcfg, kernels, scene, seeds, px in (
-            ("README_DEMO", README_DEMO, ("k1", "k2"), bench, (0, 1, 2),
+            ("README_DEMO", README_DEMO, GRD_PATH, bench, (0, 1, 2),
              1.0),
-            ("CEN_CS_PP", CEN_CS_PP, ("k4", "k2", "wmf"), bench, (0,), 1.0),
-            ("KITTI", KITTI, ("k1", "k2", "wmf"), kitti, (0,), 3.0),
+            ("CEN_CS_PP", CEN_CS_PP, (*CEN_CS_PATH, "wmf"), bench, (0,), 1.0),
+            ("KITTI", KITTI, (*GRD_PATH, "wmf"), kitti, (0,), 3.0),
             *((f"README_DEMO-{agg.value}",
-               dataclasses.replace(README_DEMO, aggregator=agg), ("k1", "k2"),
+               dataclasses.replace(README_DEMO, aggregator=agg), GRD_PATH,
                bench, (0,), 1.0)
               for agg in (Aggregator.BOX, Aggregator.GF, Aggregator.BF))):
         _, paths[f"{name} f32"], f32 = main_path(
@@ -1547,7 +1682,22 @@ def main() -> int:
              check_bit_equal("K2 band form wq", got_w, want_w))
     _, rl_bf = rel_err(k2_band("bf16")[0], want_b)
     out_bytes = nbytes(got_b, got_w)
-    del want_b, want_w, got_b, got_w
+    # QRANK on K2's band-form output, the tile's planes
+    qb = {k: qrank_check(f"band form K={k} (tile {ths}x{tws})", got_b, got_w,
+                         b_mc, tile_planes(md, k), hw, md, 10)
+          for k in (8, 1)}
+    rec["qrank_band"] = dict(qb[8], **{f"{key}_k1": val
+                                       for key, val in qb[1].items()
+                                       if key != "bound_by"})
+    rec["qrank_band"]["max_abs_err"] = max(qb[8]["max_abs_err"],
+                                           qb[1]["max_abs_err"])
+    # GRDV on the tile's full-width band, as parallel.tiled builds a GRD
+    # tile's volumes
+    rec["grdv_band"] = grdv_check(
+        f"full-width band (rows {row0}-{row0 + ths})",
+        bgr_to_rgb(l[row0:row0 + ths]), bgr_to_rgb(r[row0:row0 + ths]), cfg,
+        10)
+    del want_b, want_w, got_b, got_w, qb
     t = time_turns({"f32": lambda: k2_band("f32"),
                     "bf16": lambda: k2_band("bf16")}, {"f32": 10, "bf16": 10})
     samples = quadrant_build_samples(ths, tws, hw, stride, bt["origins"][0],
@@ -1645,8 +1795,8 @@ def main() -> int:
     print(f"sharded bench: {len(ranks)} ranks, transport "
           f"{ranks[0]['transport']}, {time.perf_counter() - t0:.1f} s with "
           f"the processes' start")
-    for name, kernels in (("README_DEMO", ("k1", "k2")),
-                          ("CEN_CS_PP", ("k4", "k2", "wmf"))):
+    for name, kernels in (("README_DEMO", GRD_PATH),
+                          ("CEN_CS_PP", (*CEN_CS_PATH, "wmf"))):
         runs = [rk["runs"][name] for rk in ranks]
         counts = {key: sum(rn["counts"][key] for rn in runs)
                   for key in runs[0]["counts"]}
@@ -1675,8 +1825,9 @@ def main() -> int:
     # same draws
     on_card = spawn_ranks("small", MESH_SMALL, "cuda")
     on_cpu = spawn_ranks("small", MESH_SMALL, "cpu")
-    for name, kernels in (("small", ("k1", "k2", "wmf")),
-                          ("small window-prescreen", ("k1", "k3_volume"))):
+    for name, kernels in (("small", (*GRD_PATH, "wmf")),
+                          ("small window-prescreen",
+                           ("k1", "k3_volume", "grdv"))):
         counts = {key: sum(rk["runs"][name]["counts"][key] for rk in on_card)
                   for key in on_card[0]["runs"][name]["counts"]}
         paths[f"sharded {name} pair"] = counts
@@ -1714,7 +1865,7 @@ def main() -> int:
                    for out in run_sequence_batch(frames, scfg, mesh1, seed=7)]
         torch.cuda.synchronize()
         paths["sequence batch"] = read_counts()
-        check_counts("sequence batch", paths["sequence batch"], ("k1", "k2"))
+        check_counts("sequence batch", paths["sequence batch"], GRD_PATH)
         same = True
         for b, p in enumerate(streams):
             solo = list(run_sequence_np([(p.left, p.right)] * 3, scfg,
@@ -1754,7 +1905,7 @@ def main() -> int:
     torch.cuda.synchronize()
     paths["bench readme_demo"] = read_counts()
     check_counts("bench readme_demo", paths["bench readme_demo"],
-                 ("k1", "k2"))
+                 GRD_PATH)
     line = json.loads(json.dumps(bench_torch.result_line(
         {cell.name: res}, bench_torch.describe_device(dev))))
     keys = ("metric", "value", "unit", "vs_baseline")
@@ -1777,7 +1928,7 @@ def main() -> int:
     torch.cuda.synchronize()
     paths["bench cen_cs_pp"] = read_counts()
     check_counts("bench cen_cs_pp", paths["bench cen_cs_pp"],
-                 ("k4", "k2", "wmf"))
+                 (*CEN_CS_PATH, "wmf"))
     pp_phase = next(p for p in res["profile"]["phases"]
                     if p["name"] == "postprocess")
     print(f"phase 12: bench {cell.name} {res['ms_pair']['median']:.1f} "
@@ -1866,7 +2017,7 @@ def main() -> int:
         for n, row in zip((1, nproc), rows):
             name = f"sharded scaling {row['mesh']} ({nproc} ranks)"
             paths[name] = row["launches"]
-            check_counts(name, row["launches"], ("k1", "k2"))
+            check_counts(name, row["launches"], GRD_PATH)
             eff = row["value"] / (rows[0]["value"] * n)
             if (row["platform"] != "gpu" or row["world"] != nproc
                     or not row["transport"].startswith(backend)
@@ -1881,6 +2032,8 @@ def main() -> int:
 
     wc = "crossscalepatchmatch_tpu/ops/pallas/window_cost.py"
     wmed = "crossscalepatchmatch_tpu/models/postprocess.py:151"
+    grdv_src = "crossscalepatchmatch_tpu/ops/grad_cost.py:62"
+    qrank_src = "crossscalepatchmatch_tpu/ops/prescreen_volume.py:114"
 
     def entry(name, key, source, replaces, band=False):
         """A kernel's record; a band form's launches are those of the
@@ -1919,6 +2072,15 @@ def main() -> int:
         entry("weighted_median (WMF)", "wmf", "weighted_median.cu", wmed),
         entry("weighted_median band form (WMF)", "wmf_band",
               "weighted_median.cu", wmed, band=True),
+        # not TPU kernels: stages XLA fuses under run_pair's jit (the GRD
+        # volume's per-slice loop, the ranking's tent contractions)
+        entry("grd_volume (GRDV)", "grdv", "grd_volume.cu", grdv_src),
+        entry("quadrant_rank (QRANK)", "qrank", "quadrant_rank.cu",
+              qrank_src),
+        entry("grd_volume band form (GRDV)", "grdv_band", "grd_volume.cu",
+              grdv_src, band=True),
+        entry("quadrant_rank band form (QRANK)", "qrank_band",
+              "quadrant_rank.cu", qrank_src, band=True),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "card check")

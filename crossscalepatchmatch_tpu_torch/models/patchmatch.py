@@ -9,9 +9,10 @@ per-pixel plane-cost evaluations through a CostFn:
 
 On the volume path the exact CostFn is kernel K1 (ops.cuda.window_cost),
 or K4 (ops.cuda.cross_scale_cost) on cross-scale runs, on a CUDA tensor and
-its plain version on a CPU tensor; the prescreen/rank CostFn reads the
-quadrant volumes of the fine level that kernel K2 (or its plain version)
-builds once per pair, or is K1 at a window stride (K3,
+its plain version on a CPU tensor; the prescreen/rank CostFn is kernel
+QRANK (ops.cuda.quadrant_rank, or its plain version) on the quadrant
+volumes of the fine level that kernel K2 (or its plain version) builds
+once per pair, or is K1 at a window stride (K3,
 prescreen_mode="window").  On the no-volume path (make_fly_cost_fns) both
 are the fly kernel (ops.cuda.fly_cost: K5/K6/K7, K3 strided).  Random draws come from an explicit draw source (utils.rng) keyed by
 (phase, iteration, view, round).  The JAX jit/scan structure becomes plain
@@ -39,10 +40,10 @@ from ..ops.cuda.cross_scale_cost import (cross_scale_cost_prepared,
                                          prepare_cross_scale)
 from ..ops.cuda.fly_cost import fly_cost_prepared, prepare_fly
 from ..ops.cuda.quadrant_build import quadrant_volumes_prepared
+from ..ops.cuda.quadrant_rank import quadrant_rank
 from ..ops.cuda.window_cost import (PreparedVolumes, prepare_volumes,
                                     window_cost_prepared)
 from ..ops.onthefly_cost import FlyData
-from ..ops.prescreen_volume import quadrant_prescreen_cost
 from ..ops.scale_weights import scale_weights
 from ..support import check_supported
 
@@ -88,7 +89,8 @@ def _volume_sparse_fn(cfg: CSPMConfig, prep: PreparedVolumes,
                       bounds=None) -> CostFn:
     """Quadrant-volume prescreen evaluator (prescreen_mode="volume"): the
     quadrant volumes are built once (K2) on the prepared fine level, then
-    every call ranks candidates on them."""
+    every call ranks both views' candidates on them (QRANK on the card,
+    one launch; the plain ranking per view on the CPU)."""
     bq, wq = quadrant_volumes_prepared(prep, half_wnd=cfg.half_wnd,
                                        gamma=cfg.wgt_gamma,
                                        stride=max(cfg.prescreen_stride, 1),
@@ -96,9 +98,8 @@ def _volume_sparse_fn(cfg: CSPMConfig, prep: PreparedVolumes,
     max_costs = prep.max_costs
 
     def sparse_fn(abc2: torch.Tensor) -> torch.Tensor:
-        return torch.stack([quadrant_prescreen_cost(
-            bq[v], wq[v], max_costs[v], abc2[v], half_wnd=cfg.half_wnd,
-            max_dis=cfg.max_dis) for v in range(2)])
+        return quadrant_rank(bq, wq, max_costs, abc2, half_wnd=cfg.half_wnd,
+                             max_dis=cfg.max_dis)
 
     return sparse_fn
 

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # source -> its C entry points: name -> argument types (every entry returns
 # cudaError_t)
 SOURCES = {
@@ -63,6 +64,17 @@ SOURCES = {
         # half_wnd, stream
         "cspm_weighted_median": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _P),
+    },
+    "grd_volume.cu": {
+        # pix, out, H, W, D, right, alpha, 1 - alpha, tau_clr, tau_grd,
+        # border_thres, stream
+        "cspm_grd_volume": (_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                            _P),
+    },
+    "quadrant_rank.cu": {
+        # bq, wq, max_costs, abc, out, K, H, W, D, max_dis, half_wnd, stream
+        "cspm_quadrant_rank": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P),
     },
     "f32_peak.cu": {
         # x, out, n, iters, m, c, stream

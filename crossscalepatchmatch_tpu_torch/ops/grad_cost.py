@@ -5,6 +5,10 @@ cost(x, d) = alpha * min(mean_c |ref_c(x) - oth_c(x -+ d)|, tau_clr)
            + (1 - alpha) * min(|ref_g(x) - oth_g(x -+ d)|, tau_grd),
 with the constant pseudo-intensity border_thres standing in for the other
 view where x -+ d leaves the image (cc/grd_cc.cpp:7-35,110-154).
+
+grd_cost_volume is the plain version of kernel GRDV (ops.cuda.grd_volume,
+which ops.cost_volume.build_volumes takes for CUDA tensors) and the volume
+of the plain fly cost (ops.onthefly_cost) on every device.
 """
 
 from __future__ import annotations
@@ -13,6 +17,10 @@ import torch
 
 from .color import rgb_to_gray_f32
 from .gradient import sobel_x_k1
+
+# Calls of the plain GRD volume (a plain count; chip_smoke reads it to show
+# the card's main paths never came through here).
+launches = 0
 
 
 def grd_cost_volume(l_rgb: torch.Tensor, r_rgb: torch.Tensor, max_dis: int,
@@ -28,6 +36,8 @@ def grd_cost_volume(l_rgb: torch.Tensor, r_rgb: torch.Tensor, max_dis: int,
     Returns:
       f32[H, W, max_dis+1].
     """
+    global launches
+    launches += 1
     l_rgb = l_rgb.to(torch.float32)
     r_rgb = r_rgb.to(torch.float32)
     l_grd = sobel_x_k1(rgb_to_gray_f32(l_rgb))

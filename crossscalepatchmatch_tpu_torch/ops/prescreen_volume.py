@@ -9,8 +9,8 @@ split into the 2x2 window quadrants:
 
 Ranking a candidate plane then costs four volume lerps per pixel.
 build_quadrant_volumes is the plain PyTorch version of kernel K2
-(ops.cuda.quadrant_build); quadrant_prescreen_cost is plain PyTorch on
-every device.
+(ops.cuda.quadrant_build), quadrant_prescreen_cost that of kernel QRANK
+(ops.cuda.quadrant_rank, which ranks both views in one launch).
 """
 
 from __future__ import annotations
@@ -22,8 +22,10 @@ import torch
 from .plane import pixel_grid
 from .plane_cost import asw_weight, take_depth
 
-# Calls of the plain build (see plane_cost.launches).
+# Calls of the plain build and of the plain ranking (see
+# plane_cost.launches).
 launches = 0
+rank_launches = 0
 
 
 def quadrant_anchors(half_wnd: int) -> Tuple[Tuple[float, float], ...]:
@@ -113,6 +115,8 @@ def quadrant_prescreen_cost(bq: torch.Tensor, wq: torch.Tensor,
     Returns:
       f32[K, H, W] ranking costs (not the exact window cost).
     """
+    global rank_launches
+    rank_launches += 1
     k, h, w, _ = abc.shape
     xs, ys = pixel_grid(h, w, abc.device)
     pos = torch.arange(h * w, device=abc.device).reshape(h, w)

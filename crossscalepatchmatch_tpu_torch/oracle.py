@@ -130,7 +130,7 @@ def cost_volume(left_bgr: np.ndarray, right_bgr: np.ndarray, *, max_dis: int,
                 cc_name: str = "GRD", right: bool = False) -> np.ndarray:
     """The oracle's cost volume of one reference view (the right one with
     `right`), f64[max_dis + 1, H, W]: the op-level cross-check of
-    ops.cost_volume.build_volume."""
+    ops.cost_volume.build_volumes."""
     lib = _load()
     l, r = _views(left_bgr, right_bgr)
     h, w, _ = l.shape

@@ -66,7 +66,7 @@ from ..config import Aggregator, CostMethod, CSPMConfig
 from ..models import patchmatch as pm
 from ..models import postprocess as pp
 from ..ops.color import bgr_to_lab_u8, bgr_to_rgb
-from ..ops.cost_volume import VolumeData, aggregate_volume, build_volume
+from ..ops.cost_volume import VolumeData, aggregate_volumes, build_volumes
 from ..ops.pyramid import build_pyramid
 from ..support import check_supported
 from ..utils.rng import TorchDraws
@@ -245,20 +245,15 @@ class _TilePair:
             # block cut out, the row halos exchanged (after the max: the
             # axis's first communication is a collective, module note)
             l_rgb, r_rgb = bgr_to_rgb(imgs_roww[0]), bgr_to_rgb(imgs_roww[1])
-            vols_cb = col_block(torch.stack(
-                [build_volume(l_rgb, r_rgb, cfg.max_dis, cfg, right=False),
-                 build_volume(l_rgb, r_rgb, cfg.max_dis, cfg, right=True)]),
-                hw)
+            vols_cb = col_block(
+                build_volumes(l_rgb, r_rgb, cfg.max_dis, cfg), hw)
             vols = vols_cb[:, :, hw:hw + ws] if n_tx > 1 else vols_cb
             max_cost = all_max(vols.amax(dim=(1, 2, 3)), ctx.spatial)
             ext_vols = extend_rows(vols_cb, hw, ctx.mesh, dim=1)
         else:
             lf, rf = bgr_to_rgb(full_imgs[0]), bgr_to_rgb(full_imgs[1])
-            vols_full = torch.stack([
-                aggregate_volume(build_volume(lf, rf, cfg.max_dis, cfg,
-                                              right=False), full_imgs[0], cfg),
-                aggregate_volume(build_volume(lf, rf, cfg.max_dis, cfg,
-                                              right=True), full_imgs[1], cfg)])
+            vols_full = aggregate_volumes(
+                build_volumes(lf, rf, cfg.max_dis, cfg), full_imgs, cfg)
             ext_vols = col_block(_ext_from_full(vols_full, row0, hs, hw, 1),
                                  hw)
             vols = (ext_vols[:, hw:hw + hs, hw:hw + ws] if n_tx > 1
@@ -288,12 +283,9 @@ class _TilePair:
             for s in range(1, levels):
                 md //= 2
                 ls, rs = bgr_to_rgb(l_pyr[s]), bgr_to_rgb(r_pyr[s])
-                v_s = torch.stack([
-                    aggregate_volume(build_volume(ls, rs, md, cfg,
-                                                  right=False), l_pyr[s], cfg),
-                    aggregate_volume(build_volume(ls, rs, md, cfg,
-                                                  right=True), r_pyr[s], cfg)])
                 vd.imgs.append(torch.stack([l_pyr[s], r_pyr[s]]))
+                v_s = aggregate_volumes(build_volumes(ls, rs, md, cfg),
+                                        vd.imgs[-1], cfg)
                 vd.vols.append(v_s)
                 vd.max_costs.append(v_s.amax(dim=(1, 2, 3)))
                 if vd.wimgs is not None:

@@ -198,24 +198,28 @@ def run_pair_phases(l_bgr_u8, r_bgr_u8, seed: int, cfg, *, device="cuda",
 def reset_launch_counts() -> None:
     """Every kernel's and plain version's launch counter to 0."""
     from ..models import postprocess
-    from ..ops import onthefly_cost, plane_cost, prescreen_volume
-    from ..ops.cuda import (cross_scale_cost, fly_cost, quadrant_build,
-                            weighted_median, window_cost)
+    from ..ops import grad_cost, onthefly_cost, plane_cost, prescreen_volume
+    from ..ops.cuda import (cross_scale_cost, fly_cost, grd_volume,
+                            quadrant_build, quadrant_rank, weighted_median,
+                            window_cost)
 
     window_cost.launches = window_cost.strided_launches = 0
     quadrant_build.launches = cross_scale_cost.launches = 0
     fly_cost.launches.clear()
     weighted_median.launches = postprocess.plain_launches = 0
+    grd_volume.launches = quadrant_rank.launches = 0
     plane_cost.launches = prescreen_volume.launches = 0
     plane_cost.cross_scale_launches = onthefly_cost.launches = 0
+    grad_cost.launches = prescreen_volume.rank_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """The launch counters, by kernel (plain versions: *_plain)."""
     from ..models import postprocess
-    from ..ops import onthefly_cost, plane_cost, prescreen_volume
-    from ..ops.cuda import (cross_scale_cost, fly_cost, quadrant_build,
-                            weighted_median, window_cost)
+    from ..ops import grad_cost, onthefly_cost, plane_cost, prescreen_volume
+    from ..ops.cuda import (cross_scale_cost, fly_cost, grd_volume,
+                            quadrant_build, quadrant_rank, weighted_median,
+                            window_cost)
 
     return {"k1": window_cost.launches - window_cost.strided_launches,
             "k3_volume": window_cost.strided_launches,
@@ -227,11 +231,15 @@ def launch_counts() -> Dict[str, int]:
             "k7": fly_cost.count(lab=True),
             "fly": fly_cost.count(),
             "wmf": weighted_median.launches,
+            "grdv": grd_volume.launches,
+            "qrank": quadrant_rank.launches,
             "k1_plain": plane_cost.launches,
             "k2_plain": prescreen_volume.launches,
             "k4_plain": plane_cost.cross_scale_launches,
             "fly_plain": onthefly_cost.launches,
-            "wmf_plain": postprocess.plain_launches}
+            "wmf_plain": postprocess.plain_launches,
+            "grdv_plain": grad_cost.launches,
+            "qrank_plain": prescreen_volume.rank_launches}
 
 
 def busy_union(intervals) -> float:
@@ -250,7 +258,8 @@ def busy_union(intervals) -> float:
 def kernel_family(name: str, cfg) -> str:
     """The port's kernel a device op is (K1 / K4: the window-cost kernel at
     one level or over the pyramid; K2; fly: the no-volume kernel, K5 / K3;
-    WMF: the weighted median), "other" for PyTorch's own ops."""
+    WMF: the weighted median; GRDV: the GRD cost volume; QRANK: the
+    quadrant ranking), "other" for PyTorch's own ops."""
     if "cross_scale_kernel" in name:
         return "K4" if cfg.use_cs else "K1"
     if "quadrant_build_kernel" in name:
@@ -259,6 +268,10 @@ def kernel_family(name: str, cfg) -> str:
         return "fly"
     if "weighted_median_kernel" in name:
         return "WMF"
+    if "grd_volume_kernel" in name:
+        return "GRDV"
+    if "quadrant_rank_kernel" in name:
+        return "QRANK"
     return "other"
 
 

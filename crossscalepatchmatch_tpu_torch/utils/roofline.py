@@ -15,6 +15,10 @@ crossscalepatchmatch_tpu utils/roofline.py).
     bounds from these;
   * median_samples: the window samples the weighted median (kernel WMF)
     reads on a validity mask, with WMF_OPS_PER_SAMPLE;
+  * grd_volume_work / quadrant_rank_work: the bytes and f32 operations of
+    a pair's GRD volumes (kernel GRDV, one launch a view) and of one launch
+    of kernel QRANK (a ranking call, its in-range quadrants counted on the
+    planes);
   * measure_f32_peak: the f32 ceiling the card sustains, from a
     hand-written FMA-chain kernel (csrc/f32_peak.cu).
 """
@@ -26,6 +30,8 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..config import CSPMConfig
+from ..ops.plane import pixel_grid
+from ..ops.prescreen_volume import quadrant_anchors
 
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and f32 FLOP/s
 # outside the tensor cores
@@ -50,6 +56,12 @@ FLY_FLOPS_IN_RANGE = {"cost": FLOPS_IN_RANGE + 16, "image": 3 + 12 + 6 + 3
 # the two-tap lerp (two multiplies, an add) and the running sum
 RANK_FLOPS_CENTER = 4
 RANK_FLOPS_PER_QUADRANT = 10
+# an out-of-range quadrant of the ranking (kernel QRANK): dq (two
+# multiplies, two adds), W_Q * max_cost and the running sum
+RANK_FLOPS_OUT_OF_RANGE = 6
+# a GRD volume element (kernel GRDV): the colour term's multiply by 1/3,
+# |grad diff| (a subtract and an abs), two mins, two multiplies and an add
+GRD_FLOPS_PER_ELEMENT = 8
 # the weighted median's window sample (kernel WMF, every pass): the L1
 # distance (three absolute differences, two adds), the threshold test and
 # the f32 add; counted at the f32 rate
@@ -278,6 +290,43 @@ def median_samples(valid: torch.Tensor, half_wnd: int, center_row0: int = 0,
                      center_col0:center_col0 + ow]
     passes = 1 + 8 * (held > 0).to(torch.int64)
     return int((invalid * area * passes).sum())
+
+
+def grd_volume_work(h: int, w: int, max_dis: int) -> Tuple[int, int]:
+    """(bytes, f32 operations) of both views' H x W x (max_dis + 1) GRD
+    volumes (ops.cuda.grd_volume.grd_volumes: two GRDV launches): both u8
+    RGB views read once and both f32 volumes written once;
+    GRD_FLOPS_PER_ELEMENT an element."""
+    n = 2 * h * w * (max_dis + 1)
+    return 2 * h * w * 3 + 4 * n, GRD_FLOPS_PER_ELEMENT * n
+
+
+def quadrant_rank_work(abc: torch.Tensor, half_wnd: int,
+                       max_dis: int) -> Tuple[int, int]:
+    """(bytes, f32 operations) of one QRANK launch on these planes (f32[2,
+    K, H, W, 3], the ranking's own arithmetic for the range test): the
+    planes and the saturation values read once, the two taps (8 bytes) of
+    every in-range quadrant, a quadrant weight of W_Q (4 bytes) once for
+    each (view, quadrant, pixel) where some candidate is out of range (the
+    only place the function needs it), the f32[2, K, H, W] costs written
+    once; RANK_FLOPS_CENTER a ranked candidate and pixel,
+    RANK_FLOPS_PER_QUADRANT an in-range quadrant,
+    RANK_FLOPS_OUT_OF_RANGE an out-of-range one."""
+    nv, k, h, w, _ = abc.shape
+    xs, ys = pixel_grid(h, w, abc.device)
+    a, b = abc[..., 0], abc[..., 1]
+    d_center = a * xs + b * ys + abc[..., 2]
+    n_rng = n_wq = 0
+    for ay, ax in quadrant_anchors(half_wnd):
+        dq = d_center + a * ax + b * ay
+        rng = (dq >= 1.0) & (dq < float(max_dis))
+        n_rng += int(rng.sum())
+        n_wq += int((~rng).any(dim=1).sum())
+    n = nv * k * h * w
+    bytes_ = abc.numel() * 4 + nv * 4 + 8 * n_rng + 4 * n_wq + n * 4
+    ops = (RANK_FLOPS_CENTER * n + RANK_FLOPS_PER_QUADRANT * n_rng
+           + RANK_FLOPS_OUT_OF_RANGE * (4 * n - n_rng))
+    return bytes_, ops
 
 
 def pipeline_flops(cfg: CSPMConfig, h: int, w: int) -> Dict[str, float]:

@@ -115,6 +115,12 @@ def test_summary_of_device_events():
     assert profiling.kernel_family(
         "(anonymous namespace)::weighted_median_kernel(unsigned int const*)",
         KITTI) == "WMF"
+    assert profiling.kernel_family(
+        "(anonymous namespace)::grd_volume_kernel(uint2 const*, float*)",
+        KITTI) == "GRDV"
+    assert profiling.kernel_family(
+        "(anonymous namespace)::quadrant_rank_kernel(float const*)",
+        CEN_CS_PP) == "QRANK"
     assert any("idle gaps" in line for line in profiling.format_profile(s))
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels K1 (window cost), K2 (quadrant build), K3 (the
 strided window, volume and fly forms), K4 (cross-scale window cost), K5
 (the no-volume fly cost), K6 (its image-space lerp), K7 (its Lab
-weights) and WMF (the weighted median of post-processing) against their
-plain PyTorch versions, on the card; and the entry
+weights), WMF (the weighted median of post-processing), GRDV (the GRD
+cost volume) and QRANK (the quadrant ranking) against their plain
+PyTorch versions, on the card; and the entry
 points (the command line, a warm start, checkpoint and resume, the
 up-front refusal of a window the kernels do not take) running through
 them.
@@ -22,7 +23,8 @@ with the plain version on the same bf16-rounded values widened to f32, at
 the same tolerance.  K4 is held tighter: bit-equal in f32, and bit-equal
 with bf16 census volumes (integer costs, exact in bf16).  The fly kernel
 (f32 throughout) is held at the f32 tolerance.  WMF's u8 maps are held
-equal to its plain version's, pixel for pixel.
+equal to its plain version's, pixel for pixel; GRDV's volumes and QRANK's
+costs to their plain versions' on the card, element for element.
 """
 
 import numpy as np
@@ -33,12 +35,13 @@ from crossscalepatchmatch_tpu_torch import CEN_CS_PP, README_DEMO, CSPMConfig
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models import postprocess
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
-from crossscalepatchmatch_tpu_torch.ops import onthefly_cost, plane_cost
-from crossscalepatchmatch_tpu_torch.ops import prescreen_volume
+from crossscalepatchmatch_tpu_torch.ops import grad_cost, onthefly_cost
+from crossscalepatchmatch_tpu_torch.ops import plane_cost, prescreen_volume
 from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
 from crossscalepatchmatch_tpu_torch.ops.cuda import cross_scale_cost
-from crossscalepatchmatch_tpu_torch.ops.cuda import fly_cost
+from crossscalepatchmatch_tpu_torch.ops.cuda import fly_cost, grd_volume
 from crossscalepatchmatch_tpu_torch.ops.cuda import quadrant_build
+from crossscalepatchmatch_tpu_torch.ops.cuda import quadrant_rank
 from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
 from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost
 from crossscalepatchmatch_tpu_torch.ops.scale_weights import scale_weights
@@ -683,8 +686,9 @@ def test_prepared_volumes_reject_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("use_pp", [False, True])
 def test_pipeline_runs_through_the_kernels(cuda, use_pp):
-    """K1 for every exact evaluation, K2 once; with use_pp the weighted
-    median is one WMF launch and never its plain version."""
+    """K1 for every exact evaluation, K2 once, GRDV once a view, QRANK
+    once a ranking call; with use_pp the weighted median is one WMF launch;
+    never a plain version."""
     pair = make_pair(h=48, w=64, max_dis=12, seed=3)
     cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11, use_pp=use_pp)
     reset_counts()
@@ -694,6 +698,9 @@ def test_pipeline_runs_through_the_kernels(cuda, use_pp):
     assert window_cost.launches == 10 and quadrant_build.launches == 1
     assert plane_cost.launches == 0 and prescreen_volume.launches == 0
     assert wmf.launches == int(use_pp) and postprocess.plain_launches == 0
+    # GRDV once a view, QRANK once a ranking call (both views)
+    assert grd_volume.launches == 2 and quadrant_rank.launches == 14
+    assert grad_cost.launches == 0 and prescreen_volume.rank_launches == 0
 
 
 def test_cross_scale_pipeline_runs_through_the_kernels(cuda):
@@ -710,8 +717,10 @@ def test_cross_scale_pipeline_runs_through_the_kernels(cuda):
     assert out["dis"].shape == (2, 48, 64) and out["valid"].dtype == torch.bool
     assert cross_scale_cost.launches == 10 and quadrant_build.launches == 1
     assert window_cost.launches == 0
+    assert quadrant_rank.launches == 14 and grd_volume.launches == 0
     assert (plane_cost.launches, plane_cost.cross_scale_launches,
-            prescreen_volume.launches) == (0, 0, 0)
+            prescreen_volume.launches, prescreen_volume.rank_launches) == (
+        0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("kw,n_fly,n_strided", [
@@ -741,7 +750,9 @@ def test_no_volume_pipeline_runs_through_the_kernels(cuda, kw, n_fly,
 
 def no_plain_version_ran():
     return (plane_cost.launches, plane_cost.cross_scale_launches,
-            prescreen_volume.launches, onthefly_cost.launches) == (0, 0, 0, 0)
+            prescreen_volume.launches, onthefly_cost.launches,
+            prescreen_volume.rank_launches, grad_cost.launches) == (
+        0, 0, 0, 0, 0, 0)
 
 
 def test_cli_runs_on_the_card(cuda, tmp_path):
@@ -1185,3 +1196,143 @@ def test_wmf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             wmf.weighted_median_cuda(*args, **{"half_wnd": 2, **kw})
     assert wmf.launches == n
+
+
+# -- GRDV, the GRD cost volume, and QRANK, the quadrant ranking ----------
+
+def grd_views(h, w, max_dis, cuda, rows=None):
+    """The scene's u8 RGB views on the card (rows: a full-width band)."""
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
+
+    pair = make_pair(h=h, w=w, max_dis=max_dis, seed=0)
+    l, r = (bgr_to_rgb(torch.as_tensor(x, device=cuda))
+            for x in (pair.left, pair.right))
+    if rows is not None:
+        l, r = l[rows], r[rows]
+    return l, r
+
+
+@pytest.mark.parametrize("h,w,max_dis,rows", [
+    (375, 450, 12, None), (375, 450, 60, None), (375, 1242, 128, None),
+    (375, 450, 60, slice(125, 250))])
+def test_grdv_bit_equal_on_the_card(cuda, h, w, max_dis, rows):
+    """Both views' GRDV volumes equal the plain version on the same CUDA
+    tensors, element for element, at d = 12, 60 (bench) and 128 (KITTI),
+    and on a tile's full-width band (rows 125-250, as parallel.tiled
+    builds a GRD tile's volumes); one packing of the views and one launch
+    a view."""
+    l, r = grd_views(h, w, max_dis, cuda, rows)
+    n, packed = grd_volume.launches, []
+    pack = grd_volume.pack_views
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(grd_volume, "pack_views",
+                   lambda *a: packed.append(1) or pack(*a))
+        got = grd_volume.grd_volumes(l, r, max_dis)
+    torch.cuda.synchronize()
+    assert grd_volume.launches == n + 2 and len(packed) == 1
+    assert got.shape == (2, l.shape[0], w, max_dis + 1)
+    for right in (False, True):
+        want = grad_cost.grd_cost_volume(l, r, max_dis, right=right)
+        assert int((got[int(right)] != want).sum()) == 0
+
+
+def test_grd_plain_card_against_cpu(cuda):
+    """The 1/3 decision: the plain GRD volume on the card against the same
+    plain volume on the CPU.  PyTorch's CUDA division by the scalar 3.0 is
+    a multiply by f32(1/3), which rounds some colour sums one ulp away from
+    the CPU's true division, so the two differ on some elements, each by
+    at most alpha times one ulp of the truncated colour term; GRDV
+    multiplies by f32(1/3) too and is bit-equal to the card's plain
+    version (test_grdv_bit_equal_on_the_card)."""
+    l, r = grd_views(375, 450, 60, cuda)
+    counts = []
+    for right in (False, True):
+        card = grad_cost.grd_cost_volume(l, r, 60, right=right).cpu()
+        cpu = grad_cost.grd_cost_volume(l.cpu(), r.cpu(), 60, right=right)
+        counts.append(int((card != cpu).sum()))
+        assert float((card - cpu).abs().max()) <= 2e-6
+    print(f"plain GRD volume, card vs CPU: {counts} differing elements of "
+          f"{375 * 450 * 61} a view")
+    assert all(c > 0 for c in counts)
+
+
+def rank_inputs(cfg, h, w, cuda, band=False):
+    """K2's real output on a seed-0 scene (the bench tile's band form with
+    band=True), the saturation values, and the scene's (h, w)."""
+    if band:
+        t = bench_tile(cfg, cuda)
+        prep = window_cost.prepare_volumes(
+            t["imgs"][0], t["vols"][0], t["mcs"][0], half_wnd=cfg.half_wnd,
+            max_dis=cfg.max_dis, gamma=cfg.wgt_gamma, rows_extended=True,
+            cols_extended=True)
+        bounds, (h, w) = t["bounds"][0], (t["hs"], t["ws"])
+    else:
+        pair = make_pair(h=h, w=w, max_dis=cfg.max_dis, seed=0)
+        vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
+                               torch.as_tensor(pair.right, device=cuda), cfg)
+        prep = window_cost.prepare_volumes(
+            vd.imgs[0], vd.vols[0], vd.max_costs[0], half_wnd=cfg.half_wnd,
+            max_dis=cfg.max_dis, gamma=cfg.wgt_gamma)
+        bounds = None
+    bq, wq = quadrant_build.quadrant_volumes_prepared(
+        prep, half_wnd=cfg.half_wnd, gamma=cfg.wgt_gamma,
+        stride=cfg.prescreen_stride, bounds=bounds)
+    return bq, wq, prep.max_costs, h, w
+
+
+@pytest.mark.parametrize("scene,k", [("bench", 1), ("bench", 8),
+                                     ("kitti", 1), ("kitti", 8),
+                                     ("band", 1), ("band", 8)])
+def test_qrank_bit_equal_on_the_card(cuda, scene, k):
+    """QRANK on K2's real output (seed-0 README_DEMO pair, KITTI pair with
+    D = 129, and the bench tile's band-form bq) at K = 1 and 8, random and
+    wild planes: bit-equal to the plain ranking of each view on the same
+    CUDA tensors; one launch for both views."""
+    from crossscalepatchmatch_tpu_torch import KITTI
+
+    cfg = KITTI if scene == "kitti" else README_DEMO
+    w = 1242 if scene == "kitti" else 450
+    bq, wq, mc, h, w = rank_inputs(cfg, 375, w, cuda, band=scene == "band")
+    abc = torch.as_tensor(random_planes(k, h, w, cfg.max_dis, seed=k),
+                          device=cuda)
+    n = quadrant_rank.launches
+    got = quadrant_rank.quadrant_rank(bq, wq, mc, abc, half_wnd=cfg.half_wnd,
+                                      max_dis=cfg.max_dis)
+    torch.cuda.synchronize()
+    assert quadrant_rank.launches == n + 1
+    want = torch.stack([prescreen_volume.quadrant_prescreen_cost(
+        bq[v], wq[v], mc[v], abc[v], half_wnd=cfg.half_wnd,
+        max_dis=cfg.max_dis) for v in range(2)])
+    assert got.shape == (2, k, h, w)
+    assert int((got != want).sum()) == 0
+
+
+def test_grdv_qrank_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    l, r = grd_views(8, 20, 4, cuda)
+    kw = dict(alpha=0.1, tau_clr=10.0, tau_grd=2.0, border_thres=3.0)
+    n = grd_volume.launches
+    for lv, rv, md in ((l.float(), r, 4), (l, r[..., :2], 4), (l, r[:7], 4),
+                       (l, r.cpu(), 4), (l.cpu(), r.cpu(), 4), (l, r, -1)):
+        with pytest.raises(ValueError):
+            grd_volume.grd_volumes_cuda(lv, rv, md, **kw)
+    assert grd_volume.launches == n
+    bq = torch.zeros((2, 4, 5, 6, 9), device=cuda)
+    wq = torch.zeros((2, 4, 5, 6), device=cuda)
+    mc = torch.ones(2, device=cuda)
+    abc = torch.zeros((2, 3, 5, 6, 3), device=cuda)
+    n = quadrant_rank.launches
+    for args in ((bq.double(), wq, mc, abc),
+                 (bq.permute(0, 2, 3, 1, 4).contiguous(), wq, mc, abc),
+                 (bq, wq, mc, abc.transpose(2, 3).contiguous()
+                  .transpose(2, 3)),
+                 (bq, wq.cpu(), mc, abc), (bq, wq, mc.cpu(), abc),
+                 (bq.cpu(), wq.cpu(), mc.cpu(), abc.cpu())):
+        with pytest.raises(ValueError):
+            quadrant_rank.quadrant_rank_cuda(*args, half_wnd=1, max_dis=8)
+    with pytest.raises(ValueError):        # taps past the depth
+        quadrant_rank.quadrant_rank_cuda(bq, wq, mc, abc, half_wnd=1,
+                                         max_dis=9)
+    assert quadrant_rank.launches == n
+    out = quadrant_rank.quadrant_rank_cuda(bq, wq, mc, abc, half_wnd=1,
+                                           max_dis=8)
+    assert quadrant_rank.launches == n + 1 and out.shape == (2, 3, 5, 6)

@@ -20,7 +20,7 @@ from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair_np
 from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
-from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume
+from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volumes
 
 
 @pytest.fixture(scope="module")
@@ -47,9 +47,9 @@ def test_port_volume_matches_oracle(pair, cc, right):
     want = oracle.cost_volume(pair.left, pair.right, max_dis=12, cc_name=cc,
                               right=right)                 # [D+1, H, W]
     cfg = CSPMConfig(max_dis=12, dis_scale=16, cost_method=CostMethod[cc])
-    got = build_volume(bgr_to_rgb(torch.as_tensor(pair.left)),
-                       bgr_to_rgb(torch.as_tensor(pair.right)), 12, cfg,
-                       right=right)                        # [H, W, D+1]
+    got = build_volumes(bgr_to_rgb(torch.as_tensor(pair.left)),
+                        bgr_to_rgb(torch.as_tensor(pair.right)), 12,
+                        cfg)[int(right)]                   # [H, W, D+1]
     got = np.moveaxis(got.double().numpy(), -1, 0)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)  # f32
 

@@ -122,7 +122,8 @@ def test_port_imports_no_jax():
         "import crossscalepatchmatch_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
-        "assert p.__name__ + '.ops.cuda.weighted_median' in names\n"
+        "for m in ('weighted_median', 'grd_volume', 'quadrant_rank'):\n"
+        "    assert p.__name__ + '.ops.cuda.' + m in names\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke, bench_torch, bench_scaling_torch\n"
         "for t in ('torch_eval', 'torch_kitti_anchor'):\n"

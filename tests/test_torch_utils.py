@@ -183,6 +183,50 @@ def test_median_samples(h, w, hw, band):
     assert roofline.median_samples(valid, hw, **band) == want
 
 
+def test_grd_volume_work():
+    """A pair's GRDV bytes (two u8 RGB views read, both views' f32 volumes
+    written) and operations (8 an element) at the bench and KITTI shapes;
+    bound by bytes."""
+    assert roofline.grd_volume_work(375, 450, 60) == (
+        2 * 375 * 450 * 3 + 2 * 375 * 450 * 61 * 4, 2 * 8 * 375 * 450 * 61)
+    b, f = roofline.grd_volume_work(375, 1242, 128)
+    assert b == 2 * 375 * 1242 * 3 + 2 * 4 * 375 * 1242 * 129
+    assert roofline.bound(b, f)[1] == "bytes"
+
+
+def test_quadrant_rank_work():
+    """QRANK's in-range quadrants counted directly on the planes (the
+    plain ranking's range test at each anchor), the (view, quadrant,
+    pixel) slots whose weight some out-of-range candidate reads, and the
+    bytes and operations they give."""
+    rng = np.random.default_rng(3)
+    k, h, w, hw, md = 3, 7, 9, 3, 10
+    abc = torch.from_numpy(np.concatenate([
+        rng.uniform(-0.6, 0.6, (2, k, h, w, 2)),
+        rng.uniform(-3, 14, (2, k, h, w, 1))], -1).astype(np.float32))
+    lo, hi = -(hw + 1) / 2.0, hw / 2.0
+    n_rng = 0
+    wq_read = set()
+    for v, kk, y, x in np.ndindex(2, k, h, w):
+        a, b, c = (float(t) for t in abc[v, kk, y, x])
+        dc = np.float32(np.float32(np.float32(a) * np.float32(x))
+                        + np.float32(np.float32(b) * np.float32(y)))
+        dc = np.float32(dc + np.float32(c))
+        for q, (ay, ax) in enumerate(((lo, lo), (lo, hi), (hi, lo),
+                                      (hi, hi))):
+            dq = np.float32(np.float32(dc + np.float32(np.float32(a) * ax))
+                            + np.float32(np.float32(b) * ay))
+            n_rng += int(1.0 <= dq < md)
+            if not 1.0 <= dq < md:
+                wq_read.add((v, q, y, x))
+    n = 2 * k * h * w
+    assert 0 < n_rng < 4 * n
+    assert 0 < len(wq_read) < 2 * 4 * h * w
+    assert roofline.quadrant_rank_work(abc, hw, md) == (
+        n * 12 + 8 + 8 * n_rng + 4 * len(wq_read) + n * 4,
+        4 * n + 10 * n_rng + 6 * (4 * n - n_rng))
+
+
 def test_fma_chain_plain_and_no_cpu_ceiling():
     """On the CPU the chain is its plain version: with m = c = 1 every
     element gains exactly one per step; measure_f32_peak has no CPU
