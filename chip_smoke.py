@@ -16,12 +16,18 @@ Phases, each fatal on failure:
   4b. GRDV (the GRD cost volume) and QRANK (the quadrant ranking) against
      their plain versions on the card, on the seed-0 bench (d=60) and
      KITTI (d=128) scenes: GRDV both views, QRANK on K2's output over the
-     scene's volumes at K = 8 and 1 (test_planes); 0 differing f32
+     scene's volumes at K = 8 and 1 (test_planes) and at K = 8 on the
+     pipeline's own candidates (the propagation stencil's neighbours of
+     the seed-0 run_pair output's final planes); 0 differing f32
      elements each; the plain GRD volume on the card against the CPU's
      (the elements PyTorch's CUDA division by 3.0, a multiply by f32(1/3),
      rounds apart from the CPU's true division: why GRDV multiplies);
      kernel (GRDV: the wrapper and the launch alone, one view), plain and
-     bound ms (utils.roofline.grd_volume_work, quadrant_rank_work);
+     bound ms (utils.roofline.grd_volume_work; QRANK's quadrant_rank_work
+     on random planes, quadrant_rank_row_work, each distinct tap float of
+     a row once, on the pipeline's candidates, whose taps share rows), and
+     beside QRANK's bound the floor a gather of its taps can reach
+     (quadrant_rank_sectors: the distinct 32-byte sectors they touch);
   5. K4, the cross-scale window cost: the same on the 5-level census
      pyramid of the bench scene (CEN_CS_PP); f32 within 2e-5 relative, and
      bf16 census volumes (integers, exact in bf16) bit-equal; K = 2, 3, 5,
@@ -60,8 +66,9 @@ Phases, each fatal on failure:
      card on the real inputs of the seed-0 CEN_CS_PP (375x450, wnd 35) and
      KITTI (375x1242) pairs (their filled maps and LR-invalid masks): 0
      differing u8 pixels, and equal to the pipeline's output; N (the
-     invalid pixels), kernel and plain ms (CUDA events, in turns) and the
-     bound (utils.roofline.median_samples);
+     invalid pixels), the wrapper's ms, the kernel's launch alone on
+     prepared inputs, the plain ms (CUDA events, in turns) and the bound
+     (utils.roofline.median_samples);
   8. small pairs run on the card and on the CPU (plain versions) from the
      same draws must agree (README_DEMO-like, CEN_CS_PP-like, the volume
      path's window prescreen, and without a volume: cost lerp, image lerp
@@ -140,7 +147,8 @@ Phases, each fatal on failure:
      counters around its timed calls on every rank); the lines printed.
 Every bound is counted by utils.roofline (bound, window_samples,
 quadrant_build_samples, median_samples, grd_volume_work,
-quadrant_rank_work and the per-sample operation counts).
+quadrant_rank_work, quadrant_rank_row_work and the per-sample operation
+counts; quadrant_rank_sectors for QRANK's gather floor).
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 `python3 chip_smoke.py --shard-worker ...` is one rank of phase 10 (the
@@ -637,7 +645,8 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.utils.roofline import (
         FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE,
         WMF_OPS_PER_SAMPLE, bound, grd_volume_work, median_samples, nbytes,
-        quadrant_build_samples, quadrant_rank_work, window_samples)
+        quadrant_build_samples, quadrant_rank_row_work, quadrant_rank_sectors,
+        quadrant_rank_work, window_samples)
 
     pkg = "crossscalepatchmatch_tpu_torch"
     dev = torch.device("cuda:0")
@@ -836,9 +845,15 @@ def main() -> int:
                     launch_ms=t["launch"], plain_ms=t["plain"], bound_ms=b_ms,
                     bound_by=b_by)
 
-    def qrank_check(name, bq, wq, qmc, abc, qhw, qmd, reps):
+    def qrank_check(name, bq, wq, qmc, abc, qhw, qmd, reps, shared=False):
         """QRANK against the plain ranking of each view on the card (0
-        differing elements), both timed in turns."""
+        differing elements), both timed in turns; the bound and, beside
+        it, the floor a gather of these taps can reach (the distinct
+        32-byte sectors of bq they touch, over the HBM rate).  The bound
+        counts 8 bytes a tap pair (quadrant_rank_work) on random planes,
+        and each distinct tap float of a row once (quadrant_rank_row_work,
+        also printed for random planes) on candidates that share taps
+        (`shared`: the pipeline's), where 8 bytes a tap pair is no floor."""
         def kernel():
             return quadrant_rank.quadrant_rank(bq, wq, qmc, abc,
                                                half_wnd=qhw, max_dis=qmd)
@@ -857,19 +872,33 @@ def main() -> int:
         t = time_turns({"kernel": kernel, "plain": plain},
                        {"kernel": reps, "plain": 1})
         q_bytes, q_ops = quadrant_rank_work(abc, qhw, qmd)
-        b_ms, b_by = bound(q_bytes, q_ops)
+        tap_ms, tap_by = bound(q_bytes, q_ops)
+        r_bytes, r_ops = quadrant_rank_row_work(abc, qhw, qmd)
+        row_ms, row_by = bound(r_bytes, r_ops)
+        b_ms, b_by = (row_ms, row_by) if shared else (tap_ms, tap_by)
+        sectors = quadrant_rank_sectors(abc, bq.shape[-1], qhw, qmd)
+        floor_ms = bound(32 * sectors, 0)[0]
         print(f"QRANK {name}: kernel vs plain {diff} differing f32 elements; "
               f"plain {t['plain']:.3f} ms | kernel {t['kernel']:.3f} ms | "
-              f"{q_bytes} bytes; bound {b_ms:.4f} ms ({b_by}); {card}")
+              f"8 B a tap pair: {q_bytes} bytes, {tap_ms:.4f} ms ({tap_by}) "
+              f"| each distinct tap float once: {r_bytes} bytes, "
+              f"{row_ms:.4f} ms ({row_by}) | bound {b_ms:.4f} ms | "
+              f"{sectors} sectors of bq touched, gather floor "
+              f"{floor_ms:.4f} ms; {card}")
         if diff:
             raise RuntimeError(f"QRANK {name}: {diff} elements differ from "
                                "the plain version")
         return dict(max_abs_err=ab, differing_elements=diff, ms=t["kernel"],
-                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by,
+                    tap_bound_ms=tap_ms, row_bound_ms=row_ms,
+                    sectors=sectors, sector_floor_ms=floor_ms)
 
     def grd_rank_phase(name, p, pl, pr, pcfg, reps):
-        """GRDV on a scene's views, then QRANK at K = 8 and 1 on K2's
-        output over the scene's GRDV volumes (f32)."""
+        """GRDV on a scene's views, then QRANK on K2's output over the
+        scene's GRDV volumes (f32): at K = 8 and 1 on test_planes, and at
+        K = 8 on the pipeline's own candidates, the propagation stencil's
+        (stencil_candidates, the first sweep's offsets) of the seed-0
+        run_pair output's final planes."""
         out = {"grdv": grdv_check(name, bgr_to_rgb(pl), bgr_to_rgb(pr), pcfg,
                                   reps)}
         pvd = build_volume_data(pl, pr, pcfg)
@@ -885,6 +914,12 @@ def main() -> int:
             out[f"qrank_k{k}"] = qrank_check(
                 f"{name} K={k}", bq, wq, prep.max_costs, abc, pcfg.half_wnd,
                 pcfg.max_dis, reps)
+        abc = pm.stencil_candidates(run_pair(pl, pr, 0, pcfg)["abc"],
+                                    pm._stencil(pcfg, 0)).contiguous()
+        out["qrank_pipeline"] = qrank_check(
+            f"{name} K={abc.shape[1]}, pipeline candidates", bq, wq,
+            prep.max_costs, abc, pcfg.half_wnd, pcfg.max_dis, reps,
+            shared=True)
         return out
 
     gr_bench = grd_rank_phase("bench seed 0", pair, l, r, cfg, 10)
@@ -892,13 +927,14 @@ def main() -> int:
     rec["grdv"] = dict(gr_bench["grdv"], **{
         f"{key}_kitti": val for key, val in gr_kitti["grdv"].items()
         if key != "bound_by"})
-    rec["qrank"] = dict(gr_bench["qrank_k8"], **{
-        f"{key}_k1": val for key, val in gr_bench["qrank_k1"].items()
-        if key != "bound_by"}, **{
-        f"{key}_kitti": val for key, val in gr_kitti["qrank_k8"].items()
-        if key != "bound_by"}, **{
-        f"{key}_kitti_k1": val for key, val in gr_kitti["qrank_k1"].items()
-        if key != "bound_by"})
+    rec["qrank"] = dict(gr_bench["qrank_k8"])
+    for scene, tag in ((gr_bench, ""), (gr_kitti, "_kitti")):
+        for case, suffix in (("qrank_k8", ""), ("qrank_k1", "_k1"),
+                             ("qrank_pipeline", "_pipeline")):
+            if tag or suffix:
+                rec["qrank"].update({
+                    f"{key}{tag}{suffix}": val
+                    for key, val in scene[case].items() if key != "bound_by"})
     for key in ("grdv", "qrank"):
         rec[key]["max_abs_err"] = max(v for f, v in rec[key].items()
                                       if f.startswith("max_abs_err"))
@@ -1237,7 +1273,9 @@ def main() -> int:
     def wmf_phase(name, pcfg, inputs, reps, want_out, **band):
         """WMF against its plain version on the card (u8, every pixel), and
         against want_out (the pipeline's map, or the whole image's tile);
-        timed in turns."""
+        timed in turns: the wrapper (its two preparing launches and the
+        kernel's), the kernel's launch alone on prepared inputs, the plain
+        version."""
         w_dis, w_imgs, w_valid = inputs
         lut = plane_cost.asw_lut(pcfg.wmf_gamma, dev)
 
@@ -1264,17 +1302,27 @@ def main() -> int:
             raise RuntimeError(f"WMF {name}: {diff} pixels differ from the "
                                "plain version, or the map differs from the "
                                "reference")
-        t = time_turns({"kernel": kernel, "plain": plain},
-                       {"kernel": reps, "plain": 1})
+        prep = wmf.prepare_median(
+            w_dis, w_imgs, w_valid, r0, got.shape[1], c0, got.shape[2])
+        t = time_turns({
+            "kernel": kernel,
+            "launch": lambda: wmf.weighted_median_prepared(
+                prep, lut, half_wnd=pcfg.half_wnd),
+            "plain": plain}, {"kernel": reps, "launch": reps, "plain": 1})
+        if not torch.equal(prep[3], want):
+            raise RuntimeError(f"WMF {name}: the timed launches differ from "
+                               "the plain version")
         samples = median_samples(w_valid, pcfg.half_wnd, **band)
         b_ms, b_by = bound(nbytes(w_dis, w_imgs, w_valid, lut, got),
                            WMF_OPS_PER_SAMPLE * samples)
-        print(f"WMF {name}: plain {t['plain']:.3f} ms | kernel "
-              f"{t['kernel']:.3f} ms | {samples} window samples; bound "
-              f"{b_ms:.4f} ms ({b_by}); {card}")
+        print(f"WMF {name}: plain {t['plain']:.3f} ms | wrapper "
+              f"{t['kernel']:.3f} ms | launch alone {t['launch']:.3f} ms | "
+              f"{samples} window samples; bound {b_ms:.4f} ms ({b_by}); "
+              f"{card}")
         return dict(max_abs_err=float(err), differing_pixels=diff,
                     n_invalid=n, samples=samples, ms=t["kernel"],
-                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+                    launch_ms=t["launch"], plain_ms=t["plain"],
+                    bound_ms=b_ms, bound_by=b_by)
 
     cs_wmf_in = wmf_inputs(outs_cs[0], CEN_CS_PP, l, r)
     rec["wmf"] = wmf_phase("CEN_CS_PP seed 0 (375x450)", CEN_CS_PP,

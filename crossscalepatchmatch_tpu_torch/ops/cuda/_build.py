@@ -60,10 +60,14 @@ SOURCES = {
                           _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "weighted_median.cu": {
-        # pix, key, lut, idx, n (device), out, H, W, Ho, Wo, oy, ox,
+        # dis, imgs, valid, packed, counts, len(counts), idx, n (device),
+        # out, H, W, Ho, Wo, oy, ox, stream
+        "cspm_wmf_prepare": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _P),
+        # packed, lut, idx, n (device), out, H, W, Ho, Wo, oy, ox,
         # half_wnd, stream
-        "cspm_weighted_median": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _I, _P),
+        "cspm_weighted_median": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _P),
     },
     "grd_volume.cu": {
         # pix, out, H, W, D, right, alpha, 1 - alpha, tau_clr, tau_grd,

@@ -9,27 +9,31 @@ models.postprocess.weighted_median_plain, which models.postprocess.
 weighted_median takes for CPU tensors; the kernel's output is u8-equal to
 it (see the source's note).
 
-The wrapper lays the inputs out for the kernel: the pixels packed as
-B | G << 8 | R << 16 (pack_bgr), the key dis where valid and 256 where not,
+The wrapper lays the inputs out for the kernel with two launches of its
+own (prepare_median, the C entry cspm_wmf_prepare): every pixel packed as
+one 8-byte word, its colour B | G << 8 | R << 16 beside its key, dis where
+valid and 256 where not; the output window of dis copied into the output;
 and the invalid output pixels compacted into one list over both views
-(view-major, raster order) by a stable sort, with their count left on the
-device, so nothing waits for the card.  dis, imgs and valid are read
-through these copies and may have any strides; the weight table is read as
-it is and must be contiguous.
+(view-major, raster order), with their count left on the device, so
+nothing waits for the card.  dis, imgs and valid are read through
+contiguous copies (none where they are contiguous already); the weight
+table is read as it is and must be contiguous.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, pack_bgr
+from . import _build
 from ..plane_cost import L1_MAX
 
 # Kernel launches (a plain count; chip_smoke resets and reads it).
 launches = 0
 
-# The key of an invalid pixel: above every threshold t <= 255.
-KEY_INVALID = 256
+# Pixels a block of cspm_wmf_prepare's counting covers (csrc/
+# weighted_median.cu kChunk); the C entry refuses a counts buffer shorter
+# than its own kChunk needs.
+_CHUNK = 1024
 
 
 def _check_inputs(dis: torch.Tensor, imgs: torch.Tensor,
@@ -90,7 +94,6 @@ def weighted_median_cuda(dis: torch.Tensor, imgs: torch.Tensor,
     Returns:
       u8[2, out_h, out_w].
     """
-    global launches
     h, w, oh, ow = _check_inputs(dis, imgs, valid, lut, half_wnd,
                                  center_row0, out_h, center_col0, out_w)
     dev = dis.device
@@ -101,21 +104,47 @@ def weighted_median_cuda(dis: torch.Tensor, imgs: torch.Tensor,
             raise ValueError(f"{name} on {t.device}, dis on {dev}")
     if not lut.is_contiguous():
         raise ValueError("lut: must be contiguous")
-    pix = pack_bgr(imgs)
-    key = dis.to(torch.int16, memory_format=torch.contiguous_format
-                 ).masked_fill_(~valid, KEY_INVALID)
-    region = (slice(None), slice(center_row0, center_row0 + oh),
-              slice(center_col0, center_col0 + ow))
-    n = (~valid[region]).sum(dtype=torch.int32).reshape(1)
-    # stable: the invalid pixels (key 0) first, each view's in raster order
-    idx = torch.argsort(valid[region].reshape(-1).to(torch.uint8),
-                        stable=True)
-    out = torch.empty((2, oh, ow), dtype=torch.uint8, device=dev)
-    out.copy_(dis[region])
+    return weighted_median_prepared(
+        prepare_median(dis, imgs, valid, center_row0, oh, center_col0, ow),
+        lut, half_wnd=half_wnd)
+
+
+def prepare_median(dis: torch.Tensor, imgs: torch.Tensor,
+                   valid: torch.Tensor, center_row0: int, out_h: int,
+                   center_col0: int, out_w: int) -> tuple:
+    """The kernel's inputs on the card, two launches (inputs as
+    weighted_median_cuda's, already checked): (packed i32[2, Ha, Wa, 2], the
+    invalid output pixels i32[2 * out_h * out_w] (the first n), n i32[1],
+    out u8[2, out_h, out_w] holding dis's output window, the origin)."""
+    _, h, w = dis.shape
+    dev = dis.device
+    dis, imgs, valid = dis.contiguous(), imgs.contiguous(), valid.contiguous()
+    packed = torch.empty((2, h, w, 2), dtype=torch.int32, device=dev)
+    counts = torch.empty((-(-2 * h * w // _CHUNK),), dtype=torch.int32,
+                         device=dev)
+    idx = torch.empty((2 * out_h * out_w,), dtype=torch.int32, device=dev)
+    n = torch.empty((1,), dtype=torch.int32, device=dev)
+    out = torch.empty((2, out_h, out_w), dtype=torch.uint8, device=dev)
+    err = _build.load().cspm_wmf_prepare(
+        dis.data_ptr(), imgs.data_ptr(), valid.data_ptr(), packed.data_ptr(),
+        counts.data_ptr(), counts.numel(), idx.data_ptr(), n.data_ptr(),
+        out.data_ptr(), h, w, out_h, out_w, center_row0, center_col0,
+        _build.stream_of(out))
+    _build.check(err, "cspm_wmf_prepare")
+    return packed, idx, n, out, (center_row0, center_col0)
+
+
+def weighted_median_prepared(prep: tuple, lut: torch.Tensor, *,
+                             half_wnd: int) -> torch.Tensor:
+    """One launch of WMF on prepare_median's output: overwrites the
+    replaced pixels of its `out` and returns it."""
+    global launches
+    packed, idx, n, out, (oy, ox) = prep
+    _, h, w, _ = packed.shape
+    _, oh, ow = out.shape
     err = _build.load().cspm_weighted_median(
-        pix.data_ptr(), key.data_ptr(), lut.data_ptr(), idx.data_ptr(),
-        n.data_ptr(), out.data_ptr(), h, w, oh, ow, center_row0,
-        center_col0, half_wnd, _build.stream_of(out))
+        packed.data_ptr(), lut.data_ptr(), idx.data_ptr(), n.data_ptr(),
+        out.data_ptr(), h, w, oh, ow, oy, ox, half_wnd, _build.stream_of(out))
     _build.check(err, "cspm_weighted_median")
     launches += 1
     return out

@@ -258,15 +258,18 @@ def busy_union(intervals) -> float:
 def kernel_family(name: str, cfg) -> str:
     """The port's kernel a device op is (K1 / K4: the window-cost kernel at
     one level or over the pyramid; K2; fly: the no-volume kernel, K5 / K3;
-    WMF: the weighted median; GRDV: the GRD cost volume; QRANK: the
-    quadrant ranking), "other" for PyTorch's own ops."""
+    WMF: the weighted median and its two preparation kernels; GRDV: the
+    GRD cost volume; QRANK: the quadrant ranking), "other" for PyTorch's
+    own ops."""
     if "cross_scale_kernel" in name:
         return "K4" if cfg.use_cs else "K1"
     if "quadrant_build_kernel" in name:
         return "K2"
     if "fly_cost_kernel" in name:
         return "fly"
-    if "weighted_median_kernel" in name:
+    if any(k in name for k in ("weighted_median_kernel",
+                               "wmf_pack_count_kernel",
+                               "wmf_compact_kernel")):
         return "WMF"
     if "grd_volume_kernel" in name:
         return "GRDV"

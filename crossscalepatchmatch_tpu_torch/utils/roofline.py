@@ -13,12 +13,16 @@ crossscalepatchmatch_tpu utils/roofline.py).
     window-sample counts of a launch on given planes (axis_count,
     window_samples), bound() and nbytes(); chip_smoke.py reads its kernels'
     bounds from these;
-  * median_samples: the window samples the weighted median (kernel WMF)
-    reads on a validity mask, with WMF_OPS_PER_SAMPLE;
+  * median_samples: the window samples a bisection for the weighted
+    median (kernel WMF's bound) reads on a validity mask, with
+    WMF_OPS_PER_SAMPLE;
   * grd_volume_work / quadrant_rank_work: the bytes and f32 operations of
     a pair's GRD volumes (kernel GRDV, one launch a view) and of one launch
     of kernel QRANK (a ranking call, its in-range quadrants counted on the
-    planes);
+    planes); quadrant_rank_row_work: the same with each distinct tap float
+    of a quadrant row counted once (the bound on candidates that share
+    taps); quadrant_rank_sectors: the distinct 32-byte sectors of the
+    quadrant volume that a QRANK launch's taps touch;
   * measure_f32_peak: the f32 ceiling the card sustains, from a
     hand-written FMA-chain kernel (csrc/f32_peak.cu).
 """
@@ -62,9 +66,9 @@ RANK_FLOPS_OUT_OF_RANGE = 6
 # a GRD volume element (kernel GRDV): the colour term's multiply by 1/3,
 # |grad diff| (a subtract and an abs), two mins, two multiplies and an add
 GRD_FLOPS_PER_ELEMENT = 8
-# the weighted median's window sample (kernel WMF, every pass): the L1
-# distance (three absolute differences, two adds), the threshold test and
-# the f32 add; counted at the f32 rate
+# the weighted median's window sample in each pass of a bisection
+# (median_samples): the L1 distance (three absolute differences, two
+# adds), the threshold test and the f32 add; counted at the f32 rate
 WMF_OPS_PER_SAMPLE = 7
 
 # the JAX model's semantic op counts (crossscalepatchmatch_tpu
@@ -258,12 +262,16 @@ def quadrant_build_samples(h: int, w: int, half_wnd: int, stride: int,
 def median_samples(valid: torch.Tensor, half_wnd: int, center_row0: int = 0,
                    out_h: int | None = None, center_col0: int = 0,
                    out_w: int | None = None) -> int:
-    """Window samples kernel WMF reads on this mask (models.postprocess.
-    weighted_median's arguments): at each invalid output pixel of both
-    views, its window's pixels inside the array, once for the total and 8
-    more times (the bisection) where the window holds a valid pixel, the
-    total then being positive (the table's weights are all positive for
-    wmf_gamma > 765 / 103, where exp(-765 / gamma) is no f32 zero).
+    """Window samples of the weighted median as a bisection reads them on
+    this mask (models.postprocess.weighted_median's arguments): at each
+    invalid output pixel of both views, its window's pixels inside the
+    array, once for the total and 8 more times (the bisection's steps)
+    where the window holds a valid pixel, the total then being positive
+    (the table's weights are all positive for wmf_gamma > 765 / 103, where
+    exp(-765 / gamma) is no f32 zero).  WMF's bound counts this,
+    WMF_OPS_PER_SAMPLE a sample: the bisection's work, which is neither
+    what kernel WMF reads (its search makes 2 passes, of 16 and 15
+    thresholds) nor the least work an exact search needs.
 
     Args:
       valid: bool[2, Ha, Wa]; the output window as weighted_median's.
@@ -327,6 +335,56 @@ def quadrant_rank_work(abc: torch.Tensor, half_wnd: int,
     ops = (RANK_FLOPS_CENTER * n + RANK_FLOPS_PER_QUADRANT * n_rng
            + RANK_FLOPS_OUT_OF_RANGE * (4 * n - n_rng))
     return bytes_, ops
+
+
+def _distinct_taps(abc: torch.Tensor, d: int, half_wnd: int, max_dis: int,
+                   per: int) -> Tuple[int, int]:
+    """(the distinct units of `per` floats of bq, f32[2, 4, H, W, d] from an
+    aligned base, that one QRANK launch's in-range taps on these planes
+    touch, counted per (view, quadrant, pixel) row; the in-range taps)."""
+    nv, _, h, w, _ = abc.shape
+    dev = abc.device
+    xs, ys = pixel_grid(h, w, dev)
+    a, b = abc[..., 0], abc[..., 1]
+    d_center = a * xs + b * ys + abc[..., 2]
+    pix = torch.arange(h * w, device=dev).reshape(1, 1, h, w)
+    view = torch.arange(nv, device=dev).reshape(nv, 1, 1, 1)
+    n = taps = 0
+    for qi, (ay, ax) in enumerate(quadrant_anchors(half_wnd)):
+        dq = d_center + a * ax + b * ay
+        rng = (dq >= 1.0) & (dq < float(max_dis))
+        taps += 2 * int(rng.sum())
+        f = torch.where(rng, dq, 1.0).trunc().to(torch.int64)
+        first = ((4 * view + qi) * (h * w) + pix) * d + f
+        unit = torch.cat([first // per, (first + 1) // per], dim=1)
+        unit = torch.where(torch.cat([rng, rng], dim=1), unit, -1)
+        unit = unit.sort(dim=1).values
+        n += int((unit[:, :1] >= 0).sum())
+        n += int(((unit[:, 1:] != unit[:, :-1]) & (unit[:, 1:] >= 0)).sum())
+    return n, taps
+
+
+def quadrant_rank_sectors(abc: torch.Tensor, d: int, half_wnd: int,
+                          max_dis: int) -> int:
+    """The distinct 32-byte sectors of K2's bq (f32[2, 4, H, W, d], its
+    base 512-byte aligned) that one QRANK launch's in-range taps touch on
+    these planes (f32[2, K, H, W, 3]), counted per (view, quadrant, pixel)
+    row: the floor a gather of these taps can reach, each sector fetched
+    from DRAM once (quadrant_rank_work is the function's own bound)."""
+    return _distinct_taps(abc, d, half_wnd, max_dis, 32 // 4)[0]
+
+
+def quadrant_rank_row_work(abc: torch.Tensor, half_wnd: int,
+                           max_dis: int) -> Tuple[int, int]:
+    """quadrant_rank_work with each distinct float of bq that the in-range
+    taps read counted once (4 bytes) for every (view, quadrant, pixel) row,
+    instead of 8 bytes for every in-range quadrant: the bytes the function
+    must move on candidates that share taps, as the pipeline's do (a
+    pixel's K candidates read the same four rows), and the same f32
+    operations."""
+    bytes_, ops = quadrant_rank_work(abc, half_wnd, max_dis)
+    floats, taps = _distinct_taps(abc, max_dis + 1, half_wnd, max_dis, 1)
+    return bytes_ - 4 * taps + 4 * floats, ops
 
 
 def pipeline_flops(cfg: CSPMConfig, h: int, w: int) -> Dict[str, float]:

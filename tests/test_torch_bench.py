@@ -115,6 +115,10 @@ def test_summary_of_device_events():
     assert profiling.kernel_family(
         "(anonymous namespace)::weighted_median_kernel(unsigned int const*)",
         KITTI) == "WMF"
+    for prep in ("wmf_pack_count_kernel(unsigned char const*)",
+                 "wmf_compact_kernel(unsigned char const*)"):
+        assert profiling.kernel_family(
+            f"(anonymous namespace)::{prep}", KITTI) == "WMF"
     assert profiling.kernel_family(
         "(anonymous namespace)::grd_volume_kernel(uint2 const*, float*)",
         KITTI) == "GRDV"

@@ -31,6 +31,8 @@ from crossscalepatchmatch_tpu.ops import grad_cost as jgc
 from crossscalepatchmatch_tpu.ops import prescreen_volume as jpv
 from crossscalepatchmatch_tpu_torch import README_DEMO
 from crossscalepatchmatch_tpu_torch.data import make_pair
+from crossscalepatchmatch_tpu_torch.models.patchmatch import (
+    _stencil, stencil_candidates)
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
 from crossscalepatchmatch_tpu_torch.ops import grad_cost, prescreen_volume
 from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
@@ -197,12 +199,49 @@ def rank_planes(k, h, w, d, seed):
     return np.ascontiguousarray(abc)
 
 
+def clustered_planes(k, h, w, d, seed):
+    """f32[2, K, H, W, 3]: the propagation stencil's candidates
+    (stencil_candidates, README_DEMO's first sweep: the 4-neighbours and
+    the far ring at 5) of a smooth plane field over [1, d), so that a
+    pixel's candidates cluster in disparity as on the pipeline's path; the
+    first candidate of three pixels a view is a flat plane whose taps
+    start at max_dis - 1 = d - 1 (the last pair of the row) or at a
+    sector's last float of the view's quadrant-0 row (the pair straddles
+    two 32-byte sectors)."""
+    rng = np.random.default_rng(seed)
+    xs = np.arange(w, dtype=F32)
+    ys = np.arange(h, dtype=F32)[:, None]
+    ab = np.stack(np.broadcast_arrays(
+        F32(0.08) * np.sin(ys / 3) + rng.uniform(-0.01, 0.01, (2, h, w)),
+        F32(0.05) * np.cos(xs / 4) + rng.uniform(-0.01, 0.01, (2, h, w))),
+        -1).astype(F32)
+    dc = (1 + (d - 2) * (0.5 + 0.45 * np.sin(xs / 5 + ys / 7))
+          + rng.uniform(-0.3, 0.3, (2, h, w))).astype(F32)
+    c = dc - ab[..., 0] * xs - ab[..., 1] * ys
+    field = torch.from_numpy(np.concatenate([ab, c[..., None]], -1))
+    cands = stencil_candidates(field, _stencil(README_DEMO, 0)).numpy()
+    cands = np.ascontiguousarray(np.resize(cands.transpose(1, 0, 2, 3, 4),
+                                           (k, 2, h, w, 3)
+                                           ).transpose(1, 0, 2, 3, 4))
+    for v in range(2):
+        first = cands[v, 0]
+        first[1, 1] = (0, 0, d - 1 + 0.25)
+        for y, x in ((2, 3), (h - 2, w - 3)):
+            row = 4 * v * h * w + y * w + x
+            f = next(f for f in range(1, d - 1)
+                     if (row * (d + 1) + f) % 8 == 7)
+            first[y, x] = (0, 0, f + 0.5)
+    return cands
+
+
+@pytest.mark.parametrize("planes", ["random", "clustered"])
 @pytest.mark.parametrize("d", [13, 61])
 @pytest.mark.parametrize("k", [1, 8])
-def test_rank_order_equals_plain(k, d):
+def test_rank_order_equals_plain(k, d, planes):
     """The numpy form of QRANK's order is the plain ranking bit for bit
     (both views, K = 1 and 8, D = 13 and 61), on K2's plain outputs and on
-    random quadrant volumes."""
+    random quadrant volumes, for random candidates and for the clustered
+    ones of the propagation stencil."""
     h, w, hw, max_dis = 14, 20, 3, d - 1
     rng = np.random.default_rng(k + d)
     img = torch.from_numpy(rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8))
@@ -214,7 +253,8 @@ def test_rank_order_equals_plain(k, d):
     rand = (torch.from_numpy(rng.uniform(0, 9, (2, 4, h, w, d)).astype(F32)),
             torch.from_numpy(rng.uniform(0, 2, (2, 4, h, w)).astype(F32)))
     mc = vol.amax(dim=(1, 2, 3))
-    abc = torch.from_numpy(rank_planes(k, h, w, max_dis, seed=d))
+    make = rank_planes if planes == "random" else clustered_planes
+    abc = torch.from_numpy(make(k, h, w, max_dis, seed=d))
     for bq, wq in (built, rand):
         got = qrank.quadrant_rank(bq, wq, mc, abc, half_wnd=hw,
                                   max_dis=max_dis).numpy()

@@ -1172,6 +1172,34 @@ def test_wmf_kitti_shape(cuda):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("band", [False, True])
+def test_wmf_prepare_lists_the_invalid_pixels(cuda, band):
+    """The wrapper's preparation (two launches): the packed words (colour,
+    key dis or 256), the output window of dis, and the invalid output
+    pixels in view-major raster order with their count on the device,
+    across many chunks of the compaction (~20 % invalid, 2 x 125 x 225
+    output pixels), whole image and band form."""
+    from crossscalepatchmatch_tpu_torch.ops.cuda import pack_bgr
+
+    dis, imgs, valid = wmf_scene(159, 259, 3, 0.2, cuda)
+    kw = dict(center_row0=17, out_h=125, center_col0=17, out_w=225) if band \
+        else dict(center_row0=0, out_h=159, center_col0=0, out_w=259)
+    r0, oh, c0, ow = (kw[k] for k in ("center_row0", "out_h", "center_col0",
+                                      "out_w"))
+    packed, idx, n, out, origin = wmf.prepare_median(dis, imgs, valid, r0,
+                                                     oh, c0, ow)
+    torch.cuda.synchronize()
+    assert origin == (r0, c0)
+    assert torch.equal(packed[..., 0], pack_bgr(imgs))
+    assert torch.equal(packed[..., 1],
+                       torch.where(valid, dis.int(), 256).int())
+    region = (slice(None), slice(r0, r0 + oh), slice(c0, c0 + ow))
+    assert torch.equal(out, dis[region])
+    want = torch.nonzero((~valid[region]).reshape(-1))[:, 0].int()
+    assert int(n[0]) == want.numel() > 8 * 1024
+    assert torch.equal(idx[:want.numel()], want)
+
+
 def test_wmf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     dis, imgs, valid = wmf_scene(12, 16, 1, 0.3, cuda)
     lut = plane_cost.asw_lut(10.0, cuda)
@@ -1280,21 +1308,70 @@ def rank_inputs(cfg, h, w, cuda, band=False):
     return bq, wq, prep.max_costs, h, w
 
 
-@pytest.mark.parametrize("scene,k", [("bench", 1), ("bench", 8),
-                                     ("kitti", 1), ("kitti", 8),
-                                     ("band", 1), ("band", 8)])
-def test_qrank_bit_equal_on_the_card(cuda, scene, k):
+def clustered_planes(k, h, w, d, cuda):
+    """f32[2, K, H, W, 3] clustered in disparity as the pipeline's
+    candidates are: the current plane of a smooth field over [1, d) and
+    the propagation stencil's 8 neighbours of it (README_DEMO's first
+    sweep), then perturbations of the current plane as the refinement's
+    (its disparity moved by up to d / 4, halved each step, its slopes by
+    up to 0.05), the first K of these; a few flat planes with taps at
+    max_dis - 1 = d - 1."""
+    from crossscalepatchmatch_tpu_torch.models.patchmatch import (
+        _stencil, stencil_candidates)
+
+    rng = np.random.default_rng(k)
+    xs = np.arange(w, dtype=np.float32)
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    a = 0.06 * np.sin(ys / 17) + rng.uniform(-0.01, 0.01, (2, h, w))
+    b = 0.04 * np.cos(xs / 23) + rng.uniform(-0.01, 0.01, (2, h, w))
+    dc = (1 + (d - 2) * (0.5 + 0.45 * np.sin(xs / 41 + ys / 29))
+          + rng.uniform(-0.5, 0.5, (2, h, w)))
+    field = np.stack([a, b, dc - a * xs - b * ys], -1).astype(np.float32)
+    field[:, ::97, ::89] = (0, 0, d - 0.75)
+    field = torch.as_tensor(field, device=cuda)
+    cands = [field[:, None], stencil_candidates(field,
+                                                _stencil(README_DEMO, 0))]
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    pix = torch.stack(torch.broadcast_tensors(
+        torch.as_tensor(xs, device=cuda), torch.as_tensor(ys, device=cuda)),
+        -1)
+    for j in range(max(0, k - 9)):
+        u = torch.rand((2, h, w, 3), generator=gen, device=cuda) * 2 - 1
+        dab = 0.05 * 0.5 ** j * u[..., :2]
+        ddc = d / 4 * 0.5 ** j * u[..., 2]
+        dcv = ddc - (dab * pix).sum(-1)
+        cands.append((field + torch.cat([dab, dcv[..., None]], -1))[:, None])
+    return torch.cat(cands, 1)[:, :k].contiguous()
+
+
+@pytest.mark.parametrize("planes", ["random", "clustered"])
+@pytest.mark.parametrize("scene,k", [
+    ("bench", 1), ("bench", 2), ("bench", 5), ("bench", 8), ("bench", 9),
+    ("kitti", 1), ("kitti", 8), ("kitti", 9),
+    ("band", 1), ("band", 2), ("band", 5), ("band", 8), ("band", 9),
+    ("bench", 16), ("bench", 17), ("bench", 33),
+    ("band", 16), ("band", 17), ("band", 33)])
+def test_qrank_bit_equal_on_the_card(cuda, scene, k, planes):
     """QRANK on K2's real output (seed-0 README_DEMO pair, KITTI pair with
-    D = 129, and the bench tile's band-form bq) at K = 1 and 8, random and
-    wild planes: bit-equal to the plain ranking of each view on the same
-    CUDA tensors; one launch for both views."""
+    D = 129, and the bench tile's band-form bq), random and wild planes or
+    candidates clustered like the pipeline's: bit-equal to the plain
+    ranking of each view on the same CUDA tensors; one launch for both
+    views.  K = 8 and 9 are the stencil's sizes; at K = 5 a pixel's
+    (candidate, quadrant) items straddle two warps; 16 is one whole chunk
+    of the kernel's 16 candidates, 17 and 33 end on a chunk of one after
+    one or two whole ones.  Each view's last tile of 64 pixels is partial
+    at the bench and KITTI shapes (46 and 22 pixels), so its items are no
+    multiple of the block's 128 lanes."""
     from crossscalepatchmatch_tpu_torch import KITTI
 
     cfg = KITTI if scene == "kitti" else README_DEMO
     w = 1242 if scene == "kitti" else 450
     bq, wq, mc, h, w = rank_inputs(cfg, 375, w, cuda, band=scene == "band")
-    abc = torch.as_tensor(random_planes(k, h, w, cfg.max_dis, seed=k),
-                          device=cuda)
+    if planes == "random":
+        abc = torch.as_tensor(random_planes(k, h, w, cfg.max_dis, seed=k),
+                              device=cuda)
+    else:
+        abc = clustered_planes(k, h, w, cfg.max_dis, cuda)
     n = quadrant_rank.launches
     got = quadrant_rank.quadrant_rank(bq, wq, mc, abc, half_wnd=cfg.half_wnd,
                                       max_dis=cfg.max_dis)

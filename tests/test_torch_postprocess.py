@@ -9,9 +9,9 @@ Tolerances:
     XLA:CPU's in the last ulp at some of the 766 integer L1 distances) at
     most 1 level on at most 0.5 % of the replaced pixels, the one freedom
     allowed;
-  * kernel WMF's order (a total, then 8 bisection passes of sequential
-    sums; csrc/weighted_median.cu) against the plain weighted median, both
-    in plain torch: exact (u8), ties included.
+  * kernel WMF's order (the 16-ary search of sequential sums;
+    csrc/weighted_median.cu), and the bisection it replaced, against the
+    plain weighted median, both in plain torch: exact (u8), ties included.
 """
 
 import jax
@@ -141,13 +141,23 @@ def test_postprocess(scene, monkeypatch, xla_weights):
 
 # -- the weighted-median kernel's order (csrc/weighted_median.cu), on the CPU
 
-def kernel_order_median(dis, imgs, valid, cfg, center_row0=0, out_h=None,
-                        center_col0=0, out_w=None):
-    """The weighted median in kernel WMF's order, in plain torch: at each
-    invalid output pixel one pass forms the total S(255), then 8 bisection
-    passes each form S(mid); every pass is one sequential f32 sum over the
-    window in dy-major order, adding lut[L1] only where q lies in the
-    array, is valid and has dis_q <= t (an invalid q carries key 256)."""
+# the kernel's search: 16 thresholds a pass (csrc/weighted_median.cu
+# kArity); "bisection" is the order of the kernel's first form (a total,
+# then 8 single-threshold passes)
+SEARCHES = ["bisection", 16]
+
+
+def kernel_order_median(dis, imgs, valid, cfg, search=16, center_row0=0,
+                        out_h=None, center_col0=0, out_w=None):
+    """The weighted median in kernel WMF's order, in plain torch.  Every
+    S(t) is one sequential f32 sum over the window in dy-major order,
+    adding lut[L1] only where q lies in the array, is valid and has dis_q
+    <= t (an invalid q carries key 256).  search="bisection": one pass
+    forms the total S(255), then 8 bisection passes each form S(mid).
+    search=m: pass 1 forms S(t) at the m bucket ends 256/m - 1, ...,
+    255 (S(255) gives half); each later pass forms the m - 1 sums inside
+    the first bucket whose end reaches half, until the bucket is one
+    level wide."""
     _, h, w = dis.shape
     oh = h if out_h is None else out_h
     ow = w if out_w is None else out_w
@@ -176,13 +186,32 @@ def kernel_order_median(dis, imgs, valid, cfg, center_row0=0, out_h=None,
                     s = torch.where(take, s + lut[l1], s)
             return s
 
-        half = window_sum(torch.full((len(py),), 255)) * 0.5
-        lo = torch.zeros(len(py), dtype=torch.int64)
-        hi = torch.full((len(py),), 255)
-        for _ in range(8):
-            mid = (lo + hi) >> 1
-            ge = window_sum(mid) >= half
-            lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid, hi)
+        if search == "bisection":
+            half = window_sum(torch.full((len(py),), 255)) * 0.5
+            lo = torch.zeros(len(py), dtype=torch.int64)
+            hi = torch.full((len(py),), 255)
+            for _ in range(8):
+                mid = (lo + hi) >> 1
+                ge = window_sum(mid) >= half
+                lo, hi = torch.where(ge, lo, mid + 1), torch.where(ge, mid,
+                                                                    hi)
+        else:
+            width = 256 // search
+            ends = [window_sum(torch.full((len(py),), (j + 1) * width - 1))
+                    for j in range(search)]
+            half = ends[-1] * 0.5
+            # the first bucket whose end reaches half (the last one does)
+            lo = torch.full((len(py),), (search - 1) * width)
+            for j in reversed(range(search - 1)):
+                lo = torch.where(ends[j] >= half, j * width, lo)
+            while width > 1:
+                sub = width // search
+                sums = [window_sum(lo + (m + 1) * sub - 1)
+                        for m in range(search - 1)]
+                step = torch.full((len(py),), search - 1)
+                for m in reversed(range(search - 1)):
+                    step = torch.where(sums[m] >= half, m, step)
+                lo, width = lo + step * sub, sub
         rep = half > 0
         out[v, ys[rep], xs[rep]] = lo[rep].to(torch.uint8)
     return out
@@ -205,12 +234,13 @@ def median_cfg(wnd):
     return config_pair(max_dis=12, dis_scale=8, wnd_size=wnd)[1]
 
 
+@pytest.mark.parametrize("search", SEARCHES)
 @pytest.mark.parametrize("wnd", [3, 11, 35])
 @pytest.mark.parametrize("kind", ["ties", "random"])
-def test_kernel_order_equals_plain_weighted_median(wnd, kind):
-    """The kernel's order (a total, then 8 bisection passes of sequential
-    sums) picks the plain version's t at every pixel, on scenes with many
-    exact ties of S(t) and on random ones."""
+def test_kernel_order_equals_plain_weighted_median(wnd, kind, search):
+    """The kernel's order (the 16-ary search of sequential sums, and the
+    bisection it replaced) picks the plain version's t at every pixel, on
+    scenes with many exact ties of S(t) and on random ones."""
     if kind == "ties":
         dis, imgs, valid = tie_scene(18, 22, wnd, 0.4)
     else:
@@ -222,15 +252,16 @@ def test_kernel_order_equals_plain_weighted_median(wnd, kind):
         valid = torch.from_numpy(rng.uniform(size=(2, 18, 22)) >= 0.3)
     cfg = median_cfg(wnd)
     want = pp.weighted_median_plain(dis, imgs, valid, cfg)
-    got = kernel_order_median(dis, imgs, valid, cfg)
+    got = kernel_order_median(dis, imgs, valid, cfg, search)
     assert torch.equal(got, want)
     assert torch.equal(pp.weighted_median(dis, imgs, valid, cfg), want)
     assert (want != dis).any()                 # it replaced pixels
 
 
+@pytest.mark.parametrize("search", SEARCHES)
 @pytest.mark.parametrize("case", ["none_invalid", "all_invalid",
                                   "zero_total"])
-def test_kernel_order_edge_masks(case):
+def test_kernel_order_edge_masks(case, search):
     """No invalid pixel (nothing replaced), every pixel invalid (every total
     0: nothing replaced) and invalid pixels whose window holds no valid
     pixel (a zero total: kept) beside replaced ones."""
@@ -243,7 +274,8 @@ def test_kernel_order_edge_masks(case):
         valid[:, :7, :7] = False               # a 3x3 window sees none
     cfg = median_cfg(3)
     want = pp.weighted_median_plain(dis, imgs, valid, cfg)
-    assert torch.equal(kernel_order_median(dis, imgs, valid, cfg), want)
+    assert torch.equal(kernel_order_median(dis, imgs, valid, cfg, search),
+                       want)
     if case == "zero_total":
         assert torch.equal(want[:, 1:6, 1:6], dis[:, 1:6, 1:6])
         assert (want != dis).any()
@@ -251,8 +283,9 @@ def test_kernel_order_edge_masks(case):
         assert torch.equal(want, dis)
 
 
+@pytest.mark.parametrize("search", SEARCHES)
 @pytest.mark.parametrize("wnd", [3, 11])
-def test_kernel_order_band_form(wnd):
+def test_kernel_order_band_form(wnd, search):
     """The band arguments as parallel.tiled passes them: a tile's block with
     its half-window halo, rows above the global image invalid, the output
     the block's centre (odd origin, columns extended too)."""
@@ -263,8 +296,8 @@ def test_kernel_order_band_form(wnd):
     cfg = median_cfg(wnd)
     want = pp.weighted_median_plain(dis, imgs, valid, cfg, **kw)
     assert want.shape == (2, hs, ws)
-    assert torch.equal(kernel_order_median(dis, imgs, valid, cfg, **kw),
-                       want)
+    assert torch.equal(kernel_order_median(dis, imgs, valid, cfg, search,
+                                           **kw), want)
     assert torch.equal(pp.weighted_median(dis, imgs, valid, cfg, **kw), want)
 
 

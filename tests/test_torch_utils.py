@@ -227,6 +227,83 @@ def test_quadrant_rank_work():
         4 * n + 10 * n_rng + 6 * (4 * n - n_rng))
 
 
+def rank_rows_brute_force():
+    """Planes for the QRANK tap counts and a brute-force count of their
+    taps: candidates clustered around one plane (most taps of a row in a
+    sector or two), random ones, and flat planes whose first tap is a
+    sector's last float (the pair straddles two sectors) or max_dis - 1.
+
+    Returns (abc, d, half_wnd, max_dis, the distinct 32-byte sectors and
+    the distinct floats of bq that the in-range taps touch, each counted
+    per (view, quadrant, pixel) row, the in-range tap pairs)."""
+    rng = np.random.default_rng(5)
+    k, h, w, hw, d = 5, 6, 9, 3, 13
+    md = d - 1
+    base = np.concatenate([rng.uniform(-0.2, 0.2, (2, 1, h, w, 2)),
+                           rng.uniform(2, 10, (2, 1, h, w, 1))], -1)
+    jitter = np.concatenate([rng.uniform(-0.02, 0.02, (2, 3, h, w, 2)),
+                             rng.uniform(-0.6, 0.6, (2, 3, h, w, 1))], -1)
+    wild = np.concatenate([rng.uniform(-0.6, 0.6, (2, 1, h, w, 2)),
+                           rng.uniform(-3, 16, (2, 1, h, w, 1))], -1)
+    abc = np.concatenate([base, base + jitter, wild], 1).astype(np.float32)
+    # flat planes on the last candidate: dq = f + 0.5 at every anchor, f
+    # max_dis - 1 at one pixel, at the others the sector's last float of
+    # the view's quadrant-0 row
+    for v, (y, x) in enumerate(((1, 2), (4, 7))):
+        row = (4 * v) * h * w + y * w + x
+        f = next(f for f in range(1, md) if (row * d + f) % 8 == 7)
+        abc[v, -1, y, x] = (0.0, 0.0, f + 0.5)
+        abc[v, -1, y, x + 1] = (0.0, 0.0, md - 0.5)
+    abc = torch.from_numpy(abc)
+    lo, hi = -(hw + 1) / 2.0, hw / 2.0
+    sectors = floats = pairs = 0
+    f32 = np.float32
+    for v, y, x in np.ndindex(2, h, w):
+        for q, (ay, ax) in enumerate(((lo, lo), (lo, hi), (hi, lo),
+                                      (hi, hi))):
+            row = (4 * v + q) * h * w + y * w + x
+            taps = set()
+            for kk in range(k):
+                a, b, c = (f32(t) for t in abc[v, kk, y, x])
+                dc = f32(f32(f32(a * f32(x)) + f32(b * f32(y))) + c)
+                dq = f32(f32(dc + f32(a * f32(ax))) + f32(b * f32(ay)))
+                if 1.0 <= dq < md:
+                    pairs += 1
+                    g = row * d + int(np.trunc(dq))
+                    taps |= {g, g + 1}
+            sectors += len({g // 8 for g in taps})
+            floats += len(taps)
+    return abc, d, hw, md, sectors, floats, pairs
+
+
+def test_quadrant_rank_sectors():
+    """The distinct 32-byte sectors of bq that a QRANK launch's in-range
+    taps touch, per (view, quadrant, pixel) row, against a brute-force
+    count (rank_rows_brute_force)."""
+    abc, d, hw, md, want, _, pairs = rank_rows_brute_force()
+    got = roofline.quadrant_rank_sectors(abc, d, hw, md)
+    assert got == want
+    # the clustered rows share sectors: fewer than one a tap pair
+    assert 0 < got < pairs
+
+
+def test_quadrant_rank_row_work():
+    """quadrant_rank_row_work: quadrant_rank_work's bytes with each distinct
+    float of a row that the in-range taps read counted once (4 bytes)
+    instead of 8 bytes a tap pair, against a brute-force count; the same
+    operations.  On clustered candidates it is below quadrant_rank_work,
+    on one candidate (no row shared) equal to it."""
+    abc, _, hw, md, _, floats, pairs = rank_rows_brute_force()
+    work_bytes, work_ops = roofline.quadrant_rank_work(abc, hw, md)
+    got_bytes, got_ops = roofline.quadrant_rank_row_work(abc, hw, md)
+    assert got_ops == work_ops
+    assert got_bytes == work_bytes - 8 * pairs + 4 * floats
+    assert got_bytes < work_bytes
+    one = abc[:, :1].contiguous()
+    assert (roofline.quadrant_rank_row_work(one, hw, md)
+            == roofline.quadrant_rank_work(one, hw, md))
+
+
 def test_fma_chain_plain_and_no_cpu_ceiling():
     """On the CPU the chain is its plain version: with m = c = 1 every
     element gains exactly one per step; measure_f32_peak has no CPU

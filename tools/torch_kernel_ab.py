@@ -1,5 +1,5 @@
-"""Time the port's K1, K2, K3, K4 and fly kernels on a CUDA card,
-optionally against another checkout of the repository.
+"""Time the port's K1, K2, K3, K4, fly, QRANK and WMF kernels on a CUDA
+card, optionally against another checkout of the repository.
 
     python tools/torch_kernel_ab.py [--parent DIR] [--reps 5]
 
@@ -10,7 +10,15 @@ K = 1, 2 and 3, as the strided prescreen (K3: stride 2, K = 8 and 5), as K6
 (image lerp), K7 (Lab) and the 5-level cross-scale fly, K5 and K3 also on
 the KITTI scene; K1 at K = 1 and 2, K3's volume form (stride 2, K = 8) and
 K2 on the bench scene's GRD volume (bf16 and f32), K1 (K = 1) and K2 on the
-KITTI scene's 129 slices.  Every time is CUDA events around `reps` launches
+KITTI scene's 129 slices; QRANK on K2's output (f32 GRD volumes) at the
+bench and KITTI shapes, K = 8 and 1 on random planes (test_planes) and
+K = 8 on the pipeline's candidates (the propagation stencil's neighbours
+of the seed-0 run_pair output's final planes); WMF on the seed-0
+CEN_CS_PP and KITTI pairs' inputs (the filled maps, the images, the
+LR-invalid masks) and in band form on the bench scene's middle tile of a
+(1, 3, 2) mesh (the CEN_CS_PP inputs with their half-window halo), the
+wrapper and, where the checkout has prepare_median, the kernel's launch
+alone.  Every time is CUDA events around `reps` launches
 after a warm-up; where the checkout has prepared pairs (prepare_fly,
 prepare_cross_scale, prepare_volumes), the preparation (packing, the
 pair-layout volumes) is outside the timed region, and a checkout without
@@ -67,6 +75,8 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, KITTI, CSPMConfig,
                                                 README_DEMO)
     from crossscalepatchmatch_tpu_torch.data import make_pair
+    from crossscalepatchmatch_tpu_torch.models import patchmatch as pm
+    from crossscalepatchmatch_tpu_torch.models import postprocess as pp_mod
     from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
     from crossscalepatchmatch_tpu_torch.ops import onthefly_cost, plane_cost
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
@@ -75,9 +85,12 @@ def main() -> int:
                                                          cross_scale_cost,
                                                          fly_cost, pack_bgr,
                                                          quadrant_build,
+                                                         quadrant_rank,
                                                          window_cost)
+    from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
         scale_weights)
+    from crossscalepatchmatch_tpu_torch.parallel.tiled import _ext_from_full
 
     dev = torch.device("cuda:0")
     card = subprocess.run(
@@ -255,6 +268,73 @@ def main() -> int:
                  [("K1", 1, 1), ("K1", 2, 1), ("K3 volume", 8, 2),
                   ("K2", 0, 0)])
     volume_cases("KITTI", kitti, KITTI, [("K1", 1, 1), ("K2", 0, 0)])
+
+    # -- QRANK ----------------------------------------------------------------
+    def qrank_cases(tag, scene, cfg):
+        pair, l, r = scene
+        vd = build_volume_data(l, r, cfg)
+        kw = dict(half_wnd=cfg.half_wnd, max_dis=cfg.max_dis)
+        # QRANK came after prepare_volumes: a checkout with it has both
+        prep = window_cost.prepare_volumes(
+            vd.imgs[0], vd.vols[0], vd.max_costs[0], gamma=cfg.wgt_gamma, **kw)
+        del vd
+        bq, wq = quadrant_build.quadrant_volumes_prepared(
+            prep, half_wnd=cfg.half_wnd, gamma=cfg.wgt_gamma,
+            stride=cfg.prescreen_stride)
+        mc = prep.max_costs
+        del prep
+        cases = [(f"random K={k}", chip_smoke.test_planes(
+            pair, cfg.max_dis, k, gen, dev)) for k in (8, 1)]
+        cases.append(("pipeline K=8", pm.stencil_candidates(
+            run_pair(l, r, 0, cfg)["abc"], pm._stencil(cfg, 0)
+        ).contiguous()))
+        for name, abc in cases:
+            timed(f"QRANK {tag} {name}",
+                  lambda: quadrant_rank.quadrant_rank_cuda(bq, wq, mc, abc,
+                                                           **kw))
+
+    qrank_cases("bench", bench, README_DEMO)
+    qrank_cases("KITTI", kitti, KITTI)
+
+    # -- WMF ------------------------------------------------------------------
+    def wmf_inputs(cfg, scene):
+        pair, l, r = scene
+        out = run_pair(l, r, 0, cfg)
+        valid = out["valid"]
+        dis = pp_mod.fill_invalid(pm.plane_to_disp(out["abc"],
+                                                   cfg.dis_scale),
+                                  out["abc"], valid, cfg)
+        return dis, torch.stack([l, r]), valid
+
+    def wmf_case(name, cfg, inputs, **band):
+        lut = plane_cost.asw_lut(cfg.wmf_gamma, dev)
+        timed(f"WMF {name} wrapper", lambda: wmf.weighted_median_cuda(
+            *inputs, lut, half_wnd=cfg.half_wnd, **band))
+        if hasattr(wmf, "prepare_median"):
+            r0, c0 = band.get("center_row0", 0), band.get("center_col0", 0)
+            oh = band.get("out_h") or inputs[0].shape[1]
+            ow = band.get("out_w") or inputs[0].shape[2]
+            prep = wmf.prepare_median(*inputs, r0, oh, c0, ow)
+            timed(f"WMF {name} launch alone",
+                  lambda: wmf.weighted_median_prepared(
+                      prep, lut, half_wnd=cfg.half_wnd))
+
+    cs_in = wmf_inputs(CEN_CS_PP, bench)
+    wmf_case("CEN_CS_PP", CEN_CS_PP, cs_in)
+    wmf_case("KITTI", KITTI, wmf_inputs(KITTI, kitti))
+    # the bench scene's middle tile of a (1, 3, 2) mesh with its halo
+    hw = CEN_CS_PP.half_wnd
+    hs, ws = chip_smoke.SHAPE["h"] // 3, chip_smoke.SHAPE["w"] // 2
+    row0, col0 = hs, ws
+
+    def ext(x):
+        return _ext_from_full(_ext_from_full(x, row0, hs, hw, 1), col0, ws,
+                              hw, 2).contiguous()
+
+    dis, imgs, valid = cs_in
+    wmf_case("band form (bench tile)", CEN_CS_PP,
+             (ext(dis), ext(imgs), ext(valid.to(torch.uint8)).bool()),
+             center_row0=hw, out_h=hs, center_col0=hw, out_w=ws)
     print(json.dumps({"card": card, "root": args.root, "ms": times}))
     return 0
 
