@@ -13,21 +13,31 @@ Phases, each fatal on failure:
      and bf16 volumes; K3's volume form (stride 2, K=8) the same;
   4. K2, the quadrant-volume build: the same at the bench shape; K2 and K1
      (K=1) again on the KITTI scene's 129 slices (375x1242, max_dis=128);
-  4b. GRDV (the GRD cost volume) and QRANK (the quadrant ranking) against
-     their plain versions on the card, on the seed-0 bench (d=60) and
-     KITTI (d=128) scenes: GRDV both views, QRANK on K2's output over the
+  4b. GRDV (the GRD cost volume), QRANK (the quadrant ranking) and CENV
+     (the census volume) against their plain versions on the card, on the
+     seed-0 bench (d=60) and KITTI (d=128) scenes: GRDV both views (one
+     launch from the u8 views, nothing packed before it; the wrapper must
+     launch that one kernel and no other), QRANK on K2's output over the
      scene's volumes at K = 8 and 1 (test_planes) and at K = 8 on the
      pipeline's own candidates (the propagation stencil's neighbours of
      the seed-0 run_pair output's final planes); 0 differing f32
      elements each; the plain GRD volume on the card against the CPU's
      (the elements PyTorch's CUDA division by 3.0, a multiply by f32(1/3),
      rounds apart from the CPU's true division: why GRDV multiplies);
-     kernel (GRDV: the wrapper and the launch alone, one view), plain and
-     bound ms (utils.roofline.grd_volume_work; QRANK's quadrant_rank_work
-     on random planes, quadrant_rank_row_work, each distinct tap float of
-     a row once, on the pipeline's candidates, whose taps share rows), and
-     beside QRANK's bound the floor a gather of its taps can reach
-     (quadrant_rank_sectors: the distinct 32-byte sectors they touch);
+     CENV at the bench scene's 5 CEN_CS_PP levels, a KITTI-size level and
+     a 6x5 crop's 3 levels (narrower and lower than the census window),
+     0 differing f32 elements at every level, two launches a level and no
+     other; kernel (the wrapper in turns, as every kernel's ms; GRDV and
+     CENV also their device time, the wrapper's calls queued behind a
+     spinning kernel, and the launches a call read from the CUDA graph a
+     captured call records: nothing but their kernels),
+     plain and bound ms
+     (utils.roofline.grd_volume_work, census_volume_work; QRANK's
+     quadrant_rank_work on random planes, quadrant_rank_row_work, each
+     distinct tap float of a row once, on the pipeline's candidates, whose
+     taps share rows), and beside QRANK's bound the floor a gather of its
+     taps can reach (quadrant_rank_sectors: the distinct 32-byte sectors
+     they touch);
   5. K4, the cross-scale window cost: the same on the 5-level census
      pyramid of the bench scene (CEN_CS_PP); f32 within 2e-5 relative, and
      bf16 census volumes (integers, exact in bf16) bit-equal; K = 2, 3, 5,
@@ -55,7 +65,8 @@ Phases, each fatal on failure:
      seeds 0 and 0 again (@3px <= 0.01, @1px printed) and KITTI with its
      volumes for seed 0 (the K2 repair, and the memory comparison); the
      path's kernels must have launched (GRDV and QRANK on every volume
-     path: GRD volumes, the quadrant ranking) and no plain version; seed 0
+     path: GRD volumes, the quadrant ranking; CENV on every census path)
+     and no plain version; seed 0
      bit-identical on rerun, and a digest of its `dis` bytes printed (to
      compare two checkouts on one card); ms/pair and peak device memory;
      for CEN_CS_PP
@@ -67,8 +78,10 @@ Phases, each fatal on failure:
      KITTI (375x1242) pairs (their filled maps and LR-invalid masks): 0
      differing u8 pixels, and equal to the pipeline's output; N (the
      invalid pixels), the wrapper's ms, the kernel's launch alone on
-     prepared inputs, the plain ms (CUDA events, in turns) and the bound
-     (utils.roofline.median_samples);
+     prepared inputs, the plain ms (CUDA events, in turns) and the bound,
+     the least work of an exact search (utils.roofline.median_least_ops),
+     with the share of each time beside it and beside the bisection's
+     count (median_samples);
   8. small pairs run on the card and on the CPU (plain versions) from the
      same draws must agree (README_DEMO-like, CEN_CS_PP-like, the volume
      path's window prescreen, and without a volume: cost lerp, image lerp
@@ -130,7 +143,8 @@ Phases, each fatal on failure:
      make bench_torch's result line (bench.py's keys), every pair within
      its bad-pixel gate, K1, K2, GRDV and QRANK launched; its ms/pair
      printed; then the cen_cs_pp cell (3 timed pairs, a path of its own:
-     K4, K2, QRANK and WMF launched, no plain version).
+     K4, K2, QRANK, CENV and WMF launched, no plain version; its profiled
+     pair's volume_build host and device ms and launches printed).
   13. the scaling bench (bench_scaling_torch.py, 384x448 d=60 wnd 35).
      First the band forms of K1 (K = 1, 2) and K2, bit-equal in f32 to
      their plain band forms on the bench's tiles (the whole image of the
@@ -146,9 +160,10 @@ Phases, each fatal on failure:
      meshes are paths of their own for the counters: the bench reads the
      counters around its timed calls on every rank); the lines printed.
 Every bound is counted by utils.roofline (bound, window_samples,
-quadrant_build_samples, median_samples, grd_volume_work,
-quadrant_rank_work, quadrant_rank_row_work and the per-sample operation
-counts; quadrant_rank_sectors for QRANK's gather floor).
+quadrant_build_samples, median_least_ops, grd_volume_work,
+census_volume_work, quadrant_rank_work, quadrant_rank_row_work and the
+per-sample operation counts; quadrant_rank_sectors for QRANK's gather
+floor, median_samples for the bisection's count beside WMF's bound).
 The line before the last is the kernels' JSON record, the last line the
 device record.  Exits non-zero, printing no result, without a CUDA device.
 `python3 chip_smoke.py --shard-worker ...` is one rank of phase 10 (the
@@ -180,9 +195,9 @@ BAD_PIXEL_MAX = 0.01
 # candidate counts of the optimizer's batches (exact 1-3, prescreen 4-8)
 MANY_KS = (1, 2, 3, 5, 8)
 # the kernels a volume path launches: GRD volumes (GRDV) ranked on the
-# quadrant volumes (K2, QRANK) with K1 exact; census (no GRDV) with K4
+# quadrant volumes (K2, QRANK) with K1 exact; census volumes (CENV) with K4
 GRD_PATH = ("k1", "k2", "grdv", "qrank")
-CEN_CS_PATH = ("k4", "k2", "qrank")
+CEN_CS_PATH = ("k4", "k2", "qrank", "cenv")
 OTHER_HALF_WND = 8          # a window other than the presets' half_wnd 17
 SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level, card vs CPU
 # the sharding phase: the bench scene on a (data, ty, tx) = (1, 3, 2) mesh
@@ -257,6 +272,69 @@ def timed_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def queued_ms(fn, reps):
+    """fn's device time a call, in ms: `reps` calls queued behind a
+    spinning kernel (torch.cuda._sleep, ~10 ms), so that they run back to
+    back on the device whatever the host's launch cost, between CUDA
+    events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_kernels(name, fn, want):
+    """The launches one call of fn makes, read from the CUDA graph that
+    capturing the call (after a warm-up call) records: every kernel or
+    copy fn puts on the stream, the port's and PyTorch's alike, is one
+    node of the graph; an allocation from PyTorch's caching allocator is
+    none.  Raises unless the graph holds exactly `want` nodes, all of them
+    kernels."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError(f"{name}: cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError(f"{name}: cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            raise RuntimeError(f"{name}: cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    g.reset()
+    kernels = kinds.count(0)     # CU_GRAPH_NODE_TYPE_KERNEL
+    if kernels != want or len(kinds) != want:
+        raise RuntimeError(f"{name}: a call records {len(kinds)} graph "
+                           f"nodes, {kernels} of them kernels (expected "
+                           f"{want} kernels and nothing else)")
+    return kernels
 
 
 def test_planes(pair, max_dis, k, gen, device):
@@ -346,13 +424,13 @@ def phase11(dev, card, paths, check_counts):
         check_counts(name, paths[name], kernels)
         return res
 
-    matrix = scored("eval matrix", ("k1", "k2", "k4", "wmf"),
+    matrix = scored("eval matrix", ("k1", "k2", "k4", "wmf", "cenv"),
                     lambda: ev.run_matrix(engine, scores))
     exposure = next(c for c in ev.CONFIGS if c[0] == "exposure_grd_pp")
     exact = scored("eval exposure exact", ("k1", "k2", "wmf"),
                    lambda: ev.run_matrix(engine, scores, [exposure],
                                          engine_kw=dict(adopt_mode="exact")))
-    ablation = scored("CS ablation", ("k1", "k2", "k4"),
+    ablation = scored("CS ablation", ("k1", "k2", "k4", "cenv"),
                       lambda: ev.run_cs_ablation(engine, scores))
     anchor = scored("anchor", ("k1", "k2", "wmf"),
                     lambda: ev.run_anchor(engine, scores))
@@ -630,6 +708,7 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
         build_volume_data)
     from crossscalepatchmatch_tpu_torch.ops.cuda import (_build,
+                                                         census_volume,
                                                          cross_scale_cost,
                                                          fly_cost,
                                                          grd_volume,
@@ -637,6 +716,7 @@ def main() -> int:
                                                          quadrant_rank,
                                                          window_cost)
     from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
+    from crossscalepatchmatch_tpu_torch.ops.pyramid import build_pyramid
     from crossscalepatchmatch_tpu_torch.ops.scale_weights import (
         scale_weights)
     from crossscalepatchmatch_tpu_torch.utils.profiling import (
@@ -644,9 +724,10 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
     from crossscalepatchmatch_tpu_torch.utils.roofline import (
         FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE,
-        WMF_OPS_PER_SAMPLE, bound, grd_volume_work, median_samples, nbytes,
-        quadrant_build_samples, quadrant_rank_row_work, quadrant_rank_sectors,
-        quadrant_rank_work, window_samples)
+        WMF_OPS_PER_SAMPLE, bound, census_volume_work, grd_volume_work,
+        median_least_ops, median_samples, nbytes, quadrant_build_samples,
+        quadrant_rank_row_work, quadrant_rank_sectors, quadrant_rank_work,
+        window_samples)
 
     pkg = "crossscalepatchmatch_tpu_torch"
     dev = torch.device("cuda:0")
@@ -804,9 +885,13 @@ def main() -> int:
     def grdv_check(name, gl, gr, gcfg, reps):
         """GRDV against its plain version on the card, both views (0
         differing elements), the plain volumes on the card against the
-        CPU's (the elements the x 1/3 rounds apart), and the pair's
-        wrapper (one packing, two launches), its two launches alone and
-        the plain version timed in turns."""
+        CPU's (the elements the x 1/3 rounds apart); the wrapper and the
+        plain version timed in turns (the record's ms and plain_ms, as
+        every kernel's), the wrapper's device time with its calls queued
+        (queued_ms: device_ms); one launch a call by the counter,
+        pack_views never called, and one kernel and nothing else in the
+        CUDA graph a captured call records (graph_kernels: nothing packed
+        before it)."""
         gmd = gcfg.max_dis
         gkw = dict(alpha=gcfg.cost_alpha, tau_clr=gcfg.tau_clr,
                    tau_grd=gcfg.tau_grd, border_thres=gcfg.border_thres)
@@ -826,24 +911,112 @@ def main() -> int:
         if diff:
             raise RuntimeError(f"GRDV {name}: {diff} elements differ from "
                                "the plain version")
-        pix = grd_volume.pack_views(gl, gr)
-        t = time_turns({
-            "kernel": lambda: grd_volume.grd_volumes(gl, gr, gmd, **gkw),
-            "launch": lambda: [grd_volume.grd_volume_packed(
-                pix, gmd, right=right, **gkw) for right in (False, True)],
-            "plain": lambda: grd_volume.grd_volumes_plain(gl, gr, gmd,
-                                                          **gkw)},
-            {"kernel": reps, "launch": reps, "plain": 1})
+
+        def kernel():
+            return grd_volume.grd_volumes(gl, gr, gmd, **gkw)
+
+        def packed(*_a, **_k):
+            raise RuntimeError(f"GRDV {name}: the wrapper called "
+                               "pack_views")
+
+        plain_fn = grd_volume.grd_volumes_plain
+        pack_views, grd_volume.pack_views = grd_volume.pack_views, packed
+        try:
+            n0 = grd_volume.launches
+            t = time_turns({
+                "kernel": kernel,
+                "plain": lambda: plain_fn(gl, gr, gmd, **gkw)},
+                {"kernel": reps, "plain": 1})
+            dev_ms = queued_ms(kernel, reps)
+            n_all = graph_kernels(f"GRDV {name}", kernel, 1)
+            calls = 3 * reps + 2 + 2
+        finally:
+            grd_volume.pack_views = pack_views
+        if grd_volume.launches - n0 != calls:
+            raise RuntimeError(f"GRDV {name}: {grd_volume.launches - n0} "
+                               f"launches counted in {calls} calls")
         gh, gw_ = gl.shape[:2]
         b_ms, b_by = bound(*grd_volume_work(gh, gw_, gmd))
         print(f"GRDV {name} (both views, 2x{gh}x{gw_}x{gmd + 1}): plain "
-              f"{t['plain']:.3f} ms | wrapper {t['kernel']:.3f} ms | two "
-              f"launches alone {t['launch']:.3f} ms | bound {b_ms:.4f} ms "
-              f"({b_by}); {card}")
+              f"{t['plain']:.3f} ms | wrapper {t['kernel']:.3f} ms ("
+              f"{n_all} kernel a call in its captured graph, one launch by "
+              f"the counter, pack_views not called), on the device "
+              f"{dev_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}): wrapper "
+              f"{b_ms / t['kernel']:.1%}, device {b_ms / dev_ms:.1%}; "
+              f"{card}")
         return dict(max_abs_err=ab, differing_elements=diff,
                     third_rounding_elements=third, ms=t["kernel"],
-                    launch_ms=t["launch"], plain_ms=t["plain"], bound_ms=b_ms,
-                    bound_by=b_by)
+                    device_ms=dev_ms, plain_ms=t["plain"],
+                    bound_ms=b_ms, bound_by=b_by, kernels_a_call=n_all)
+
+    def cenv_check(name, cl, cr, cmd, levels, reps, wnd=9):
+        """CENV against the plain census volumes on the card at every
+        level of the views' pyramid (cl / cr: u8 BGR views; max_dis cmd >>
+        s at level s), 0 differing elements each; all levels' calls and the
+        plain version timed in turns (the record's ms and plain_ms, as
+        every kernel's), their device time and level 0's with the calls
+        queued (queued_ms: device_ms, level0_device_ms), one call a level
+        by the counter and two kernels a level, and nothing else, in the
+        CUDA graph a captured call records; the bound
+        counts both u8 views of each level read and both volumes written
+        (census_volume_work)."""
+        lp, rp = build_pyramid(cl, levels), build_pyramid(cr, levels)
+        lv = [(bgr_to_rgb(lp[s]), bgr_to_rgb(rp[s]), cmd >> s)
+              for s in range(levels)]
+        diff, ab = 0, 0.0
+        for s, (a, b, m) in enumerate(lv):
+            got = census_volume.census_volumes(a, b, m, wnd)
+            want = census_volume.census_volumes_plain(a, b, m, wnd)
+            if (got.shape != want.shape
+                    or got.shape != (2, *a.shape[:2], m + 1)):
+                raise RuntimeError(f"CENV {name} level {s}: bad output "
+                                   f"{tuple(got.shape)}")
+            n = int((got != want).sum())
+            diff += n
+            ab = max(ab, float((got - want).abs().max()))
+            print(f"CENV {name} level {s} (2x{a.shape[0]}x{a.shape[1]}x"
+                  f"{m + 1}): kernel vs plain on the card {n} differing f32 "
+                  f"elements")
+        if diff:
+            raise RuntimeError(f"CENV {name}: {diff} elements differ from "
+                               "the plain version")
+
+        def kernel():
+            return [census_volume.census_volumes(a, b, m, wnd)
+                    for a, b, m in lv]
+
+        def plain():
+            return [census_volume.census_volumes_plain(a, b, m, wnd)
+                    for a, b, m in lv]
+
+        def level0():
+            return census_volume.census_volumes(*lv[0], wnd)
+
+        n0 = census_volume.launches
+        t = time_turns({"kernel": kernel, "plain": plain},
+                       {"kernel": reps, "plain": 1})
+        dev_ms = queued_ms(kernel, reps)
+        dev0_ms = queued_ms(level0, reps)
+        n_all = graph_kernels(f"CENV {name}", kernel, 2 * levels)
+        calls = levels * (3 * reps + 2 + 2) + reps + 1
+        if census_volume.launches - n0 != calls:
+            raise RuntimeError(f"CENV {name}: {census_volume.launches - n0}"
+                               f" calls counted, {calls} made")
+        h, w = cl.shape[:2]
+        b_ms, b_by = bound(*census_volume_work(h, w, cmd, levels, wnd))
+        b0_ms, _ = bound(*census_volume_work(h, w, cmd, 1, wnd))
+        print(f"CENV {name} ({levels} level(s), wnd {wnd}): plain "
+              f"{t['plain']:.3f} ms | wrappers {t['kernel']:.3f} ms "
+              f"({n_all} kernels a call in its captured graph), on the device "
+              f"{dev_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}): wrappers "
+              f"{b_ms / t['kernel']:.1%}, device {b_ms / dev_ms:.1%} | "
+              f"level 0 on the device {dev0_ms:.4f} ms, bound {b0_ms:.4f} "
+              f"ms ({b0_ms / dev0_ms:.1%}); {card}")
+        return dict(max_abs_err=ab, differing_elements=diff,
+                    ms=t["kernel"], device_ms=dev_ms,
+                    level0_device_ms=dev0_ms, plain_ms=t["plain"],
+                    bound_ms=b_ms, bound_by=b_by, level0_bound_ms=b0_ms,
+                    kernels_a_call=n_all)
 
     def qrank_check(name, bq, wq, qmc, abc, qhw, qmd, reps, shared=False):
         """QRANK against the plain ranking of each view on the card (0
@@ -935,7 +1108,22 @@ def main() -> int:
                 rec["qrank"].update({
                     f"{key}{tag}{suffix}": val
                     for key, val in scene[case].items() if key != "bound_by"})
-    for key in ("grdv", "qrank"):
+    # CENV: the bench scene's 5 CEN_CS_PP levels, a KITTI-size level, and
+    # a 6 x 5 crop whose 3 levels (6 x 5, 3 x 3, 2 x 2, the most its
+    # pyramid takes) are narrower and lower than the census window
+    rec["cenv"] = cenv_check("bench seed 0, CEN_CS_PP levels", l, r,
+                             CEN_CS_PP.max_dis, CEN_CS_PP.scale_num, 10,
+                             CEN_CS_PP.census_wnd)
+    cenv_kitti = cenv_check("KITTI seed 0, one level", kl, kr,
+                            KITTI.max_dis, 1, 5)
+    tiny = make_pair(h=48, w=64, max_dis=8, seed=5)
+    cenv_tiny = cenv_check("6x5 crop, 3 levels", *(
+        torch.as_tensor(x[20:26, 30:35].copy(), device=dev)
+        for x in (tiny.left, tiny.right)), 8, 3, 2)
+    rec["cenv"].update({f"{key}_kitti": val for key, val in cenv_kitti.items()
+                        if key != "bound_by"})
+    rec["cenv"]["differing_elements_6x5"] = cenv_tiny["differing_elements"]
+    for key in ("grdv", "qrank", "cenv"):
         rec[key]["max_abs_err"] = max(v for f, v in rec[key].items()
                                       if f.startswith("max_abs_err"))
     del gr_bench, gr_kitti
@@ -1312,17 +1500,26 @@ def main() -> int:
         if not torch.equal(prep[3], want):
             raise RuntimeError(f"WMF {name}: the timed launches differ from "
                                "the plain version")
+        # the bound: the least work of an exact search (each window sample
+        # once, one scan of the levels); beside it the bisection's count
+        w_bytes = nbytes(w_dis, w_imgs, w_valid, lut, got)
+        least = median_least_ops(w_valid, pcfg.half_wnd, **band)
+        b_ms, b_by = bound(w_bytes, least)
         samples = median_samples(w_valid, pcfg.half_wnd, **band)
-        b_ms, b_by = bound(nbytes(w_dis, w_imgs, w_valid, lut, got),
-                           WMF_OPS_PER_SAMPLE * samples)
+        bis_ms, bis_by = bound(w_bytes, WMF_OPS_PER_SAMPLE * samples)
         print(f"WMF {name}: plain {t['plain']:.3f} ms | wrapper "
               f"{t['kernel']:.3f} ms | launch alone {t['launch']:.3f} ms | "
-              f"{samples} window samples; bound {b_ms:.4f} ms ({b_by}); "
-              f"{card}")
+              f"bound (least work, {least} operations) {b_ms:.4f} ms "
+              f"({b_by}): wrapper {b_ms / t['kernel']:.1%}, launch "
+              f"{b_ms / t['launch']:.1%} | the bisection's count ({samples} "
+              f"window samples) {bis_ms:.4f} ms ({bis_by}): wrapper "
+              f"{bis_ms / t['kernel']:.1%}, launch "
+              f"{bis_ms / t['launch']:.1%}; {card}")
         return dict(max_abs_err=float(err), differing_pixels=diff,
-                    n_invalid=n, samples=samples, ms=t["kernel"],
-                    launch_ms=t["launch"], plain_ms=t["plain"],
-                    bound_ms=b_ms, bound_by=b_by)
+                    n_invalid=n, samples=samples, least_ops=least,
+                    ms=t["kernel"], launch_ms=t["launch"],
+                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by,
+                    bisection_bound_ms=bis_ms)
 
     cs_wmf_in = wmf_inputs(outs_cs[0], CEN_CS_PP, l, r)
     rec["wmf"] = wmf_phase("CEN_CS_PP seed 0 (375x450)", CEN_CS_PP,
@@ -1977,13 +2174,14 @@ def main() -> int:
     paths["bench cen_cs_pp"] = read_counts()
     check_counts("bench cen_cs_pp", paths["bench cen_cs_pp"],
                  (*CEN_CS_PATH, "wmf"))
-    pp_phase = next(p for p in res["profile"]["phases"]
-                    if p["name"] == "postprocess")
+    by_name = {p["name"]: p for p in res["profile"]["phases"]}
+    pp_phase, vb = by_name["postprocess"], by_name["volume_build"]
     print(f"phase 12: bench {cell.name} {res['ms_pair']['median']:.1f} "
           f"ms/pair (3 pairs), bad-pixel @1px max "
           f"{res['bad_pixel']['max']:.4f}; profiled pair's postprocess "
           f"{pp_phase['device_ms']:.1f} device ms, {pp_phase['launches']} "
-          f"launches")
+          f"launches; volume_build {vb['host_ms']:.1f} host ms, "
+          f"{vb['device_ms']:.2f} device ms, {vb['launches']} launches")
 
     # -- 13. the scaling bench under torchrun ---------------------------------
     import bench_scaling_torch
@@ -2082,6 +2280,7 @@ def main() -> int:
     wmed = "crossscalepatchmatch_tpu/models/postprocess.py:151"
     grdv_src = "crossscalepatchmatch_tpu/ops/grad_cost.py:62"
     qrank_src = "crossscalepatchmatch_tpu/ops/prescreen_volume.py:114"
+    cenv_src = "crossscalepatchmatch_tpu/ops/census.py:24"
 
     def entry(name, key, source, replaces, band=False):
         """A kernel's record; a band form's launches are those of the
@@ -2129,6 +2328,10 @@ def main() -> int:
               grdv_src, band=True),
         entry("quadrant_rank band form (QRANK)", "qrank_band",
               "quadrant_rank.cu", qrank_src, band=True),
+        # not a TPU kernel: the census transform and the census volume's
+        # per-slice loop (:77), which XLA fuses under run_pair's jit; one
+        # call a level, two launches (codes, volumes)
+        entry("census_volume (CENV)", "cenv", "census_volume.cu", cenv_src),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "card check")

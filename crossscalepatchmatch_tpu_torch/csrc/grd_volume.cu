@@ -1,5 +1,6 @@
-// Kernel GRDV: the truncated colour + gradient (GRD) cost volume of one
-// reference view, every (y, x, d) in one launch.
+// Kernel GRDV: the truncated colour + gradient (GRD) cost volumes of both
+// reference views, every (view, y, x, d) in one launch, from the two u8
+// RGB views as they are.
 //
 // Replaces the JAX engine's per-slice loop in crossscalepatchmatch_tpu/ops/
 // grad_cost.py grd_cost_volume (:62-71: a Python loop over the D + 1
@@ -16,7 +17,11 @@
 //     grd = |g_ref - b|;
 //   cost = alpha * min(clr, tau_clr) + beta * min(grd, tau_grd),
 // alpha = f32(alpha), beta = f32(1 - alpha) formed in double, as PyTorch
-// casts the plain version's Python scalars.
+// casts the plain version's Python scalars.  g is the Sobel-x gradient
+// (ops/gradient.py sobel_x_k1) of the f32 gray image (ops/color.py
+// rgb_to_gray_f32): g(x) = gray(x + 1) - gray(x - 1), 0 in the first and
+// last column (so 0 at W = 1 and 2), gray = (0.299f R + 0.587f G) +
+// 0.114f B.
 //
 // Exactness (bit-equal to the plain version on the card): the in-range
 // colour sum is of u8 differences, an integer <= 765 that every order
@@ -24,30 +29,36 @@
 // tensor, PyTorch's multiply by the f32 reciprocal of the CPU scalar (its
 // true-division kernel), so this kernel multiplies by 1.f / 3.f as the fly
 // kernel does; the CPU's true division differs by one ulp at some sums
-// (ROADMAP §3).  Every other step is one explicit _rn operation in the
-// plain version's order, so no FMA contraction can merge two roundings.
+// (ROADMAP §3).  Every other step, the gray image and the gradient
+// included, is one explicit _rn operation in the plain version's order
+// (each of its eager ops rounds), so no FMA contraction can merge two
+// roundings.
 //
-// Inputs: pix uint2[2, H, W], per pixel (R | G << 8 | B << 16, f32
-// gradient bits) of the left (0) and right (1) view, packed by the wrapper
-// from the RGB views and their Sobel-x gradients (ops/color, ops/gradient:
-// the plain functions, so the gradients are the plain version's bit for
-// bit).  Output: f32[H, W, D], D-minor.
+// Inputs: the left and right u8[H, W, 3] RGB views with their strides (a
+// band's rows, any layout).  Output: f32[2, H, W, D], D-minor, the
+// left-referenced volume at 0.
 //
-// What bounds it on the H100: the bytes of the volume it writes (4 B an
-// element; its inputs are 8 B a pixel).  The design: a block walks one
-// row's W * D contiguous outputs, neighbouring threads on neighbouring
-// elements, so the stores of a warp are one coalesced 128-byte line; the
-// two packed rows it reads (3.6 KB at W = 450, 10 KB at 1242) stay in L1
-// through read-only loads, where neighbouring d read neighbouring columns.
-// No shared memory, no inter-block state, no atomics.
+// What bounds it on the H100: the bytes of the volumes it writes (4 B an
+// element; the u8 views it reads are 3 B a pixel).  The design
+// (volume_walk.cuh): a block takes one contiguous run of a row's outputs;
+// its prologue forms in shared memory, from the u8 views, what the run
+// reads (per reference column its packed RGB, gradient and border cost,
+// per other-view column its packed RGB and gradient), so nothing is packed
+// before the launch; its body writes the run with every warp's stores one
+// aligned 128-byte line, walking (x, d) with no division per element and
+// taking every tap from shared memory.  The stores are 4 bytes a lane: 16
+// bytes a lane would put four neighbouring d on one lane, whose other-view
+// columns are then four apart across lanes (a 4-way bank conflict), for
+// the same lines written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "volume_walk.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPerThread = 4;   // outputs a thread writes (a grid-stride)
+using namespace cspm_volume;
 
 struct Grd {
   float alpha, beta, tau_clr, tau_grd, border;
@@ -62,58 +73,106 @@ __device__ __forceinline__ float mix(const Grd& g, float clr, float grd) {
                    __fmul_rn(g.beta, fminf(grd, g.tau_grd)));
 }
 
-__device__ __forceinline__ float chan(uint32_t p, int c) {
-  return (float)((p >> (8 * c)) & 0xffu);
+// ops/color.py rgb_to_gray_f32: (0.299 R + 0.587 G) + 0.114 B in f32
+__device__ __forceinline__ float gray(uint32_t p) {
+  return __fadd_rn(__fadd_rn(__fmul_rn((float)chan(p, 0), 0.299f),
+                             __fmul_rn((float)chan(p, 1), 0.587f)),
+                   __fmul_rn((float)chan(p, 2), 0.114f));
+}
+
+// ops/gradient.py sobel_x_k1 at (y, x)
+__device__ __forceinline__ float sobel(const View& v, int y, int x, int W) {
+  if (x == 0 || x >= W - 1) return 0.f;
+  return __fsub_rn(gray(load_rgb(v, y, x + 1)), gray(load_rgb(v, y, x - 1)));
+}
+
+// A reference column's staged data: its packed RGB, its gradient's bits
+// and its border cost's bits (one 16-byte load); an other-view column's:
+// its packed RGB and gradient's bits (one 8-byte load).
+template <int RIGHT>
+__device__ __forceinline__ void grd_run(const View& lv, const View& rv,
+                                        float* __restrict__ out,
+                                        const Geom& g, const Grd& c,
+                                        uint4* smem) {
+  const int y = blockIdx.y;
+  const Span s = span_of<RIGHT>(blockIdx.x, g);
+  const int nr = s.x_hi - s.x_lo + 1, no = s.o_hi - s.o_lo + 1;
+  uint4* ref_s = smem;
+  uint2* oth_s = reinterpret_cast<uint2*>(smem + nr);
+
+  // the prologue: the run's reference and other-view columns
+  const View ref = RIGHT ? rv : lv;
+  const View oth = RIGHT ? lv : rv;
+  for (int i = threadIdx.x; i < nr + no; i += kThreads) {
+    if (i < nr) {
+      const int x = s.x_lo + i;
+      const uint32_t p = load_rgb(ref, y, x);
+      const float gr = sobel(ref, y, x, g.W);
+      const float sum = __fadd_rn(
+          __fadd_rn(fabsf(__fsub_rn((float)chan(p, 0), c.border)),
+                    fabsf(__fsub_rn((float)chan(p, 1), c.border))),
+          fabsf(__fsub_rn((float)chan(p, 2), c.border)));
+      const float bdr = mix(c, third(sum), fabsf(__fsub_rn(gr, c.border)));
+      ref_s[i] = make_uint4(p, __float_as_uint(gr), __float_as_uint(bdr), 0);
+    } else {
+      const int x = s.o_lo + i - nr;
+      oth_s[i - nr] = make_uint2(load_rgb(oth, y, x),
+                                 __float_as_uint(sobel(oth, y, x, g.W)));
+    }
+  }
+  __syncthreads();
+
+  const long long base = ((long long)(RIGHT * g.H + y) * g.W) * g.D;
+  walk<RIGHT>(out, base, s, g, [&](int i, int j, bool in) {
+    const uint4 r = ref_s[i];
+    const uint2 o = oth_s[in ? j : 0];
+    const float cost = mix(
+        c, third((float)__vsadu4(r.x, o.x)),
+        fabsf(__fsub_rn(__uint_as_float(r.y), __uint_as_float(o.y))));
+    return in ? cost : __uint_as_float(r.z);
+  });
 }
 
 __global__ void __launch_bounds__(kThreads)
-grd_volume_kernel(const uint2* __restrict__ pix, float* __restrict__ out,
-                  int H, int W, int D, int right, Grd g) {
-  const int y = blockIdx.y;
-  const int n = W * D;   // the row's outputs
-  const uint2* ref_row = pix + ((size_t)(right ? H : 0) + y) * W;
-  const uint2* oth_row = pix + ((size_t)(right ? 0 : H) + y) * W;
-  float* orow = out + (size_t)y * n;
-  const int step = gridDim.x * kThreads;
-  for (int e = blockIdx.x * kThreads + threadIdx.x; e < n; e += step) {
-    const int x = e / D;
-    const int d = e - x * D;
-    const uint2 r = __ldg(ref_row + x);
-    const float rg = __uint_as_float(r.y);
-    const int ox = right ? x + d : x - d;
-    float cost;
-    if (ox >= 0 && ox < W) {
-      const uint2 o = __ldg(oth_row + ox);
-      cost = mix(g, third((float)__vsadu4(r.x, o.x)),
-                 fabsf(__fsub_rn(rg, __uint_as_float(o.y))));
-    } else {
-      const float s = __fadd_rn(
-          __fadd_rn(fabsf(__fsub_rn(chan(r.x, 0), g.border)),
-                    fabsf(__fsub_rn(chan(r.x, 1), g.border))),
-          fabsf(__fsub_rn(chan(r.x, 2), g.border)));
-      cost = mix(g, third(s), fabsf(__fsub_rn(rg, g.border)));
-    }
-    orow[e] = cost;
-  }
+grd_volume_kernel(View lv, View rv, float* __restrict__ out, Geom g, Grd c) {
+  extern __shared__ uint4 smem[];
+  if (blockIdx.z)
+    grd_run<1>(lv, rv, out, g, c, smem);
+  else
+    grd_run<0>(lv, rv, out, g, c, smem);
 }
 
 }  // namespace
 
-// pix: uint2[2, H, W] as above; out: f32[H, W, D] of the view `right`
-// selects.  Returns cudaSuccess or the launch's error.
-extern "C" int cspm_grd_volume(const void* pix, void* out, int H, int W,
-                               int D, int right, float alpha, float beta,
+// Shared memory a block of grd_volume_kernel takes at most, in bytes.
+static size_t grd_smem_bytes(int W, int D) {
+  return 16 * (size_t)ref_cols_max(W) + 8 * (size_t)oth_cols_max(W, D);
+}
+
+// l / r: u8[H, W, 3] views, strides (sy, sx, sc) in elements; out: f32[2,
+// H, W, D], contiguous and 128-byte aligned.  One launch writes both
+// views' volumes.  Returns cudaSuccess or the launch's error.
+extern "C" int cspm_grd_volume(const void* l, long long lsy, long long lsx,
+                               long long lsc, const void* r, long long rsy,
+                               long long rsx, long long rsc, void* out,
+                               int H, int W, int D, float alpha, float beta,
                                float tau_clr, float tau_grd, float border,
                                void* stream) {
   if (H < 1 || W < 1 || D < 1 || H > 65535 ||
       (long long)W * D > (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  const Grd g{alpha, beta, tau_clr, tau_grd, border};
-  const long long per_block = kThreads * kPerThread;
-  dim3 grid((unsigned)(((long long)W * D + per_block - 1) / per_block),
-            (unsigned)H);
-  grd_volume_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint2*>(pix), static_cast<float*>(out), H, W, D,
-      right, g);
+  const size_t smem = grd_smem_bytes(W, D);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        grd_volume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return refused(e);
+  }
+  const View lv{static_cast<const uint8_t*>(l), lsy, lsx, lsc};
+  const View rv{static_cast<const uint8_t*>(r), rsy, rsx, rsc};
+  const Grd c{alpha, beta, tau_clr, tau_grd, border};
+  dim3 grid((unsigned)segments(W, D), (unsigned)H, 2);
+  grd_volume_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      lv, rv, static_cast<float*>(out), geom(H, W, D), c);
   return (int)cudaGetLastError();
 }

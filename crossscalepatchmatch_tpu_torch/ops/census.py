@@ -14,11 +14,19 @@ The bits are packed eight to a byte (bit b in byte b // 8 at position
 b % 8): uint8 bitwise ops run on every device, and the Hamming distance is a
 byte popcount.  The volume is built for all disparities at once from one
 gather of the other view's codes.
+
+census_cost_volume is the plain version of kernel CENV
+(ops.cuda.census_volume, which ops.cost_volume.build_volumes takes for
+CUDA tensors).
 """
 
 from __future__ import annotations
 
 import torch
+
+# Calls of the plain census volume (a plain count; chip_smoke reads it to
+# show the card's main paths never came through here).
+launches = 0
 
 
 def census_transform(gray_u8: torch.Tensor, wnd: int = 9) -> torch.Tensor:
@@ -74,6 +82,8 @@ def census_cost_volume(l_gray_u8: torch.Tensor, r_gray_u8: torch.Tensor,
     Returns:
       f32[H, W, max_dis+1].
     """
+    global launches
+    launches += 1
     bits = wnd * wnd - 1
     l_code = census_transform(l_gray_u8, wnd)
     r_code = census_transform(r_gray_u8, wnd)

@@ -11,8 +11,9 @@ import torch
 
 # The widest window the kernels take (csrc/*.cu): half_wnd <= 64.
 MAX_HALF_WND = 64
-
-
+# The widest census window kernel CENV takes (csrc/census_volume.cu): 7
+# words of code.
+MAX_CENSUS_WND = 15
 def pack_bgr(imgs_u8: torch.Tensor) -> torch.Tensor:
     """u8[..., 3] -> i32[...]: one pixel per 32-bit word (byte 3 zero), the
     layout the kernels' __vsadu4 L1 distance reads."""
@@ -55,3 +56,35 @@ def check_tensor(name: str, t: torch.Tensor, dtypes, shape) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_views(l_rgb_u8: torch.Tensor, r_rgb_u8: torch.Tensor,
+                max_dis: int) -> None:
+    """Raise ValueError on RGB views or a depth the volume kernels (GRDV,
+    CENV) do not take, on any device: u8[H, W, 3] views of one shape (any
+    strides), max_dis >= 0, 1 <= H <= 65535, W * (max_dis + 1) <= 2^30."""
+    for name, t in (("l_rgb", l_rgb_u8), ("r_rgb", r_rgb_u8)):
+        if t.dtype != torch.uint8:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected "
+                             f"torch.uint8")
+        if t.dim() != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"[H, W, 3]")
+    if l_rgb_u8.shape != r_rgb_u8.shape:
+        raise ValueError(f"views of shapes {tuple(l_rgb_u8.shape)} and "
+                         f"{tuple(r_rgb_u8.shape)}")
+    h, w, _ = l_rgb_u8.shape
+    if max_dis < 0 or h * w == 0 or h > 65535 or w * (max_dis + 1) > 2 ** 30:
+        raise ValueError(f"{h} x {w} pixels at max_dis {max_dis}: outside "
+                         f"the kernel's max_dis >= 0, 1 <= H <= 65535, "
+                         f"W * (max_dis + 1) <= 2^30")
+
+
+def check_cuda_pair(l_rgb_u8: torch.Tensor, r_rgb_u8: torch.Tensor) -> None:
+    """Raise ValueError unless both views lie on one CUDA device."""
+    if l_rgb_u8.device.type != "cuda":
+        raise ValueError(f"l_rgb: expected a CUDA tensor, got "
+                         f"{l_rgb_u8.device}")
+    if r_rgb_u8.device != l_rgb_u8.device:
+        raise ValueError(f"r_rgb on {r_rgb_u8.device}, l_rgb on "
+                         f"{l_rgb_u8.device}")

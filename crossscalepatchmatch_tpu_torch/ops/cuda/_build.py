@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # source -> its C entry points: name -> argument types (every entry returns
 # cudaError_t)
 SOURCES = {
@@ -70,10 +71,16 @@ SOURCES = {
                                  _I, _I, _P),
     },
     "grd_volume.cu": {
-        # pix, out, H, W, D, right, alpha, 1 - alpha, tau_clr, tau_grd,
-        # border_thres, stream
-        "cspm_grd_volume": (_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                            _P),
+        # l, its strides (y, x, c), r, its strides, out, H, W, D, alpha,
+        # 1 - alpha, tau_clr, tau_grd, border_thres, stream
+        "cspm_grd_volume": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I,
+                            _F, _F, _F, _F, _F, _P),
+    },
+    "census_volume.cu": {
+        # l, its strides (y, x, c), r, its strides, codes, out, H, W, D,
+        # wnd, stream
+        "cspm_census_volume": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _I,
+                               _I, _I, _I, _P),
     },
     "quadrant_rank.cu": {
         # bq, wq, max_costs, abc, out, K, H, W, D, max_dis, half_wnd, stream

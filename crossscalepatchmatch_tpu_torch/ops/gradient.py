@@ -17,9 +17,13 @@ def sobel_x_k1(gray: torch.Tensor) -> torch.Tensor:
       gray: f32[..., H, W].
 
     Returns:
-      f32[..., H, W].
+      f32[..., H, W]; all 0 at W = 1 (the one column is the first and the
+      last, as OpenCV's reflect-101 border gives), where the JAX package's
+      sobel_x_k1 returns two columns of 0.
     """
     gray = gray.to(torch.float32)
+    if gray.shape[-1] == 1:
+        return torch.zeros_like(gray)
     interior = gray[..., :, 2:] - gray[..., :, :-2]
     zeros = torch.zeros_like(gray[..., :, :1])
     return torch.cat([zeros, interior, zeros], dim=-1)

@@ -13,8 +13,8 @@ from typing import Tuple
 
 import torch
 
-from .config import CSPMConfig
-from .ops.cuda import MAX_HALF_WND
+from .config import CostMethod, CSPMConfig
+from .ops.cuda import MAX_CENSUS_WND, MAX_HALF_WND
 
 
 def check_supported(cfg: CSPMConfig, hw: Tuple[int, int], device) -> None:
@@ -24,7 +24,9 @@ def check_supported(cfg: CSPMConfig, hw: Tuple[int, int], device) -> None:
       hw: the fine level's (H, W).
       device: where the run happens; only a CUDA device is checked.
 
-    The limits: every kernel takes half_wnd <= 64; the image-lerp fly
+    The limits: every kernel takes half_wnd <= 64; the census volume
+    kernel (CENV) takes census_wnd <= 15 (7 words of code); the image-lerp
+    fly
     kernel (K6: precompute_volume=False, fly_lerp="image") needs max_dis
     below the image's width (it wraps a tap modulo the width, the plain
     version's HandleBorder by one +-W: the two agree while max_dis < W;
@@ -37,6 +39,10 @@ def check_supported(cfg: CSPMConfig, hw: Tuple[int, int], device) -> None:
         raise ValueError(
             f"wnd_size {cfg.wnd_size}: the card's kernels take half_wnd <= "
             f"{MAX_HALF_WND}, this config has {cfg.half_wnd}")
+    if cfg.cost_method == CostMethod.CEN and cfg.census_wnd > MAX_CENSUS_WND:
+        raise ValueError(
+            f"census_wnd {cfg.census_wnd}: the card's census kernel takes "
+            f"census_wnd <= {MAX_CENSUS_WND}")
     if (not cfg.precompute_volume
             and cfg.fly_lerp == "image" and cfg.max_dis > 1
             and cfg.max_dis >= hw[1]):

@@ -198,10 +198,11 @@ def run_pair_phases(l_bgr_u8, r_bgr_u8, seed: int, cfg, *, device="cuda",
 def reset_launch_counts() -> None:
     """Every kernel's and plain version's launch counter to 0."""
     from ..models import postprocess
-    from ..ops import grad_cost, onthefly_cost, plane_cost, prescreen_volume
-    from ..ops.cuda import (cross_scale_cost, fly_cost, grd_volume,
-                            quadrant_build, quadrant_rank, weighted_median,
-                            window_cost)
+    from ..ops import (census, grad_cost, onthefly_cost, plane_cost,
+                       prescreen_volume)
+    from ..ops.cuda import (census_volume, cross_scale_cost, fly_cost,
+                            grd_volume, quadrant_build, quadrant_rank,
+                            weighted_median, window_cost)
 
     window_cost.launches = window_cost.strided_launches = 0
     quadrant_build.launches = cross_scale_cost.launches = 0
@@ -211,15 +212,17 @@ def reset_launch_counts() -> None:
     plane_cost.launches = prescreen_volume.launches = 0
     plane_cost.cross_scale_launches = onthefly_cost.launches = 0
     grad_cost.launches = prescreen_volume.rank_launches = 0
+    census_volume.launches = census.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """The launch counters, by kernel (plain versions: *_plain)."""
     from ..models import postprocess
-    from ..ops import grad_cost, onthefly_cost, plane_cost, prescreen_volume
-    from ..ops.cuda import (cross_scale_cost, fly_cost, grd_volume,
-                            quadrant_build, quadrant_rank, weighted_median,
-                            window_cost)
+    from ..ops import (census, grad_cost, onthefly_cost, plane_cost,
+                       prescreen_volume)
+    from ..ops.cuda import (census_volume, cross_scale_cost, fly_cost,
+                            grd_volume, quadrant_build, quadrant_rank,
+                            weighted_median, window_cost)
 
     return {"k1": window_cost.launches - window_cost.strided_launches,
             "k3_volume": window_cost.strided_launches,
@@ -233,13 +236,15 @@ def launch_counts() -> Dict[str, int]:
             "wmf": weighted_median.launches,
             "grdv": grd_volume.launches,
             "qrank": quadrant_rank.launches,
+            "cenv": census_volume.launches,
             "k1_plain": plane_cost.launches,
             "k2_plain": prescreen_volume.launches,
             "k4_plain": plane_cost.cross_scale_launches,
             "fly_plain": onthefly_cost.launches,
             "wmf_plain": postprocess.plain_launches,
             "grdv_plain": grad_cost.launches,
-            "qrank_plain": prescreen_volume.rank_launches}
+            "qrank_plain": prescreen_volume.rank_launches,
+            "cenv_plain": census.launches}
 
 
 def busy_union(intervals) -> float:
@@ -259,8 +264,8 @@ def kernel_family(name: str, cfg) -> str:
     """The port's kernel a device op is (K1 / K4: the window-cost kernel at
     one level or over the pyramid; K2; fly: the no-volume kernel, K5 / K3;
     WMF: the weighted median and its two preparation kernels; GRDV: the
-    GRD cost volume; QRANK: the quadrant ranking), "other" for PyTorch's
-    own ops."""
+    GRD cost volume; QRANK: the quadrant ranking; CENV: the census codes
+    and volume), "other" for PyTorch's own ops."""
     if "cross_scale_kernel" in name:
         return "K4" if cfg.use_cs else "K1"
     if "quadrant_build_kernel" in name:
@@ -275,6 +280,8 @@ def kernel_family(name: str, cfg) -> str:
         return "GRDV"
     if "quadrant_rank_kernel" in name:
         return "QRANK"
+    if "census_codes_kernel" in name or "census_volume_kernel" in name:
+        return "CENV"
     return "other"
 
 

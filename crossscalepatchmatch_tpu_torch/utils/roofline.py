@@ -14,11 +14,13 @@ crossscalepatchmatch_tpu utils/roofline.py).
     window_samples), bound() and nbytes(); chip_smoke.py reads its kernels'
     bounds from these;
   * median_samples: the window samples a bisection for the weighted
-    median (kernel WMF's bound) reads on a validity mask, with
-    WMF_OPS_PER_SAMPLE;
-  * grd_volume_work / quadrant_rank_work: the bytes and f32 operations of
-    a pair's GRD volumes (kernel GRDV, one launch a view) and of one launch
-    of kernel QRANK (a ranking call, its in-range quadrants counted on the
+    median reads on a validity mask, with WMF_OPS_PER_SAMPLE; and
+    median_least_ops, the operations the least work of an exact weighted
+    median needs there (kernel WMF's bound);
+  * grd_volume_work / census_volume_work / quadrant_rank_work: the bytes
+    and operations of a pair's GRD volumes (kernel GRDV, one launch), of
+    its census volumes over the pyramid's levels (kernel CENV, one call a
+    level) and of one launch of kernel QRANK (a ranking call, its in-range quadrants counted on the
     planes); quadrant_rank_row_work: the same with each distinct tap float
     of a quadrant row counted once (the bound on candidates that share
     taps); quadrant_rank_sectors: the distinct 32-byte sectors of the
@@ -70,6 +72,18 @@ GRD_FLOPS_PER_ELEMENT = 8
 # (median_samples): the L1 distance (three absolute differences, two
 # adds), the threshold test and the f32 add; counted at the f32 rate
 WMF_OPS_PER_SAMPLE = 7
+# the least an exact weighted median does with a window sample, once
+# (median_least_ops): the L1 distance (five), the weight table's look-up
+# and one add into the sample's level; and per level of the scan that
+# finds the median, the running sum's add and the test against half
+MEDIAN_OPS_PER_SAMPLE = 7
+MEDIAN_OPS_PER_LEVEL = 2
+MEDIAN_LEVELS = 256
+# a census volume element (kernel CENV): per u32 word of the codes an XOR,
+# a popcount and an add; a census code: a compare and a shift-or for each
+# of its wnd^2 - 1 bits; integer operations, counted at the f32 rate
+CENSUS_OPS_PER_WORD = 3
+CENSUS_OPS_PER_BIT = 2
 
 # the JAX model's semantic op counts (crossscalepatchmatch_tpu
 # utils/roofline.py): per (center, offset, candidate) the plane at q (2
@@ -259,23 +273,10 @@ def quadrant_build_samples(h: int, w: int, half_wnd: int, stride: int,
                    for oy in (neg, pos) for ox in (neg, pos))
 
 
-def median_samples(valid: torch.Tensor, half_wnd: int, center_row0: int = 0,
-                   out_h: int | None = None, center_col0: int = 0,
-                   out_w: int | None = None) -> int:
-    """Window samples of the weighted median as a bisection reads them on
-    this mask (models.postprocess.weighted_median's arguments): at each
-    invalid output pixel of both views, its window's pixels inside the
-    array, once for the total and 8 more times (the bisection's steps)
-    where the window holds a valid pixel, the total then being positive
-    (the table's weights are all positive for wmf_gamma > 765 / 103, where
-    exp(-765 / gamma) is no f32 zero).  WMF's bound counts this,
-    WMF_OPS_PER_SAMPLE a sample: the bisection's work, which is neither
-    what kernel WMF reads (its search makes 2 passes, of 16 and 15
-    thresholds) nor the least work an exact search needs.
-
-    Args:
-      valid: bool[2, Ha, Wa]; the output window as weighted_median's.
-    """
+def _median_windows(valid: torch.Tensor, half_wnd: int, center_row0: int,
+                    out_h, center_col0: int, out_w):
+    """(in-array window pixels, valid ones, invalid output mask) of each
+    output pixel of the weighted median, each [2, Ho, Wo]."""
     _, h, w = valid.shape
     oh = h if out_h is None else out_h
     ow = w if out_w is None else out_w
@@ -296,17 +297,77 @@ def median_samples(valid: torch.Tensor, half_wnd: int, center_row0: int = 0,
             + sat[:, y0, x0])
     invalid = ~valid[:, center_row0:center_row0 + oh,
                      center_col0:center_col0 + ow]
+    return area, held, invalid
+
+
+def median_samples(valid: torch.Tensor, half_wnd: int, center_row0: int = 0,
+                   out_h: int | None = None, center_col0: int = 0,
+                   out_w: int | None = None) -> int:
+    """Window samples of the weighted median as a bisection reads them on
+    this mask (models.postprocess.weighted_median's arguments): at each
+    invalid output pixel of both views, its window's pixels inside the
+    array, once for the total and 8 more times (the bisection's steps)
+    where the window holds a valid pixel, the total then being positive
+    (the table's weights are all positive for wmf_gamma > 765 / 103, where
+    exp(-765 / gamma) is no f32 zero).  The bisection's work, at
+    WMF_OPS_PER_SAMPLE a sample: neither what kernel WMF reads (its search
+    makes 2 passes, of 16 and 15 thresholds) nor the least work an exact
+    search needs (median_least_ops, WMF's bound).
+
+    Args:
+      valid: bool[2, Ha, Wa]; the output window as weighted_median's.
+    """
+    area, held, invalid = _median_windows(valid, half_wnd, center_row0,
+                                          out_h, center_col0, out_w)
     passes = 1 + 8 * (held > 0).to(torch.int64)
     return int((invalid * area * passes).sum())
 
 
+def median_least_ops(valid: torch.Tensor, half_wnd: int,
+                     center_row0: int = 0, out_h: int | None = None,
+                     center_col0: int = 0, out_w: int | None = None) -> int:
+    """The operations the least work of an exact weighted median needs on
+    this mask (median_samples' arguments): each in-array window pixel of
+    each invalid output pixel read once, MEDIAN_OPS_PER_SAMPLE each (its
+    weight and one add into its level's sum), and one scan of the
+    MEDIAN_LEVELS levels' sums, MEDIAN_OPS_PER_LEVEL a level, at each
+    invalid pixel whose window holds a valid pixel (elsewhere the total is
+    0 and the pixel keeps its value).  Kernel WMF's bound counts this."""
+    area, held, invalid = _median_windows(valid, half_wnd, center_row0,
+                                          out_h, center_col0, out_w)
+    samples = int((invalid * area).sum())
+    scans = int((invalid & (held > 0)).sum())
+    return (MEDIAN_OPS_PER_SAMPLE * samples
+            + MEDIAN_OPS_PER_LEVEL * MEDIAN_LEVELS * scans)
+
+
 def grd_volume_work(h: int, w: int, max_dis: int) -> Tuple[int, int]:
     """(bytes, f32 operations) of both views' H x W x (max_dis + 1) GRD
-    volumes (ops.cuda.grd_volume.grd_volumes: two GRDV launches): both u8
+    volumes (ops.cuda.grd_volume.grd_volumes: one GRDV launch, which reads
+    the u8 views and forms their gray image and gradient itself): both u8
     RGB views read once and both f32 volumes written once;
     GRD_FLOPS_PER_ELEMENT an element."""
     n = 2 * h * w * (max_dis + 1)
     return 2 * h * w * 3 + 4 * n, GRD_FLOPS_PER_ELEMENT * n
+
+
+def census_volume_work(h: int, w: int, max_dis: int, levels: int = 1,
+                       wnd: int = 9) -> Tuple[int, int]:
+    """(bytes, operations) of both views' census volumes over `levels`
+    pyramid levels of an H x W pair (ops.cuda.census_volume.census_volumes,
+    one CENV call a level): level s is ceil(H / 2^s) x ceil(W / 2^s) at
+    max_dis >> s; both u8 RGB views of each level read once and both f32
+    volumes written once; CENSUS_OPS_PER_WORD a word of each element,
+    CENSUS_OPS_PER_BIT a bit of each pixel's code."""
+    words = (wnd * wnd - 1 + 31) // 32
+    bytes_ = ops = 0
+    for s in range(levels):
+        hs, ws = ((h - 1) >> s) + 1, ((w - 1) >> s) + 1
+        n = 2 * hs * ws * ((max_dis >> s) + 1)
+        bytes_ += 2 * hs * ws * 3 + 4 * n
+        ops += (CENSUS_OPS_PER_WORD * words * n
+                + CENSUS_OPS_PER_BIT * (wnd * wnd - 1) * 2 * hs * ws)
+    return bytes_, ops
 
 
 def quadrant_rank_work(abc: torch.Tensor, half_wnd: int,

@@ -102,7 +102,7 @@ def grd_model(pix, max_dis, right, third, alpha=0.1, tau_clr=10.0,
 
 @pytest.mark.parametrize("right", [False, True])
 @pytest.mark.parametrize("h,w,max_dis", [(24, 40, 12), (10, 8, 12),
-                                         (12, 64, 60)])
+                                         (12, 64, 60), (6, 1, 3), (6, 2, 5)])
 def test_grd_order_equals_plain(h, w, max_dis, right):
     """The division form is the plain version bit for bit; the f32(1/3)
     form's colour term is within one ulp of it, and its volume differs
@@ -147,6 +147,60 @@ def test_pack_views_layout():
         assert (p >> 24 == 0).all()
         want = sobel_x_k1(rgb_to_gray_f32(torch.from_numpy(img)))
         assert torch.equal(pix[v, ..., 1].view(torch.float32), want)
+
+
+def prologue_model(rgb):
+    """GRDV's prologue in numpy from a u8[H, W, 3] RGB view: the packed
+    RGB (R | G << 8 | B << 16) and the f32 gradient, gray = (0.299f R +
+    0.587f G) + 0.114f B one rounded operation at a time, then g(x) =
+    gray(x + 1) - gray(x - 1), 0 in the first and last column."""
+    c = rgb.astype(F32)
+    gray = (c[..., 0] * F32(0.299) + c[..., 1] * F32(0.587)) \
+        + c[..., 2] * F32(0.114)
+    grad = np.zeros_like(gray)
+    if gray.shape[-1] > 2:
+        grad[..., 1:-1] = gray[..., 2:] - gray[..., :-2]
+    p = rgb.astype(np.int64)
+    return p[..., 0] | p[..., 1] << 8 | p[..., 2] << 16, grad
+
+
+@pytest.mark.parametrize("h,w", [(5, 1), (4, 2), (6, 3), (24, 40)])
+def test_grdv_prologue_equals_pack_views(h, w):
+    """What GRDV's prologue forms in shared memory from the u8 views
+    equals pack_views (the plain functions) bit for bit: the packed RGB
+    and the gradient's f32 bits, at widths 1, 2 (every column a border
+    column: gradient 0) and 3, and on a scene."""
+    l, r = views(h, w, seed=w)
+    pix = grd_volume.pack_views(torch.from_numpy(l), torch.from_numpy(r))
+    assert pix.shape == (2, h, w, 2)
+    for v, img in enumerate((l, r)):
+        packed, grad = prologue_model(img)
+        np.testing.assert_array_equal(pix[v, ..., 0].numpy(), packed)
+        np.testing.assert_array_equal(pix[v, ..., 1].numpy(),
+                                      grad.view(np.int32))
+        if w <= 2:
+            assert not grad.any()
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 9])
+def test_sobel_x_k1_departs_from_jax_only_at_width_one(w):
+    """The port's sobel_x_k1 equals the JAX package's bit for bit from
+    width 2 on.  At width 1 it returns one column of 0 (the column is the
+    first and the last, 0 under OpenCV's reflect-101 border), as GRDV's
+    prologue forms it; the JAX package's returns two columns of 0
+    there."""
+    from crossscalepatchmatch_tpu.ops.gradient import sobel_x_k1 as jsobel
+    from crossscalepatchmatch_tpu_torch.ops.gradient import sobel_x_k1
+
+    gray = np.random.default_rng(w).uniform(0, 255, (2, 5, w)).astype(F32)
+    got = sobel_x_k1(torch.from_numpy(gray)).numpy()
+    want = np.asarray(jsobel(jnp.asarray(gray)))
+    assert got.shape == gray.shape
+    if w == 1:
+        assert want.shape == (2, 5, 2)
+        assert not got.any() and not want.any()
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def rank_model(bq, wq, mc, abc, half_wnd, max_dis):

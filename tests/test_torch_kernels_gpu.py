@@ -2,8 +2,8 @@
 strided window, volume and fly forms), K4 (cross-scale window cost), K5
 (the no-volume fly cost), K6 (its image-space lerp), K7 (its Lab
 weights), WMF (the weighted median of post-processing), GRDV (the GRD
-cost volume) and QRANK (the quadrant ranking) against their plain
-PyTorch versions, on the card; and the entry
+cost volume), CENV (the census volume) and QRANK (the quadrant ranking)
+against their plain PyTorch versions, on the card; and the entry
 points (the command line, a warm start, checkpoint and resume, the
 up-front refusal of a window the kernels do not take) running through
 them.
@@ -23,8 +23,8 @@ with the plain version on the same bf16-rounded values widened to f32, at
 the same tolerance.  K4 is held tighter: bit-equal in f32, and bit-equal
 with bf16 census volumes (integer costs, exact in bf16).  The fly kernel
 (f32 throughout) is held at the f32 tolerance.  WMF's u8 maps are held
-equal to its plain version's, pixel for pixel; GRDV's volumes and QRANK's
-costs to their plain versions' on the card, element for element.
+equal to its plain version's, pixel for pixel; GRDV's and CENV's volumes and
+QRANK's costs to their plain versions' on the card, element for element.
 """
 
 import numpy as np
@@ -35,9 +35,10 @@ from crossscalepatchmatch_tpu_torch import CEN_CS_PP, README_DEMO, CSPMConfig
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models import postprocess
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
-from crossscalepatchmatch_tpu_torch.ops import grad_cost, onthefly_cost
+from crossscalepatchmatch_tpu_torch.ops import census, grad_cost, onthefly_cost
 from crossscalepatchmatch_tpu_torch.ops import plane_cost, prescreen_volume
 from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volume_data
+from crossscalepatchmatch_tpu_torch.ops.cuda import census_volume
 from crossscalepatchmatch_tpu_torch.ops.cuda import cross_scale_cost
 from crossscalepatchmatch_tpu_torch.ops.cuda import fly_cost, grd_volume
 from crossscalepatchmatch_tpu_torch.ops.cuda import quadrant_build
@@ -686,7 +687,7 @@ def test_prepared_volumes_reject_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("use_pp", [False, True])
 def test_pipeline_runs_through_the_kernels(cuda, use_pp):
-    """K1 for every exact evaluation, K2 once, GRDV once a view, QRANK
+    """K1 for every exact evaluation, K2 once, GRDV once a pair, QRANK
     once a ranking call; with use_pp the weighted median is one WMF launch;
     never a plain version."""
     pair = make_pair(h=48, w=64, max_dis=12, seed=3)
@@ -698,14 +699,15 @@ def test_pipeline_runs_through_the_kernels(cuda, use_pp):
     assert window_cost.launches == 10 and quadrant_build.launches == 1
     assert plane_cost.launches == 0 and prescreen_volume.launches == 0
     assert wmf.launches == int(use_pp) and postprocess.plain_launches == 0
-    # GRDV once a view, QRANK once a ranking call (both views)
-    assert grd_volume.launches == 2 and quadrant_rank.launches == 14
+    # GRDV and QRANK once a call for both views
+    assert grd_volume.launches == 1 and quadrant_rank.launches == 14
     assert grad_cost.launches == 0 and prescreen_volume.rank_launches == 0
 
 
 def test_cross_scale_pipeline_runs_through_the_kernels(cuda):
-    """CEN + CS + PP on the default device: every exact evaluation is one
-    K4 launch, the ranking one K2 build, no plain version."""
+    """CEN + CS + PP on the default device: the census volumes one CENV
+    call a level, every exact evaluation one K4 launch, the ranking one K2
+    build, no plain version."""
     pair = make_pair(h=48, w=64, max_dis=12, seed=3)
     cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11,
                      cost_method=CEN_CS_PP.cost_method, use_cs=True,
@@ -718,6 +720,7 @@ def test_cross_scale_pipeline_runs_through_the_kernels(cuda):
     assert cross_scale_cost.launches == 10 and quadrant_build.launches == 1
     assert window_cost.launches == 0
     assert quadrant_rank.launches == 14 and grd_volume.launches == 0
+    assert census_volume.launches == 3 and census.launches == 0
     assert (plane_cost.launches, plane_cost.cross_scale_launches,
             prescreen_volume.launches, prescreen_volume.rank_launches) == (
         0, 0, 0, 0)
@@ -751,8 +754,8 @@ def test_no_volume_pipeline_runs_through_the_kernels(cuda, kw, n_fly,
 def no_plain_version_ran():
     return (plane_cost.launches, plane_cost.cross_scale_launches,
             prescreen_volume.launches, onthefly_cost.launches,
-            prescreen_volume.rank_launches, grad_cost.launches) == (
-        0, 0, 0, 0, 0, 0)
+            prescreen_volume.rank_launches, grad_cost.launches,
+            census.launches) == (0, 0, 0, 0, 0, 0, 0)
 
 
 def test_cli_runs_on_the_card(cuda, tmp_path):
@@ -1229,9 +1232,16 @@ def test_wmf_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # -- GRDV, the GRD cost volume, and QRANK, the quadrant ranking ----------
 
 def grd_views(h, w, max_dis, cuda, rows=None):
-    """The scene's u8 RGB views on the card (rows: a full-width band)."""
+    """The scene's u8 RGB views on the card (rows: a full-width band);
+    random views where the scene would be narrower than 16 pixels or than
+    max_dis."""
     from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
 
+    if w < 16 or max_dis >= w:
+        rng = np.random.default_rng(h * w + max_dis)
+        return (torch.as_tensor(rng.integers(0, 256, (h, w, 3),
+                                             dtype=np.uint8), device=cuda)
+                for _ in range(2))
     pair = make_pair(h=h, w=w, max_dis=max_dis, seed=0)
     l, r = (bgr_to_rgb(torch.as_tensor(x, device=cuda))
             for x in (pair.left, pair.right))
@@ -1242,26 +1252,164 @@ def grd_views(h, w, max_dis, cuda, rows=None):
 
 @pytest.mark.parametrize("h,w,max_dis,rows", [
     (375, 450, 12, None), (375, 450, 60, None), (375, 1242, 128, None),
-    (375, 450, 60, slice(125, 250))])
+    (375, 450, 60, slice(125, 250)), (6, 1, 3, None), (6, 2, 5, None),
+    (9, 3, 40, None), (2, 6200, 6000, None)])
 def test_grdv_bit_equal_on_the_card(cuda, h, w, max_dis, rows):
     """Both views' GRDV volumes equal the plain version on the same CUDA
     tensors, element for element, at d = 12, 60 (bench) and 128 (KITTI),
-    and on a tile's full-width band (rows 125-250, as parallel.tiled
-    builds a GRD tile's volumes); one packing of the views and one launch
-    a view."""
+    on a tile's full-width band (rows 125-250, as parallel.tiled builds a
+    GRD tile's volumes), at widths 1, 2 and 3 (border columns' gradient
+    0) and at a depth whose other-view columns take more than 48 KB of
+    shared memory a block; one launch for both views, pack_views never
+    called."""
     l, r = grd_views(h, w, max_dis, cuda, rows)
-    n, packed = grd_volume.launches, []
-    pack = grd_volume.pack_views
+    n = grd_volume.launches
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(grd_volume, "pack_views",
-                   lambda *a: packed.append(1) or pack(*a))
+        mp.setattr(grd_volume, "pack_views", None)
         got = grd_volume.grd_volumes(l, r, max_dis)
     torch.cuda.synchronize()
-    assert grd_volume.launches == n + 2 and len(packed) == 1
+    assert grd_volume.launches == n + 1
     assert got.shape == (2, l.shape[0], w, max_dis + 1)
     for right in (False, True):
         want = grad_cost.grd_cost_volume(l, r, max_dis, right=right)
         assert int((got[int(right)] != want).sum()) == 0
+
+
+def test_grdv_takes_views_of_any_strides(cuda):
+    """GRDV reads the views with their strides: a column slice, a
+    column-major layout, every other row and a crop give the plain
+    version's volumes on contiguous copies."""
+    l, r = grd_views(64, 120, 20, cuda)
+    lt = l.transpose(0, 1).contiguous().transpose(0, 1)
+    views = [(l[:, 10:90], r[:, 10:90]), (lt, r),
+             (l[::2], r[::2]), (l[5:50, 7:], r[5:50, 7:])]
+    for lv, rv in views:
+        assert not lv.is_contiguous()
+        got = grd_volume.grd_volumes(lv, rv, 20)
+        want = grd_volume.grd_volumes_plain(lv.contiguous(),
+                                            rv.contiguous(), 20)
+        assert torch.equal(got, want)
+
+
+def cenv_both(l, r, max_dis, wnd):
+    """(kernel, plain) census volumes of both views on the same CUDA
+    tensors; one CENV call."""
+    n = census_volume.launches
+    got = census_volume.census_volumes(l, r, max_dis, wnd)
+    torch.cuda.synchronize()
+    assert census_volume.launches == n + 1
+    return got, census_volume.census_volumes_plain(l, r, max_dis, wnd)
+
+
+@pytest.mark.parametrize("scene", ["bench", "kitti", "small"])
+def test_cenv_equal_on_the_card(cuda, scene):
+    """CENV against the plain census volumes (both views) on the card,
+    element for element, at every level of a pyramid: the bench scene's 5
+    CEN_CS_PP levels (D = 61, 31, 16, 8, 4), a KITTI-size level (375 x 1242,
+    d = 128) and a 6 x 5 scene's 3 levels (6 x 5, 3 x 3, 2 x 2, the most
+    its pyramid takes), narrower and lower than the census window (it
+    wraps more than once)."""
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
+    from crossscalepatchmatch_tpu_torch.ops.pyramid import build_pyramid
+
+    h, w, d, levels = {"bench": (375, 450, 60, 5),
+                       "kitti": (375, 1242, 128, 1),
+                       "small": (6, 5, 8, 3)}[scene]
+    if scene == "small":
+        rng = np.random.default_rng(5)
+        l, r = (torch.as_tensor(rng.integers(0, 256, (h, w, 3),
+                                             dtype=np.uint8), device=cuda)
+                for _ in range(2))
+    else:
+        pair = make_pair(h=h, w=w, max_dis=d, seed=0)
+        l, r = (torch.as_tensor(x, device=cuda)
+                for x in (pair.left, pair.right))
+    lp, rp = build_pyramid(l, levels), build_pyramid(r, levels)
+    for s in range(levels):
+        got, want = cenv_both(bgr_to_rgb(lp[s]), bgr_to_rgb(rp[s]), d >> s,
+                              CEN_CS_PP.census_wnd)
+        assert got.shape == want.shape == (2, *lp[s].shape[:2],
+                                           (d >> s) + 1)
+        assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("wnd", [1, 3, 5, 7, 11, 13, 15])
+def test_cenv_windows_on_the_card(cuda, wnd):
+    """Every census window the kernel takes (1 to 15: 0 to 7 words of
+    code) on a small scene and on a 6 x 5 one, equal to the plain
+    version."""
+    for h, w, d in ((24, 40, 12), (6, 5, 7)):
+        rng = np.random.default_rng(wnd + w)
+        l, r = (torch.as_tensor(rng.integers(0, 256, (h, w, 3),
+                                             dtype=np.uint8), device=cuda)
+                for _ in range(2))
+        got, want = cenv_both(l, r, d, wnd)
+        assert int((got != want).sum()) == 0
+
+
+def test_cenv_strides_and_wide_blocks_on_the_card(cuda):
+    """CENV reads views of any strides (a column slice, a column-major
+    layout, every other row), and takes a depth whose blocks stage more
+    than 48 KB of codes (wnd 15, 1,700 columns at max_dis 1,600)."""
+    l, r = grd_views(64, 120, 20, cuda)
+    lt = l.transpose(0, 1).contiguous().transpose(0, 1)
+    for lv, rv in ((l[:, 10:90], r[:, 10:90]), (lt, r), (l[::2], r[::2])):
+        got, want = cenv_both(lv, rv, 20, 9)
+        assert torch.equal(got, want)
+    rng = np.random.default_rng(9)
+    l, r = (torch.as_tensor(rng.integers(0, 256, (2, 1700, 3),
+                                         dtype=np.uint8), device=cuda)
+            for _ in range(2))
+    got, want = cenv_both(l, r, 1600, 15)
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("kernel", ["grdv", "cenv"])
+def test_volume_kernels_refuse_blocks_past_the_shared_memory(cuda, kernel):
+    """A depth whose block would stage more shared memory than the card
+    has (GRDV at max_dis 29,000, CENV's 15-window codes at 7,200): the C
+    entry refuses the launch, the wrapper raises RuntimeError and counts
+    nothing, and the next call runs (the refusal is not left as the
+    runtime's last error) and equals the plain version."""
+    mod, call, w, md = {
+        "grdv": (grd_volume, lambda a, b, m: grd_volume.grd_volumes(a, b, m),
+                 29200, 29000),
+        "cenv": (census_volume,
+                 lambda a, b, m: census_volume.census_volumes(a, b, m, 15),
+                 7300, 7200)}[kernel]
+    rng = np.random.default_rng(3)
+    l, r = (torch.as_tensor(rng.integers(0, 256, (1, w, 3), dtype=np.uint8),
+                            device=cuda) for _ in range(2))
+    n = mod.launches
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        call(l, r, md)
+    assert mod.launches == n
+    ls, rs = l[:, :300], r[:, :300]
+    got = call(ls, rs, 40)
+    torch.cuda.synchronize()
+    assert mod.launches == n + 1
+    want = (grd_volume.grd_volumes_plain(ls, rs, 40) if kernel == "grdv"
+            else census_volume.census_volumes_plain(ls, rs, 40, 15))
+    assert torch.equal(got, want)
+
+
+def test_cenv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    """Windows past 15, even windows, views on two devices, CPU views:
+    ValueError, nothing launched; census_wnd 17 refused by run_pair at
+    entry."""
+    l, r = grd_views(8, 20, 4, cuda)
+    n = census_volume.launches
+    for lv, rv, wnd in ((l, r, 17), (l, r, 8), (l, r.cpu(), 9),
+                        (l.cpu(), r.cpu(), 9), (l.float(), r, 9)):
+        with pytest.raises(ValueError):
+            census_volume.census_volumes_cuda(lv, rv, 4, wnd)
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    with pytest.raises(ValueError, match="census_wnd"):
+        run_pair(pair.left, pair.right, 0,
+                 CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11,
+                            cost_method=CEN_CS_PP.cost_method,
+                            census_wnd=17))
+    assert census_volume.launches == n
 
 
 def test_grd_plain_card_against_cpu(cuda):

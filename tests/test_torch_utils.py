@@ -183,10 +183,51 @@ def test_median_samples(h, w, hw, band):
     assert roofline.median_samples(valid, hw, **band) == want
 
 
+def test_median_least_ops():
+    """The least work of an exact weighted median, pinned on a small mask:
+    each in-array window pixel of each invalid output pixel once, 7
+    operations each, and a scan of the 256 levels (2 operations a level)
+    where the window holds a valid pixel."""
+    valid = torch.ones((2, 4, 5), dtype=torch.bool)
+    valid[0, 0, 0] = valid[0, 2, 3] = False
+    valid[1] = False
+    # view 0: (0, 0) sees rows 0-1 x cols 0-1 (4 pixels, 3 valid), (2, 3)
+    # rows 1-3 x cols 2-4 (9 pixels); view 1: 20 invalid pixels, no valid
+    # one in any window, so no scan
+    win1 = sum((min(y + 1, 3) - max(y - 1, 0) + 1)
+               * (min(x + 1, 4) - max(x - 1, 0) + 1)
+               for y in range(4) for x in range(5))
+    want = 7 * (4 + 9 + win1) + 2 * 256 * 2
+    assert roofline.median_least_ops(valid, 1) == want
+    assert win1 == (2 + 3 + 3 + 2) * (2 + 3 + 3 + 3 + 2)
+    # the band form: output rows 1-2 of view 0 only see (2, 3)
+    band = dict(center_row0=1, out_h=2)
+    assert roofline.median_least_ops(valid[:1], 1, **band) == 7 * 9 + 512
+
+
+def test_census_volume_work():
+    """CENV's bytes (both u8 RGB views of each level read, both f32
+    volumes written) and operations over the bench's 5 CEN_CS_PP levels
+    (375x450 d=60: D = 61, 31, 16, 8, 4) and at one level; bound by
+    bytes, 0.0286 ms at 3.35 TB/s."""
+    b, o = roofline.census_volume_work(375, 450, 60, levels=1)
+    assert b == 2 * 375 * 450 * 3 + 2 * 4 * 375 * 450 * 61
+    assert o == 3 * 3 * 2 * 375 * 450 * 61 + 2 * 80 * 2 * 375 * 450
+    sizes = [(375, 450, 61), (188, 225, 31), (94, 113, 16), (47, 57, 8),
+             (24, 29, 4)]
+    b5, o5 = roofline.census_volume_work(375, 450, 60, levels=5)
+    assert b5 == sum(2 * h * w * 3 + 8 * h * w * d for h, w, d in sizes)
+    assert round(roofline.bound(b5, o5)[0], 4) == 0.0286
+    assert roofline.bound(b5, o5)[1] == "bytes"
+    b, o = roofline.census_volume_work(6, 5, 3, levels=3, wnd=15)
+    assert o == sum(3 * 7 * 2 * h * w * d + 2 * 224 * 2 * h * w
+                    for h, w, d in ((6, 5, 4), (3, 3, 2), (2, 2, 1)))
+
+
 def test_grd_volume_work():
     """A pair's GRDV bytes (two u8 RGB views read, both views' f32 volumes
-    written) and operations (8 an element) at the bench and KITTI shapes;
-    bound by bytes."""
+    written: one launch, no packed input) and operations (8 an element)
+    at the bench and KITTI shapes; bound by bytes."""
     assert roofline.grd_volume_work(375, 450, 60) == (
         2 * 375 * 450 * 3 + 2 * 375 * 450 * 61 * 4, 2 * 8 * 375 * 450 * 61)
     b, f = roofline.grd_volume_work(375, 1242, 128)

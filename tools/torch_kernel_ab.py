@@ -1,5 +1,6 @@
-"""Time the port's K1, K2, K3, K4, fly, QRANK and WMF kernels on a CUDA
-card, optionally against another checkout of the repository.
+"""Time the port's K1, K2, K3, K4, fly, QRANK, WMF, GRDV and census volume
+kernels on a CUDA card, optionally against another checkout of the
+repository.
 
     python tools/torch_kernel_ab.py [--parent DIR] [--reps 5]
 
@@ -18,14 +19,19 @@ CEN_CS_PP and KITTI pairs' inputs (the filled maps, the images, the
 LR-invalid masks) and in band form on the bench scene's middle tile of a
 (1, 3, 2) mesh (the CEN_CS_PP inputs with their half-window halo), the
 wrapper and, where the checkout has prepare_median, the kernel's launch
-alone.  Every time is CUDA events around `reps` launches
-after a warm-up; where the checkout has prepared pairs (prepare_fly,
+alone; GRDV (grd_volumes: both views, the wrapper) on the bench and KITTI
+scenes and the bench tile's full-width row band; the census volumes as
+build_volumes makes them (CENV, or the plain census in a checkout without
+it) at each of the bench scene's 5 CEN_CS_PP levels, all levels together
+and a KITTI-size level.  Every time is CUDA events around `reps` launches
+after a warm-up (GRDV and the census volumes also their kernels' device
+time a call, from torch.profiler, and the kernels a call); where the checkout has prepared pairs (prepare_fly,
 prepare_cross_scale, prepare_volumes), the preparation (packing, the
 pair-layout volumes) is outside the timed region, and a checkout without
 prepare_volumes has its K1 / K2 entries called on pre-packed inputs.
 
-First it runs README_DEMO on the bench scene and KITTI (with its volumes)
-on the KITTI scene, seed 0, three times each: the seed-0 `dis` digest, the
+First it runs README_DEMO and CEN_CS_PP on the bench scene and KITTI
+(with its volumes) on the KITTI scene, seed 0, three times each: the seed-0 `dis` digest, the
 ms/pair of each run and the peak device memory.
 
 --parent DIR: a checkout of another commit (e.g. `git archive` of the
@@ -164,7 +170,57 @@ def main() -> int:
     kcfg = dataclasses.replace(KITTI, precompute_volume=False)
     md = README_DEMO.max_dis
     path_case("README_DEMO", README_DEMO, bench)
+    path_case("CEN_CS_PP", CEN_CS_PP, bench)
     path_case("KITTI", KITTI, kitti)
+
+    # -- the volume build: GRDV and the census volumes --------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
+    from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volumes
+    from crossscalepatchmatch_tpu_torch.ops.cuda import grd_volume
+    from crossscalepatchmatch_tpu_torch.ops.pyramid import build_pyramid
+
+    def timed_device(name, fn):
+        """fn's time (CUDA events, as timed) and its kernels' device time
+        and count a call (the profiler over `reps` calls)."""
+        timed(name, fn)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        dev_ms = sum(e.time_range.end - e.time_range.start
+                     for e in ks) / 1e3 / args.reps
+        times[f"{name} device"] = dev_ms
+        times[f"{name} kernels"] = len(ks) / args.reps
+        print(f"{name}: device {dev_ms:.4f} ms, {len(ks) / args.reps:g} "
+              f"kernels a call", flush=True)
+
+    for tag, (_, l, r), cfg, rows in (
+            ("bench", bench, README_DEMO, slice(None)),
+            ("KITTI", kitti, KITTI, slice(None)),
+            ("band (bench tile rows 125-250)", bench, README_DEMO,
+             slice(125, 250))):
+        lv, rv = bgr_to_rgb(l[rows]), bgr_to_rgb(r[rows])
+        timed_device(f"GRDV {tag}", lambda: grd_volume.grd_volumes(
+            lv, rv, cfg.max_dis, alpha=cfg.cost_alpha, tau_clr=cfg.tau_clr,
+            tau_grd=cfg.tau_grd, border_thres=cfg.border_thres))
+    for tag, (_, l, r), cfg, levels in (("bench", bench, CEN_CS_PP, 5),
+                                        ("KITTI", kitti, dataclasses.replace(
+                                            KITTI, cost_method=CEN_CS_PP.
+                                            cost_method), 1)):
+        lp, rp = build_pyramid(l, levels), build_pyramid(r, levels)
+        lvs = [(bgr_to_rgb(lp[s]), bgr_to_rgb(rp[s]), cfg.max_dis >> s)
+               for s in range(levels)]
+        if levels > 1:
+            for s, (a, b, m) in enumerate(lvs):
+                timed_device(f"census volume {tag} level {s}",
+                             lambda: build_volumes(a, b, m, cfg))
+        timed_device(f"census volume {tag} all {levels} level(s)",
+                     lambda: [build_volumes(a, b, m, cfg)
+                              for a, b, m in lvs])
     fly_case("K5 K=1", fcfg, bench, 1, "cost", 1)
     fly_case("K5 K=2", fcfg, bench, 2, "cost", 1)
     fly_case("K5 K=3", fcfg, bench, 3, "cost", 1)
