@@ -1,0 +1,90 @@
+"""Every cell of BENCHMARK.json loads: its configuration with every
+CSPMConfig field given, its traffic mix, a reader for each of its
+per-layer metrics; and the files keep to the benchmark's layout."""
+
+import dataclasses
+import json
+import os
+
+import pytest
+
+from crossscalepatchmatch_tpu_torch.config import (CEN_CS_PP, KITTI,
+                                                   CSPMConfig)
+from stereobench import families, reference, trace, workload
+
+from .conftest import REPO
+
+with open(os.path.join(REPO, "BENCHMARK.json")) as _f:
+    BENCH = json.load(_f)
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_cell_loads(name):
+    cell = workload.load_cell(name)
+    fields = {f.name for f in dataclasses.fields(CSPMConfig)}
+    assert set(cell.config["engine"]) == fields
+    cfg = workload.engine_config(cell.config)
+    assert cfg.max_dis == cell.config["max_disparity"]
+    reference.check_engine(cell.config["engine"])
+    assert set(cell.config["limits"]) == {"cost_gap", "dis_diff_px",
+                                          "valid_diff_px", "bad_px_pct"}
+    t = cell.traffic
+    assert t["entry"] in workload.ENTRIES and t["loop"] == "closed"
+    assert t["in_flight"] == 1 and t["pan_px"] >= 0
+    assert cell.chips == 1
+    for m in cell.per_layer:
+        assert callable(trace.reader(m["name"]))
+
+
+def test_configs_are_the_ports_presets():
+    by = {c["name"]: workload.load_json(os.path.join(REPO, c["file"]))
+          for c in BENCH["configs"]}
+    assert workload.engine_config(by["kitti2015_grd_pp"]) == KITTI
+    assert workload.engine_config(by["mb2003_cen_cs_pp"]) == CEN_CS_PP
+
+
+def test_names_and_layout():
+    names = [c["name"] for c in BENCH["configs"]] + CELLS + [
+        m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    assert len(names) == len(set(names))
+    for c in BENCH["configs"]:
+        assert c["file"] == f"stereobench/configs/{c['name']}.json"
+    for w in BENCH["workloads"]:
+        assert os.path.exists(os.path.join(
+            REPO, "stereobench", "traffic", w["traffic"] + ".json"))
+    for m in BENCH["per_layer"]:
+        assert os.path.exists(os.path.join(
+            REPO, "stereobench", "layers", m["name"] + ".py"))
+        assert m["moves"] == "pairs_per_s"
+    assert {m["name"] for m in BENCH["end_to_end"]} == {
+        "pairs_per_s", "pair_ms_p95", "peak_mem_mib", "bad_px_pct",
+        "setup_s"}
+
+
+def test_kernel_families_are_the_programs():
+    """The frozen name map agrees with the program's kernel_family."""
+    from crossscalepatchmatch_tpu_torch.utils.profiling import kernel_family
+
+    port = {"K1": "window_cost", "K4": "window_cost", "K2": "quadrant_build",
+            "QRANK": "quadrant_rank", "GRDV": "grd_volume",
+            "CENV": "census_volume", "WMF": "weighted_median",
+            "fly": "fly_cost", "other": families.OTHER}
+    names = ["void cross_scale_kernel<true, 1>(Args)",
+             "void quadrant_build_kernel<float>(int)",
+             "quadrant_rank_kernel(float const*)", "grd_volume_kernel",
+             "census_codes_kernel<7>", "census_volume_kernel<7, 9>",
+             "weighted_median_kernel", "wmf_pack_count_kernel",
+             "wmf_compact_kernel", "fly_cost_kernel<1, 0>",
+             "void at::native::vectorized_elementwise_kernel<4>",
+             "Memcpy HtoD (Pageable -> Device)"]
+    for use_cs in (False, True):
+        cfg = CSPMConfig(use_cs=use_cs)
+        for n in names:
+            assert families.family_of(n) == port[kernel_family(n, cfg)], n
+
+
+def test_counters_are_read():
+    got = families.read_counters()
+    assert set(got) == {f.name for f in families.FAMILIES}
+    assert all(isinstance(v, int) for v in got.values())
