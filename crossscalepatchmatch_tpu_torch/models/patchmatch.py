@@ -22,6 +22,9 @@ A spatial tile (parallel.tiled) runs the same optimizer on its block: it
 binds the band forms of the kernels (make_cost_fns(band=...)) and hands in
 how a sweep finds its neighbours' planes (`neighbours`, across the tile's
 halos) and how view propagation finds the other view's (`view`).
+
+The optimizer's layers are spans (utils/spans): rank_phase (with init)
+and exact_phase in patchmatch, iteration, sweep, view and refine.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..ops.cuda.window_cost import (PreparedVolumes, prepare_volumes,
 from ..ops.onthefly_cost import FlyData
 from ..ops.scale_weights import scale_weights
 from ..support import check_supported
+from ..utils.spans import span
 
 CostFn = Callable[[torch.Tensor], torch.Tensor]
 Offsets = List[Tuple[int, int]]
@@ -251,13 +255,14 @@ def spatial_sweep(state: PMState, cost_fn: CostFn, cfg: CSPMConfig,
     a tie keeps the current plane.  `neighbours(abc, offsets)` gives the
     stencil's candidate planes (stencil_candidates on one device).
     """
-    cand_abc = _prescreen(neighbours(state.abc, _stencil(cfg, sweep)),
-                          sparse_fn)
-    if include_current:
-        cand_abc = torch.cat([state.abc[:, None], cand_abc], dim=1)
-    if extra is not None:
-        cand_abc = torch.cat([cand_abc, extra], dim=1)
-    return _adopt(state, cand_abc, cost_fn(cand_abc))
+    offsets = _stencil(cfg, sweep)
+    with span("sweep", s=sweep, k=len(offsets)):
+        cand_abc = _prescreen(neighbours(state.abc, offsets), sparse_fn)
+        if include_current:
+            cand_abc = torch.cat([state.abc[:, None], cand_abc], dim=1)
+        if extra is not None:
+            cand_abc = torch.cat([cand_abc, extra], dim=1)
+        return _adopt(state, cand_abc, cost_fn(cand_abc))
 
 
 def view_candidates(state: PMState, cfg: CSPMConfig) -> torch.Tensor:
@@ -291,8 +296,9 @@ def view_propagation(state: PMState, cost_fn: CostFn, cfg: CSPMConfig,
                      view=None) -> PMState:
     """Standalone view-propagation step (see view_candidates; `view(state)`
     gives the candidates instead where set)."""
-    cand_abc = view(state) if view else view_candidates(state, cfg)
-    return _adopt(state, cand_abc, cost_fn(cand_abc))
+    with span("view"):
+        cand_abc = view(state) if view else view_candidates(state, cfg)
+        return _adopt(state, cand_abc, cost_fn(cand_abc))
 
 
 def refinement_magnitudes(cfg: CSPMConfig):
@@ -329,16 +335,18 @@ def plane_refinement(state: PMState, draws, iteration: int, cost_fn: CostFn,
         per = -(-r // stages)
         for s0 in range(0, r, per):
             rounds = range(s0, min(s0 + per, r))
-            cands = [torch.stack([propose(state.abc[v], v, i)
-                                  for i in rounds]) for v in range(2)]
-            cand_abc = _prescreen(torch.stack(cands), sparse_fn)
-            state = _adopt(state, cand_abc, cost_fn(cand_abc))
+            with span("refine", stage=s0 // per, k=len(rounds)):
+                cands = [torch.stack([propose(state.abc[v], v, i)
+                                      for i in rounds]) for v in range(2)]
+                cand_abc = _prescreen(torch.stack(cands), sparse_fn)
+                state = _adopt(state, cand_abc, cost_fn(cand_abc))
         return state
 
     for i in range(r):
-        cand_abc = torch.stack([propose(state.abc[v], v, i)
-                                for v in range(2)])[:, None]
-        state = _adopt(state, cand_abc, cost_fn(cand_abc))
+        with span("refine", stage=i, k=1):
+            cand_abc = torch.stack([propose(state.abc[v], v, i)
+                                    for v in range(2)])[:, None]
+            state = _adopt(state, cand_abc, cost_fn(cand_abc))
     return state
 
 
@@ -347,12 +355,14 @@ def init_state(draws, hw: Tuple[int, int], cost_fn: CostFn | None,
     """Random plane init + initial cost (cs_patchmatch.cc:115-148).
     cost_fn=None defers the evaluation: the held cost is +inf."""
     h, w = hw
-    disp, normal = draws.init((2, h, w), float(cfg.max_dis), cfg.eps)
-    abc = plane.random_planes(disp.to(device), normal.to(device), cfg.eps)
-    if cost_fn is None:
-        return PMState(abc=abc, cost=torch.full((2, h, w), float("inf"),
-                                                device=device))
-    return PMState(abc=abc, cost=cost_fn(abc[:, None])[:, 0])
+    with span("init"):
+        disp, normal = draws.init((2, h, w), float(cfg.max_dis), cfg.eps)
+        abc = plane.random_planes(disp.to(device), normal.to(device),
+                                  cfg.eps)
+        if cost_fn is None:
+            return PMState(abc=abc, cost=torch.full(
+                (2, h, w), float("inf"), device=device))
+        return PMState(abc=abc, cost=cost_fn(abc[:, None])[:, 0])
 
 
 def iteration_step(state: PMState, draws, iteration: int, cost_fn: CostFn,
@@ -400,17 +410,19 @@ def iterate(state: PMState, first: int, stop: int, draws, cost_fn: CostFn,
     """
     defer = cfg.prop_sweeps > 0
     for it in range(first, stop):
-        if it == n_rank and defer:
-            state = PMState(abc=state.abc,
-                            cost=torch.full_like(state.cost, float("inf")))
-        elif it == n_rank and n_rank:
-            # the rank-unit cost is not comparable to exact costs
-            state = PMState(abc=state.abc,
-                            cost=cost_fn(state.abc[:, None])[:, 0])
-        cf, sf = (sparse_fn, None) if it < n_rank else (cost_fn, sparse_fn)
-        state = iteration_step(state, draws, it, cf, cfg, sf,
-                               include_current=defer and it == n_rank,
-                               neighbours=neighbours, view=view)
+        with span("iteration", i=it):
+            if it == n_rank and defer:
+                state = PMState(abc=state.abc, cost=torch.full_like(
+                    state.cost, float("inf")))
+            elif it == n_rank and n_rank:
+                # the rank-unit cost is not comparable to exact costs
+                state = PMState(abc=state.abc,
+                                cost=cost_fn(state.abc[:, None])[:, 0])
+            cf, sf = ((sparse_fn, None) if it < n_rank
+                      else (cost_fn, sparse_fn))
+            state = iteration_step(state, draws, it, cf, cfg, sf,
+                                   include_current=defer and it == n_rank,
+                                   neighbours=neighbours, view=view)
         if on_iteration is not None:
             on_iteration(state, it + 1)
     return state
@@ -438,16 +450,30 @@ def patchmatch(draws, hw: Tuple[int, int], cost_fn: CostFn, cfg: CSPMConfig,
       neighbours / view: iteration_step's (a spatial tile's halos).
     """
     n_rank = cfg.rank_iters if sparse_fn is not None else 0
-    if start is None:
-        defer = cfg.prop_sweeps > 0 and cfg.max_iter > n_rank
-        init_fn = sparse_fn if n_rank else (None if defer else cost_fn)
-        start = (init_state(draws, hw, init_fn, cfg, device=device), 0)
-        if on_iteration is not None:
-            on_iteration(*start)
-    return iterate(*start, cfg.max_iter if stop is None else stop, draws,
-                   cost_fn, cfg, sparse_fn, n_rank=n_rank,
-                   on_iteration=on_iteration, neighbours=neighbours,
-                   view=view)
+    stop = cfg.max_iter if stop is None else stop
+    run = functools.partial(iterate, draws=draws, cost_fn=cost_fn, cfg=cfg,
+                            sparse_fn=sparse_fn, n_rank=n_rank,
+                            on_iteration=on_iteration,
+                            neighbours=neighbours, view=view)
+    # the rank phase: the init and the iterations below n_rank; then the
+    # exact phase
+    state, first = start or (None, 0)
+    rank_stop = max(first, min(stop, n_rank))
+    if start is None or first < rank_stop:
+        with span("rank_phase"):
+            if start is None:
+                defer = cfg.prop_sweeps > 0 and cfg.max_iter > n_rank
+                init_fn = sparse_fn if n_rank else (None if defer
+                                                    else cost_fn)
+                state = init_state(draws, hw, init_fn, cfg, device=device)
+                if on_iteration is not None:
+                    on_iteration(state, 0)
+            state = run(state, first, rank_stop)
+        first = rank_stop
+    if first < stop:
+        with span("exact_phase"):
+            state = run(state, first, stop)
+    return state
 
 
 def plane_to_disp(abc: torch.Tensor, dis_scale: int) -> torch.Tensor:

@@ -12,6 +12,9 @@ take is refused at entry (support.check_supported), before any work.
 Video: run_pair_warm starts the optimizer from a prior plane field (the
 previous frame's) and runs a few iterations; run_sequence_np runs a cold
 first frame and warm frames after it.
+
+Each run_pair / run_pair_warm call is a `pair` span with its phases as
+spans under it (utils/spans: kept only inside spans.recording()).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..ops.cost_volume import build_volume_data
 from ..ops.onthefly_cost import build_fly_data
 from ..support import check_supported
 from ..utils.rng import PHASE_WARM, TorchDraws
+from ..utils.spans import span
 from . import patchmatch as pm
 from .postprocess import postprocess
 
@@ -36,10 +40,13 @@ def _make_cost_fns(l: torch.Tensor, r: torch.Tensor, cfg: CSPMConfig):
     path follows the JAX engine's fused-kernel semantics on every device
     (models.patchmatch.make_fly_cost_fns)."""
     if cfg.precompute_volume:
-        vd = build_volume_data(l, r, cfg)
-        return (*pm.make_cost_fns(cfg, vd), vd.imgs[0])
-    fd = build_fly_data(l, r, cfg)
-    return (*pm.make_fly_cost_fns(cfg, fd), fd.imgs[0])
+        with span("volume_build"):
+            vd = build_volume_data(l, r, cfg)
+        with span("quadrant_build_K2"):
+            return (*pm.make_cost_fns(cfg, vd), vd.imgs[0])
+    with span("fly_data"):
+        fd = build_fly_data(l, r, cfg)
+        return (*pm.make_fly_cost_fns(cfg, fd), fd.imgs[0])
 
 
 def _finalize(state: pm.PMState, pp_imgs: torch.Tensor,
@@ -47,7 +54,8 @@ def _finalize(state: pm.PMState, pp_imgs: torch.Tensor,
     """Planes -> scaled u8 disparity (+ post-processing on the fine-level
     images pp_imgs, u8[2, H, W, 3], when cfg.use_pp)."""
     _, h, w = state.cost.shape
-    dis = pm.plane_to_disp(state.abc, cfg.dis_scale)
+    with span("plane_to_disp"):
+        dis = pm.plane_to_disp(state.abc, cfg.dis_scale)
     if cfg.use_pp:
         dis, valid = postprocess(dis, state.abc, pp_imgs, cfg)
     else:
@@ -82,14 +90,15 @@ def run_pair(l_bgr_u8, r_bgr_u8, seed: int, cfg: CSPMConfig, *,
       f32[2, H, W, 3] plane fields, "cost" f32[2, H, W] final costs and
       "valid" bool[2, H, W] LR-check mask (all true when not cfg.use_pp).
     """
-    device, l, r = _on_device(l_bgr_u8, r_bgr_u8, cfg, device)
-    if draws is None:
-        draws = TorchDraws(seed, device)
-    h, w, _ = l.shape
-    cost_fn, sparse_fn, pp_imgs = _make_cost_fns(l, r, cfg)
-    state = pm.patchmatch(draws, (h, w), cost_fn, cfg, sparse_fn,
-                          device=device)
-    return _finalize(state, pp_imgs, cfg)
+    with span("pair", entry="run_pair"):
+        device, l, r = _on_device(l_bgr_u8, r_bgr_u8, cfg, device)
+        if draws is None:
+            draws = TorchDraws(seed, device)
+        h, w, _ = l.shape
+        cost_fn, sparse_fn, pp_imgs = _make_cost_fns(l, r, cfg)
+        state = pm.patchmatch(draws, (h, w), cost_fn, cfg, sparse_fn,
+                              device=device)
+        return _finalize(state, pp_imgs, cfg)
 
 
 def run_pair_np(l_bgr_u8, r_bgr_u8, cfg: CSPMConfig, seed: int = 0, *,
@@ -130,20 +139,23 @@ def run_pair_warm(l_bgr_u8, r_bgr_u8, seed: int, init_abc, cfg: CSPMConfig,
     Returns:
       run_pair's dict.
     """
-    device, l, r = _on_device(l_bgr_u8, r_bgr_u8, cfg, device)
-    if draws is None:
-        draws = TorchDraws(seed, device, refine_phase=PHASE_WARM)
-    cost_fn, sparse_fn, pp_imgs = _make_cost_fns(l, r, cfg)
-    if not torch.is_tensor(init_abc):
-        init_abc = torch.from_numpy(np.array(init_abc, np.float32))
-    abc = init_abc.to(device=device, dtype=torch.float32)
-    if cfg.prop_sweeps > 0 and warm_iters > 0:
-        cost = torch.full(abc.shape[:-1], float("inf"), device=device)
-    else:
-        cost = cost_fn(abc[:, None])[:, 0]
-    state = pm.iterate(pm.PMState(abc=abc, cost=cost), 0, warm_iters, draws,
-                       cost_fn, cfg, sparse_fn)
-    return _finalize(state, pp_imgs, cfg)
+    with span("pair", entry="run_pair_warm"):
+        device, l, r = _on_device(l_bgr_u8, r_bgr_u8, cfg, device)
+        if draws is None:
+            draws = TorchDraws(seed, device, refine_phase=PHASE_WARM)
+        cost_fn, sparse_fn, pp_imgs = _make_cost_fns(l, r, cfg)
+        if not torch.is_tensor(init_abc):
+            init_abc = torch.from_numpy(np.array(init_abc, np.float32))
+        with span("warm_phase"):
+            abc = init_abc.to(device=device, dtype=torch.float32)
+            if cfg.prop_sweeps > 0 and warm_iters > 0:
+                cost = torch.full(abc.shape[:-1], float("inf"),
+                                  device=device)
+            else:
+                cost = cost_fn(abc[:, None])[:, 0]
+            state = pm.iterate(pm.PMState(abc=abc, cost=cost), 0,
+                               warm_iters, draws, cost_fn, cfg, sparse_fn)
+        return _finalize(state, pp_imgs, cfg)
 
 
 def run_sequence_np(frames, cfg: CSPMConfig, seed: int = 0,

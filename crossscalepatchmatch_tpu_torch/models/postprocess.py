@@ -24,6 +24,7 @@ from ..config import CSPMConfig
 from ..ops import plane
 from ..ops.cuda import weighted_median as wmf
 from ..ops.plane_cost import asw_lut
+from ..utils.spans import span
 
 # Disparity levels of a u8 map.
 N_LEVELS = 256
@@ -208,7 +209,11 @@ def postprocess(dis: torch.Tensor, abc: torch.Tensor, imgs: torch.Tensor,
 
     Returns (dis, valid): the cleaned maps and the LR-check validity mask.
     """
-    valid = lr_check(dis, cfg)
-    dis = fill_invalid(dis, abc, valid, cfg)
-    dis = weighted_median(dis, imgs, valid, cfg)
-    return dis, valid
+    with span("postprocess"):
+        with span("lr_check"):
+            valid = lr_check(dis, cfg)
+        with span("fill"):
+            dis = fill_invalid(dis, abc, valid, cfg)
+        with span("weighted_median"):
+            dis = weighted_median(dis, imgs, valid, cfg)
+        return dis, valid

@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .spans import span
+
 PHASE_INIT = 0
 PHASE_REFINE = 1
 PHASE_WARM = 2
@@ -65,15 +67,17 @@ class TorchDraws:
         return lo + (hi - lo) * u
 
     def init(self, shape, max_dis: float, eps: float):
-        g = self._gen(PHASE_INIT, 0, 0, 0)
-        disp = self._uniform(g, shape, eps, float(max_dis))
-        normal = torch.randn((*shape, 3), generator=g, dtype=torch.float32,
-                             device=self.device)
-        return disp, normal
+        with span("draws"):
+            g = self._gen(PHASE_INIT, 0, 0, 0)
+            disp = self._uniform(g, shape, eps, float(max_dis))
+            normal = torch.randn((*shape, 3), generator=g,
+                                 dtype=torch.float32, device=self.device)
+            return disp, normal
 
     def refine(self, iteration: int, view: int, rnd: int, shape,
                z_mag: float, n_mag: float):
-        g = self._gen(self.refine_phase, iteration, view, rnd)
-        dz = self._uniform(g, shape, -z_mag, z_mag)
-        dn = self._uniform(g, (*shape, 3), -n_mag, n_mag)
-        return dz, dn
+        with span("draws", view=view, round=rnd):
+            g = self._gen(self.refine_phase, iteration, view, rnd)
+            dz = self._uniform(g, shape, -z_mag, z_mag)
+            dn = self._uniform(g, (*shape, 3), -n_mag, n_mag)
+            return dz, dn

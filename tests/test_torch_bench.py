@@ -1,10 +1,10 @@
-"""bench_torch.py (the port's benchmark) and the phase-split profiled pair
-it shares with tools/torch_profile_pair.py (utils.profiling), on the CPU at
-32x48 with small windows (--device cpu).
+"""bench_torch.py (the port's benchmark) and the profiled pair it shares
+with tools/torch_profile_pair.py (utils.profiling), on the CPU at 32x48
+with small windows (--device cpu).
 
 The profiled pair must give run_pair's (run_pair_warm's) outputs bit for
-bit: it replays run_pair's body phase by phase, and nothing but the split
-may differ.  The bench's cell table must be PERF.md section 4's, in order,
+bit: it is run_pair recorded by phase (utils/spans), and nothing but the
+recording may differ.  The bench's cell table must be PERF.md section 4's, in order,
 and every cell's config must pass the card's entry checks at its size.
 """
 
@@ -12,7 +12,6 @@ import dataclasses
 import json
 import os
 import re
-import types
 
 import numpy as np
 import pytest
@@ -24,7 +23,7 @@ from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                             run_pair_warm)
 from crossscalepatchmatch_tpu_torch.support import check_supported
-from crossscalepatchmatch_tpu_torch.utils import profiling
+from crossscalepatchmatch_tpu_torch.utils import profiling, spans
 
 # One intra-op thread: the suite runs several pytest-xdist workers on a
 # few cores.
@@ -75,39 +74,48 @@ def test_profiled_pair_equals_run_pair(case):
     assert summary["wall_ms"] > 0
 
 
-def _event(name, dev, start, end):
-    return types.SimpleNamespace(
-        name=name, device_type=types.SimpleNamespace(name=dev),
-        time_range=types.SimpleNamespace(start=start, end=end))
+def _span(name, start_us, end_us, parent=-1, **attrs):
+    sp = spans.Span(name, attrs)
+    sp.start_ns, sp.end_ns, sp.parent = start_us * 1000, end_us * 1000, parent
+    sp.seq = 0
+    return sp
 
 
 def test_summary_of_device_events():
     """The device readings of a profile (times in us): busy union, idle
-    share, kernels by family, idle gaps named by the host's phase."""
-    events = [_event("volume_build", "CPU", 0, 100),
-              _event("exact_phase", "CPU", 100, 200),
-              _event("exact_phase", "CUDA", 100, 200),   # an annotation
-              _event("void cross_scale_kernel<float>(...)", "CUDA", 10, 30),
-              _event("void quadrant_build_kernel<float>(...)", "CUDA",
-                     20, 40),
-              _event("elementwise_kernel", "CUDA", 150, 160)]
-    s = profiling.summarize(events, 0.2, GRD)
+    share, kernels by family, each op put down to the phase it was
+    launched in, idle gaps named by the span the host was in."""
+    rec = [_span("pair", 0, 200, entry="run_pair"),
+           _span("volume_build", 0, 100, 0),
+           _span("exact_phase", 100, 200, 0)]
+    us = 1000
+    ops = [("void cross_scale_kernel<float>(...)", 10, 30, 5),
+           ("void quadrant_build_kernel<float>(...)", 20, 40, 8),
+           ("elementwise_kernel", 150, 160, 148)]
+    ops = [(a * us, b * us, n, t * us) for n, a, b, t in ops]
+    s = profiling.summarize(rec, ops, 0.2, GRD)
     assert s["busy_ms"] == pytest.approx(0.04)
     assert s["device_ms"] == pytest.approx(0.05)
     assert s["idle_share"] == pytest.approx(0.8)
-    assert s["launches"] == 3
+    assert s["launches"] == 3 and s["joined"] == 1.0
     assert s["kernels"] == {"K1": {"ms": pytest.approx(0.02), "launches": 1},
                             "K2": {"ms": pytest.approx(0.02), "launches": 1},
                             "other": {"ms": pytest.approx(0.01),
                                       "launches": 1}}
     assert [(p["name"], p["launches"]) for p in s["phases"]] == [
         ("volume_build", 2), ("exact_phase", 1)]
-    gaps = [(g["phase"], g["ms"]) for g in s["idle_gaps"]]
-    assert gaps == [("volume_build", pytest.approx(0.11)),
-                    ("exact_phase", pytest.approx(0.04)),
-                    ("volume_build", pytest.approx(0.01))]
-    assert s["idle_by_phase"] == {"volume_build": pytest.approx(0.12),
-                                  "exact_phase": pytest.approx(0.04)}
+    assert s["phases"][0]["device_ms"] == pytest.approx(0.03)
+    # each gap on the host's clock, ending at the launch of the op that
+    # ends it: 0-5 us and 38-148 us, both mostly in the volume build
+    gaps = [(g["span"], g["ms"], g["at_ms"]) for g in s["idle_gaps"]]
+    assert gaps == [("volume_build", pytest.approx(0.11),
+                     pytest.approx(0.038)),
+                    ("volume_build", pytest.approx(0.005), 0.0)]
+    assert s["idle_by_phase"] == {"volume_build": pytest.approx(0.115)}
+    assert s["spans"]["volume_build"]["device_ms"] == pytest.approx(0.04)
+    assert s["spans"]["pair"]["launches"] == 3
+    assert s["layers"]["volume_build.device_ms"] == pytest.approx(0.04)
+    assert s["layers"]["postprocess.device_ms"] is None
     assert profiling.kernel_family("void cross_scale_kernel<bf16>", CEN_CS_PP
                                    ) == "K4"
     assert profiling.kernel_family("fly_cost_kernel<false, false>", KITTI

@@ -18,7 +18,6 @@ from PIL import Image
 
 from crossscalepatchmatch_tpu import config as jconfig
 from crossscalepatchmatch_tpu.utils import debug as jdebug
-from crossscalepatchmatch_tpu.utils import profiling as jprofiling
 from crossscalepatchmatch_tpu.utils import roofline as jroofline
 from crossscalepatchmatch_tpu_torch import config as tconfig
 from crossscalepatchmatch_tpu_torch.data import make_pair
@@ -361,37 +360,6 @@ def test_fma_chain_plain_and_no_cpu_ceiling():
     assert torch.allclose(got.double(), want, rtol=1e-6)
     with pytest.raises(RuntimeError):
         roofline.measure_f32_peak("cpu")
-
-
-def test_phase_timer():
-    """JAX tests/test_profiling.py's checks, with a holder carrying a dict
-    of tensors as run_pair returns."""
-    t = profiling.PhaseTimer()
-    with t.phase("a") as h:
-        h.append({"dis": torch.arange(10).sum(), "x": [torch.ones(2)]})
-    with t.phase("a") as h:
-        h.append(torch.arange(5).sum())
-    with t.phase("b", sync=False):
-        pass
-    with t.phase("c"):
-        pass
-    assert t.counts["a"] == 2 and t.counts["b"] == 1 and t.counts["c"] == 1
-    rep = t.report()
-    assert "a" in rep and "%" in rep
-    assert set(t.as_dict()) == {"a", "b", "c"}
-    jt = jprofiling.PhaseTimer()
-    with jt.phase("a"):
-        pass
-    assert rep.splitlines()[0] == jt.report().splitlines()[0]
-
-
-def test_throughput():
-    m = profiling.throughput(10, 2.0, n_chips=4)
-    assert m == jprofiling.throughput(10, 2.0, n_chips=4)
-    assert m["pairs_per_s"] == 5.0 and m["pairs_per_s_per_chip"] == 1.25
-    assert profiling.throughput(3, 0.0, n_chips=1)["pairs_per_s"] == 0.0
-    # no card here: one device
-    assert profiling.throughput(10, 2.0)["n_chips"] == 1
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):

@@ -9,21 +9,25 @@
                                        [--h 375 --w 450 --max-dis 60]
 
 Runs the port's main path at the named config once to warm up, then once
-under torch.profiler (CPU + CUDA activities: utils.profiling.profile_pair,
-the phase split bench_torch.py profiles too), and prints: the wall time of
-the profiled pair, the summed device time, the device's idle share over the
+recorded by span (utils/spans) under torch.profiler's device activity
+(utils.profiling.profile_pair, which bench_torch.py profiles with too;
+nothing synchronises inside the pair), and prints: the wall time of the
+profiled pair, the summed device time, the device's idle share over the
 pair (1 - busy/wall, busy being the union of kernel intervals), the host
-time, device time and launches per top-level phase (record_function
-ranges, with a synchronise at each phase end: the volume build (or, without
-a volume, the channel planes' build `fly_data`), the cost functions (the K2
-build on the volume path), the rank phase, the exact phase, plane_to_disp
-and `postprocess` when the config post-processes; the -BOX/-GF/-BF
-configs filter the volumes in `volume_build`; README_DEMO-warm profiles a
-warm frame, run_pair_warm's one iteration as `warm_phase`, on the
-scene's next frame (new sensor noise) from the first frame's planes), the
-device time and launches per kernel (K1 / K2 / K4 / fly / other), the idle
-ms by the phase the host was in and the longest idle gaps, and the top CUDA
-kernels by device time.  Writes the Chrome trace to
+time, device time and launches per phase span (each device op put down to
+the span open at its launch: the volume build (or, without a volume, the
+channel planes' build `fly_data`), the cost functions (the K2 build on
+the volume path), the rank phase, the exact phase, plane_to_disp and
+`postprocess` when the config post-processes; the -BOX/-GF/-BF configs
+filter the volumes in `volume_build`; README_DEMO-warm profiles a warm
+frame, run_pair_warm's one iteration as `warm_phase`, on the scene's next
+frame (new sensor noise) from the first frame's planes), host, self and
+device ms and launches by span, the per-layer readings (draws.host_ms,
+optimizer.host_ms, volume_build.device_ms, postprocess.device_ms), the
+device time and launches per kernel (K1 / K2 / K4 / fly / other), the
+idle ms by the phase the host was in and the longest idle gaps with the
+span the host was in, and the top CUDA kernels by device time.  Writes
+the Chrome trace to
 chiprun_out/torch_profile_pair.json.gz.  Needs a CUDA device.
 """
 
