@@ -727,7 +727,7 @@ def main() -> int:
         WMF_OPS_PER_SAMPLE, bound, census_volume_work, grd_volume_work,
         median_least_ops, median_samples, nbytes, quadrant_build_samples,
         quadrant_rank_row_work, quadrant_rank_sectors, quadrant_rank_work,
-        window_samples)
+        refine_propose_work, window_samples)
 
     pkg = "crossscalepatchmatch_tpu_torch"
     dev = torch.device("cuda:0")
@@ -1129,6 +1129,59 @@ def main() -> int:
     del gr_bench, gr_kitti
     torch.cuda.empty_cache()
 
+    # -- 4c. RPROP: a refinement stage's candidates --------------------------
+    from crossscalepatchmatch_tpu_torch.ops.cuda import refine_propose
+
+    def rprop_check(name, pl, pr, pcfg, rounds, reps):
+        """RPROP on the seed-0 pipeline's final planes of a scene, one
+        stage of `rounds` of pcfg's schedule, against its plain version
+        (the plain Philox's draws fed to perturb_planes, on the card): 0
+        differing elements, both timed in turns; the kernel's device time
+        queued behind a spinning kernel, its bound (bytes) and its launches
+        read from a captured call's graph (exactly one kernel)."""
+        abc = run_pair(pl, pr, 0, pcfg)["abc"].contiguous()
+        zs, ns = pm.refinement_magnitudes(pcfg)
+        draws = TorchDraws(0, dev)
+
+        def kernel():
+            return draws.propose(abc, 1, rounds, zs, ns, pcfg.eps)
+
+        def plain():
+            return refine_propose.refine_propose_plain(
+                abc, draws.key, phase=draws.refine_phase, iteration=1,
+                rounds=rounds, zs=zs, ns=ns, eps=pcfg.eps)
+
+        got, want = kernel(), plain()
+        diff = int(((got != want) & ~(got.isnan() & want.isnan())).sum())
+        del got, want
+        t = time_turns({"kernel": kernel, "plain": plain},
+                       {"kernel": reps, "plain": 2})
+        dev_ms = queued_ms(kernel, reps)
+        n_graph = graph_kernels(f"RPROP {name}", kernel, 1)
+        _, ph, pw, _ = abc.shape
+        r_bytes, r_ops = refine_propose_work(len(rounds), ph, pw)
+        b_ms, b_by = bound(r_bytes, r_ops)
+        print(f"RPROP {name} (K={len(rounds)}, {ph}x{pw}): kernel vs plain "
+              f"{diff} differing f32 elements; plain {t['plain']:.3f} ms | "
+              f"wrapper {t['kernel']:.4f} ms, on the device {dev_ms:.4f} ms "
+              f"({n_graph} kernel a call) | bound {b_ms:.4f} ms ({b_by}, "
+              f"{r_bytes} bytes): {b_ms / dev_ms:.1%} of it on the device; "
+              f"{card}")
+        if diff:
+            raise RuntimeError(f"RPROP {name}: {diff} elements differ from "
+                               "the plain version")
+        return dict(differing_elements=diff, ms=t["kernel"], device_ms=dev_ms,
+                    plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by)
+
+    # a KITTI stage (5 of 10 rounds), the bench's (Middlebury's 9 rounds:
+    # 5, then 4)
+    rec["rprop"] = rprop_check("KITTI seed 0", kl, kr, KITTI, range(5), 10)
+    for key, val in rprop_check("bench seed 0", l, r, CEN_CS_PP, range(5, 9),
+                                10).items():
+        if key != "bound_by":
+            rec["rprop"][f"{key}_bench"] = val
+    torch.cuda.empty_cache()
+
     # -- 5. K4 ----------------------------------------------------------------
     ccfg = CEN_CS_PP
     cvd = build_volume_data(l, r, ccfg)
@@ -1350,7 +1403,8 @@ def main() -> int:
     # -- 7. main paths --------------------------------------------------------
     def check_counts(name, counts, kernels):
         print(f"{name}: launches {counts}")
-        if any(counts[k] == 0 for k in kernels):
+        # every path refines: RPROP proposes each stage
+        if any(counts[k] == 0 for k in (*kernels, "rprop")):
             raise RuntimeError(f"{name}: a kernel of the path never "
                                "launched")
         if any(counts[k] for k in counts if k.endswith("_plain")):

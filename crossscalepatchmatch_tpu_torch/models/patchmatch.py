@@ -15,7 +15,9 @@ volumes of the fine level that kernel K2 (or its plain version) builds
 once per pair, or is K1 at a window stride (K3,
 prescreen_mode="window").  On the no-volume path (make_fly_cost_fns) both
 are the fly kernel (ops.cuda.fly_cost: K5/K6/K7, K3 strided).  Random draws come from an explicit draw source (utils.rng) keyed by
-(phase, iteration, view, round).  The JAX jit/scan structure becomes plain
+(phase, iteration, view, round); with utils.rng.TorchDraws on the card a
+refinement stage's candidates, draws included, are one launch of kernel
+RPROP (ops.cuda.refine_propose).  The JAX jit/scan structure becomes plain
 Python control flow.
 
 A spatial tile (parallel.tiled) runs the same optimizer on its block: it
@@ -309,6 +311,23 @@ def refinement_magnitudes(cfg: CSPMConfig):
     return zs, ns
 
 
+def propose_generic(draws, abc: torch.Tensor, iteration: int,
+                    rounds: range, zs, ns, eps: float) -> torch.Tensor:
+    """A refinement stage's candidates from any draw source,
+    f32[2, K, H, W, 3]: perturb_planes of abc[v] on the source's refine
+    draws of (iteration, v, i), for each view v and round i in rounds."""
+    _, h, w, _ = abc.shape
+    dev = abc.device
+
+    def one(v, i):
+        dz, dn = draws.refine(iteration, v, i, (h, w), float(zs[i]),
+                              float(ns[i]))
+        return plane.perturb_planes(abc[v], dz.to(dev), dn.to(dev), eps)
+
+    return torch.stack([torch.stack([one(v, i) for i in rounds])
+                        for v in range(2)])
+
+
 def plane_refinement(state: PMState, draws, iteration: int, cost_fn: CostFn,
                      cfg: CSPMConfig,
                      sparse_fn: CostFn | None = None) -> PMState:
@@ -319,33 +338,37 @@ def plane_refinement(state: PMState, draws, iteration: int, cost_fn: CostFn,
     start and adopted as one candidate batch (after the prescreen).
     batch_refine=False: the reference's loop, each round perturbing the
     currently adopted plane.
+
+    A draw source with a propose method (utils.rng.TorchDraws) proposes
+    each stage itself: on a CUDA tensor in one launch of kernel RPROP (the
+    refine span's `fused`), on the CPU in its plain version; any other
+    source's draws go through propose_generic.  Both give the same bits on
+    the same draws.
     """
     zs, ns = refinement_magnitudes(cfg)
-    _, h, w, _ = state.abc.shape
-    dev = state.abc.device
     r = len(zs)
+    own = getattr(draws, "propose", None)
+    fused = own is not None and state.abc.device.type == "cuda"
 
-    def propose(abc_v, v, i):
-        dz, dn = draws.refine(iteration, v, i, (h, w), float(zs[i]),
-                              float(ns[i]))
-        return plane.perturb_planes(abc_v, dz.to(dev), dn.to(dev), cfg.eps)
+    def propose(abc, rounds):
+        if own is not None:
+            return own(abc, iteration, rounds, zs, ns, cfg.eps)
+        return propose_generic(draws, abc, iteration, rounds, zs, ns,
+                               cfg.eps)
 
     if cfg.batch_refine:
         stages = max(1, min(cfg.refine_stages, r))
         per = -(-r // stages)
         for s0 in range(0, r, per):
             rounds = range(s0, min(s0 + per, r))
-            with span("refine", stage=s0 // per, k=len(rounds)):
-                cands = [torch.stack([propose(state.abc[v], v, i)
-                                      for i in rounds]) for v in range(2)]
-                cand_abc = _prescreen(torch.stack(cands), sparse_fn)
+            with span("refine", stage=s0 // per, k=len(rounds), fused=fused):
+                cand_abc = _prescreen(propose(state.abc, rounds), sparse_fn)
                 state = _adopt(state, cand_abc, cost_fn(cand_abc))
         return state
 
     for i in range(r):
-        with span("refine", stage=i, k=1):
-            cand_abc = torch.stack([propose(state.abc[v], v, i)
-                                    for v in range(2)])[:, None]
+        with span("refine", stage=i, k=1, fused=fused):
+            cand_abc = propose(state.abc, range(i, i + 1))
             state = _adopt(state, cand_abc, cost_fn(cand_abc))
     return state
 

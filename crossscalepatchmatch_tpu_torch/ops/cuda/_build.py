@@ -35,6 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 # source -> its C entry points: name -> argument types (every entry returns
 # cudaError_t)
 SOURCES = {
@@ -86,6 +87,12 @@ SOURCES = {
         # bq, wq, max_costs, abc, out, K, H, W, D, max_dis, half_wnd, stream
         "cspm_quadrant_rank": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _P),
+    },
+    "refine_propose.cu": {
+        # abc, out, K, H, W, i0, iteration, phase, k0, k1, eps, mags (host
+        # float[4][K]), stream
+        "cspm_refine_propose": (_P, _P, _I, _I, _I, _I, _U, _U, _U, _U, _F,
+                                _P, _P),
     },
     "f32_peak.cu": {
         # x, out, n, iters, m, c, stream

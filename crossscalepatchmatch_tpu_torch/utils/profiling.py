@@ -12,7 +12,8 @@ pipeline records (utils/spans):
     each launch; span_table(), idle_gaps() and layer_metrics(): host and
     device time by span, the device's idle gaps by the span the host was
     in, and the per-layer readings (draws.host_ms, optimizer.host_ms,
-    volume_build.device_ms, postprocess.device_ms);
+    volume_build.device_ms, postprocess.device_ms); fused_share(): the
+    share of refinement stages that kernel RPROP proposed;
   * profile_pair(): one run_pair (or run_pair_warm) call recorded, under
     torch.profiler on a card, and its per-phase summary (host and device
     ms, launches, the device's idle share and where the host held it
@@ -257,6 +258,15 @@ def layer_metrics(table: Dict[str, dict]) -> Dict[str, Optional[float]]:
             "postprocess.device_ms": get("postprocess", "device_ms")}
 
 
+def fused_share(spans: Sequence[span_rec.Span]) -> Optional[float]:
+    """The share of the recording's refine spans whose stage kernel RPROP
+    proposed (their `fused` attribute); None without refine spans."""
+    refine = [sp for sp in spans if sp.name == "refine"]
+    if not refine:
+        return None
+    return sum(bool(sp.attrs.get("fused")) for sp in refine) / len(refine)
+
+
 def reset_launch_counts() -> None:
     """Every kernel's and plain version's launch counter to 0."""
     from ..models import postprocess
@@ -264,7 +274,7 @@ def reset_launch_counts() -> None:
                        prescreen_volume)
     from ..ops.cuda import (census_volume, cross_scale_cost, fly_cost,
                             grd_volume, quadrant_build, quadrant_rank,
-                            weighted_median, window_cost)
+                            refine_propose, weighted_median, window_cost)
 
     window_cost.launches = window_cost.strided_launches = 0
     quadrant_build.launches = cross_scale_cost.launches = 0
@@ -275,6 +285,7 @@ def reset_launch_counts() -> None:
     plane_cost.cross_scale_launches = onthefly_cost.launches = 0
     grad_cost.launches = prescreen_volume.rank_launches = 0
     census_volume.launches = census.launches = 0
+    refine_propose.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -284,7 +295,7 @@ def launch_counts() -> Dict[str, int]:
                        prescreen_volume)
     from ..ops.cuda import (census_volume, cross_scale_cost, fly_cost,
                             grd_volume, quadrant_build, quadrant_rank,
-                            weighted_median, window_cost)
+                            refine_propose, weighted_median, window_cost)
 
     return {"k1": window_cost.launches - window_cost.strided_launches,
             "k3_volume": window_cost.strided_launches,
@@ -299,6 +310,7 @@ def launch_counts() -> Dict[str, int]:
             "grdv": grd_volume.launches,
             "qrank": quadrant_rank.launches,
             "cenv": census_volume.launches,
+            "rprop": refine_propose.launches,
             "k1_plain": plane_cost.launches,
             "k2_plain": prescreen_volume.launches,
             "k4_plain": plane_cost.cross_scale_launches,
@@ -327,7 +339,8 @@ def kernel_family(name: str, cfg) -> str:
     one level or over the pyramid; K2; fly: the no-volume kernel, K5 / K3;
     WMF: the weighted median and its two preparation kernels; GRDV: the
     GRD cost volume; QRANK: the quadrant ranking; CENV: the census codes
-    and volume), "other" for PyTorch's own ops."""
+    and volume; RPROP: a refinement stage's proposal), "other" for
+    PyTorch's own ops."""
     if "cross_scale_kernel" in name:
         return "K4" if cfg.use_cs else "K1"
     if "quadrant_build_kernel" in name:
@@ -344,6 +357,8 @@ def kernel_family(name: str, cfg) -> str:
         return "QRANK"
     if "census_codes_kernel" in name or "census_volume_kernel" in name:
         return "CENV"
+    if "refine_propose_kernel" in name:
+        return "RPROP"
     return "other"
 
 
@@ -419,7 +434,8 @@ def summarize(spans: Sequence[span_rec.Span], ops: Sequence[Op] | None,
                      launches=len(inside))
         phases.append(p)
     s = dict(wall_ms=wall_ms, phases=phases, spans=table,
-             layers=layer_metrics(table), device_ms=None, busy_ms=None,
+             layers=layer_metrics(table), fused_share=fused_share(spans),
+             device_ms=None, busy_ms=None,
              idle_share=None, launches=None, joined=None, kernels=None,
              top_ops=None, idle_by_phase=None, idle_gaps=None)
     if ops is None:
@@ -483,7 +499,8 @@ def format_profile(summary: dict) -> List[str]:
                      f"{_num(v['launches'], 'g')}"
                      for k, v in s["spans"].items()))
     lines.append("layers: " + ", ".join(
-        f"{k} {_num(v)}" for k, v in s["layers"].items()))
+        f"{k} {_num(v)}" for k, v in s["layers"].items())
+        + f"; refinement stages fused {_num(s['fused_share'])}")
     if s["device_ms"] is None:
         return lines
     lines.append("device ms / launches by kernel: " + ", ".join(

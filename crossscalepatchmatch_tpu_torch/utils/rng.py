@@ -14,14 +14,21 @@ A draw source has two methods:
         -> (dz f32[*shape] ~ U(-z_mag, z_mag),
             dn f32[*shape, 3] ~ U(-n_mag, n_mag))
 
+and may have a third, which proposes a refinement stage's candidates
+itself (models.patchmatch.plane_refinement asks for it where it exists):
+
+    propose(abc, iteration, rounds, zs, ns, eps)
+        -> f32[2, K, H, W, 3]: perturb_planes of abc[v] on refine's draws
+           of (iteration, v, i), for each view v and round i in rounds
+
 The iterations of a warm start (models.pipeline.run_pair_warm) have a
 numbering of their own: their refinement draws are keyed by PHASE_WARM
 (TorchDraws(..., refine_phase=PHASE_WARM)), so warm iteration i never
 draws what cold iteration i drew.
 
 TorchDraws is the production source.  A test can hand in another source
-with the same methods (for example one that replays the JAX engine's
-threefry key tree) to make the port follow the JAX trajectory.
+with the first two methods (for example one that replays the JAX
+engine's threefry key tree) to make the port follow the JAX trajectory.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.cuda import refine_propose
 from .spans import span
 
 PHASE_INIT = 0
@@ -37,14 +45,20 @@ PHASE_WARM = 2
 
 
 class TorchDraws:
-    """Draws from torch.Generator on `device`, one generator per key.
+    """The production draws, keyed by (seed, tile) and each draw's
+    (phase, iteration, view, round): the same seed gives bit-identical
+    draws, whatever order they are asked for in.
 
-    Each key (phase, iteration, view, round) seeds its own generator from
-    numpy's SeedSequence of (seed, *key): the same seed gives bit-identical
-    draws on the same device, whatever order they are asked for in.
-    `refine_phase` keys the refinement draws: PHASE_REFINE for a cold run,
-    PHASE_WARM for a warm start's iterations.  `tile` (a spatial tile's
-    index, parallel.tiled) joins the seed: (seed, tile, *key).
+    The init draws come from torch.Generator on `device`, seeded from
+    numpy's SeedSequence of (seed, *tile, PHASE_INIT, 0, 0, 0): one
+    generator a pair.  The refinement draws are a counter-based Philox
+    (ops.cuda.refine_propose): the 64-bit key comes once from SeedSequence
+    of (seed, tile), the counter from (refine_phase, iteration, view,
+    round, pixel), so they are the same bits on every device; propose
+    draws them inside kernel RPROP on a CUDA tensor.  `refine_phase` keys
+    the refinement draws: PHASE_REFINE for a cold run, PHASE_WARM for a
+    warm start's iterations.  `tile` is a spatial tile's index
+    (parallel.tiled), None without one.
     """
 
     def __init__(self, seed: int, device, refine_phase: int = PHASE_REFINE,
@@ -53,13 +67,13 @@ class TorchDraws:
         self.device = torch.device(device)
         self.refine_phase = refine_phase
         self.tile = tile
-
-    def _gen(self, *key: int) -> torch.Generator:
-        tile = () if self.tile is None else (self.tile,)
-        entropy = [self.seed % (1 << 63), *tile, *key]
-        s = int(np.random.SeedSequence(entropy).generate_state(
-            1, np.uint64)[0])
-        return torch.Generator(device=self.device).manual_seed(s)
+        # (seed, tile + 1 or 0 without one, 1): SeedSequence drops trailing
+        # zero words, so the last word keeps every key apart from the
+        # others and from the init's (seed, *tile, PHASE_INIT, 0, 0, 0)
+        k0, k1 = np.random.SeedSequence(
+            [self.seed % (1 << 63), 0 if tile is None else tile + 1, 1]
+        ).generate_state(2, np.uint32)
+        self.key = (int(k0), int(k1))
 
     def _uniform(self, g, shape, lo: float, hi: float) -> torch.Tensor:
         u = torch.rand(shape, generator=g, dtype=torch.float32,
@@ -68,7 +82,11 @@ class TorchDraws:
 
     def init(self, shape, max_dis: float, eps: float):
         with span("draws"):
-            g = self._gen(PHASE_INIT, 0, 0, 0)
+            tile = () if self.tile is None else (self.tile,)
+            entropy = [self.seed % (1 << 63), *tile, PHASE_INIT, 0, 0, 0]
+            g = torch.Generator(device=self.device).manual_seed(int(
+                np.random.SeedSequence(entropy).generate_state(
+                    1, np.uint64)[0]))
             disp = self._uniform(g, shape, eps, float(max_dis))
             normal = torch.randn((*shape, 3), generator=g,
                                  dtype=torch.float32, device=self.device)
@@ -77,7 +95,21 @@ class TorchDraws:
     def refine(self, iteration: int, view: int, rnd: int, shape,
                z_mag: float, n_mag: float):
         with span("draws", view=view, round=rnd):
-            g = self._gen(self.refine_phase, iteration, view, rnd)
-            dz = self._uniform(g, shape, -z_mag, z_mag)
-            dn = self._uniform(g, (*shape, 3), -n_mag, n_mag)
-            return dz, dn
+            return refine_propose.refine_draws(
+                self.key, self.refine_phase, iteration, view, rnd, shape,
+                z_mag, n_mag, self.device)
+
+    def propose(self, abc: torch.Tensor, iteration: int, rounds: range,
+                zs, ns, eps: float) -> torch.Tensor:
+        """The candidates of `rounds` from abc f32[2, H, W, 3], on abc's
+        device: kernel RPROP on the card (one launch for up to
+        refine_propose.MAX_ROUNDS rounds), its plain version on the CPU;
+        the same bits as perturb_planes on this source's refine draws."""
+        with span("draws", round=rounds.start, k=len(rounds)):
+            abc = abc.contiguous()
+            step = refine_propose.MAX_ROUNDS
+            out = [refine_propose.refine_propose(
+                abc, self.key, phase=self.refine_phase, iteration=iteration,
+                rounds=rounds[i:i + step], zs=zs, ns=ns, eps=eps)
+                for i in range(0, len(rounds), step)]
+            return out[0] if len(out) == 1 else torch.cat(out, 1)

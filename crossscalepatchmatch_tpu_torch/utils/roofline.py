@@ -84,6 +84,15 @@ MEDIAN_LEVELS = 256
 # of its wnd^2 - 1 bits; integer operations, counted at the f32 rate
 CENSUS_OPS_PER_WORD = 3
 CENSUS_OPS_PER_BIT = 2
+# a refinement proposal (kernel RPROP): per pixel, once, its plane's
+# disparity (two multiplies, two adds) and unit normal (two squares, two
+# adds, a reciprocal square root, two multiplies); per candidate, its four
+# draws (a multiply and an add each), z and the normal's jitter (four
+# adds), the norm (three squares, three adds, a square root, a max), three
+# divides, the sign's max, the plane's (a, b) (two divides) and c (three
+# multiplies, three adds, a divide); the Philox rounds are integer work
+RPROP_FLOPS_PER_PIXEL = 11
+RPROP_FLOPS_PER_CANDIDATE = 33
 
 # the JAX model's semantic op counts (crossscalepatchmatch_tpu
 # utils/roofline.py): per (center, offset, candidate) the plane at q (2
@@ -368,6 +377,16 @@ def census_volume_work(h: int, w: int, max_dis: int, levels: int = 1,
         ops += (CENSUS_OPS_PER_WORD * words * n
                 + CENSUS_OPS_PER_BIT * (wnd * wnd - 1) * 2 * hs * ws)
     return bytes_, ops
+
+
+def refine_propose_work(k: int, h: int, w: int) -> Tuple[int, int]:
+    """(bytes, f32 operations) of one RPROP launch: K rounds of both
+    views' H x W planes (ops.cuda.refine_propose.refine_propose); the
+    starting planes read once, the f32[2, K, H, W, 3] candidates written
+    once."""
+    n = 2 * h * w
+    return 12 * n * (1 + k), (RPROP_FLOPS_PER_PIXEL
+                              + RPROP_FLOPS_PER_CANDIDATE * k) * n
 
 
 def quadrant_rank_work(abc: torch.Tensor, half_wnd: int,

@@ -12,8 +12,9 @@ models/patchmatch, models/postprocess, utils/rng):
     │  └─ iteration (i)
     │     ├─ sweep (s, k)
     │     ├─ view
-    │     └─ refine (stage, k)
-    │        └─ draws (view, round)
+    │     └─ refine (stage, k, fused)
+    │        └─ draws (round, k: a stage's proposal; view, round: one
+    │                  draw of a source without its own proposal)
     ├─ plane_to_disp
     └─ postprocess
        └─ lr_check, fill, weighted_median
@@ -122,17 +123,20 @@ _recorder: Optional[_Recorder] = None     # the recording, while one runs
 def span(name: str, *, entry: str | None = None, i: int | None = None,
          s: int | None = None, k: int | None = None,
          stage: int | None = None, view: int | None = None,
-         round: int | None = None):  # noqa: A002 (the attribute's name)
+         round: int | None = None,  # noqa: A002 (the attribute's name)
+         fused: bool | None = None):
     """A context manager around one layer's work: a Span while recording,
     else the shared NO_SPAN.  The keywords are the span's attributes:
     entry (the pair's entry point), i (iteration), s (sweep), k
     (candidates a pixel proposed), stage (refinement stage), view and
-    round (a draw's key); only those given are kept."""
+    round (a draw's key), fused (a refinement stage proposed by kernel
+    RPROP); only those given are kept."""
     if _recorder is None:
         return NO_SPAN
     attrs = {key: v for key, v in (("entry", entry), ("i", i), ("s", s),
                                    ("k", k), ("stage", stage),
-                                   ("view", view), ("round", round))
+                                   ("view", view), ("round", round),
+                                   ("fused", fused))
              if v is not None}
     return Span(name, attrs)
 

@@ -2,8 +2,9 @@
 strided window, volume and fly forms), K4 (cross-scale window cost), K5
 (the no-volume fly cost), K6 (its image-space lerp), K7 (its Lab
 weights), WMF (the weighted median of post-processing), GRDV (the GRD
-cost volume), CENV (the census volume) and QRANK (the quadrant ranking)
-against their plain PyTorch versions, on the card; and the entry
+cost volume), CENV (the census volume), QRANK (the quadrant ranking) and
+RPROP (a refinement stage's proposal) against their plain PyTorch
+versions, on the card; and the entry
 points (the command line, a warm start, checkpoint and resume, the
 up-front refusal of a window the kernels do not take) running through
 them.
@@ -24,7 +25,8 @@ the same tolerance.  K4 is held tighter: bit-equal in f32, and bit-equal
 with bf16 census volumes (integer costs, exact in bf16).  The fly kernel
 (f32 throughout) is held at the f32 tolerance.  WMF's u8 maps are held
 equal to its plain version's, pixel for pixel; GRDV's and CENV's volumes and
-QRANK's costs to their plain versions' on the card, element for element.
+QRANK's costs to their plain versions' on the card, element for element;
+RPROP's candidates likewise, bit for bit (NaN where both are NaN).
 """
 
 import numpy as np
@@ -1561,3 +1563,173 @@ def test_grdv_qrank_wrappers_reject_what_the_kernels_do_not_take(cuda):
     out = quadrant_rank.quadrant_rank_cuda(bq, wq, mc, abc, half_wnd=1,
                                            max_dis=8)
     assert quadrant_rank.launches == n + 1 and out.shape == (2, 3, 5, 6)
+
+
+# -- RPROP: a refinement stage's proposal -----------------------------------
+
+def rprop_planes(h, w, seed, device):
+    """Both views' planes as the optimizer holds them: slants in [-1, 1]
+    (a tenth near-vertical, up to 1e3), disparities in [0, 128), and a
+    flat plane through 0 at the origin."""
+    rng = np.random.default_rng(seed)
+    ab = rng.uniform(-1, 1, (2, h, w, 2)).astype(np.float32)
+    ab[rng.uniform(size=(2, h, w)) < 0.1] *= np.float32(1e3)
+    d = rng.uniform(0, 128, (2, h, w)).astype(np.float32)
+    xs = np.arange(w, dtype=np.float32)
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    c = d - ab[..., 0] * xs - ab[..., 1] * ys
+    abc = np.concatenate([ab, c[..., None]], -1)
+    abc[:, 0, 0] = 0.0
+    return torch.as_tensor(abc, device=device)
+
+
+def ulp_gap(got, want) -> int:
+    """The largest distance in units in the last place between two f32
+    tensors of finite values."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+class RefineOnly:
+    """A draw source's init and refine draws without its propose method:
+    the optimizer then proposes through perturb_planes (the generic
+    path)."""
+
+    def __init__(self, draws):
+        self.draws = draws
+
+    def init(self, *a):
+        return self.draws.init(*a)
+
+    def refine(self, *a):
+        return self.draws.refine(*a)
+
+
+def test_cuda_sum_of_three_is_the_order_rprop_follows(cuda):
+    """The premise of RPROP's three-term sums: PyTorch's CUDA sum over a
+    last axis of 3 adds elements 0 and 2, then 1 (and +0)."""
+    v = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (200_000, 3)).astype(np.float32) * 1e3, device=cuda)
+    want = ((v[:, 0] + v[:, 2]) + v[:, 1]) + 0.0
+    assert torch.equal(v.sum(-1), want)
+
+
+@pytest.mark.parametrize("hw", [(375, 450), (375, 1242), (125, 225),
+                                (1, 1), (1, 7), (7, 1), (2, 64), (1, 129),
+                                (3, 5), (17, 129)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("k", [1, 4, 5, 10])
+def test_rprop_bit_equal_on_the_card(cuda, hw, k):
+    """RPROP against its plain version on the same CUDA tensors (the plain
+    Philox's draws, on the card, fed to perturb_planes): every candidate
+    bit-equal, for both views; cold and warm phases, with and without a
+    tile, rounds from 0 and from the middle of a schedule.  The plain
+    Philox on the card equals the CPU's.  The shapes: the bench and KITTI
+    frames, the bench's band tile, tiny and odd frames, a view of exactly
+    one block of 128 pixels and one of 129."""
+    from crossscalepatchmatch_tpu_torch.ops.cuda import refine_propose as rp
+    from crossscalepatchmatch_tpu_torch.utils.rng import (PHASE_WARM,
+                                                          TorchDraws)
+
+    h, w = hw
+    abc = rprop_planes(h, w, seed=k + h, device=cuda)
+    zs = (64.0 / 2.0 ** np.arange(12)).astype(np.float32)
+    ns = zs / zs[0]
+    for draws, first in ((TorchDraws(2 ** 31 + 5, cuda), 0),
+                         (TorchDraws(7, cuda, tile=3), 12 - k),
+                         (TorchDraws(7, cuda, refine_phase=PHASE_WARM), 1)):
+        rounds = range(first, first + k) if first + k <= 12 else range(k)
+        n = rp.launches
+        got = draws.propose(abc, 2, rounds, zs, ns, 1e-8)
+        torch.cuda.synchronize()
+        assert rp.launches == n + 1
+        want = rp.refine_propose_plain(
+            abc, draws.key, phase=draws.refine_phase, iteration=2,
+            rounds=rounds, zs=zs, ns=ns, eps=1e-8)
+        assert got.shape == (2, k, h, w, 3)
+        # a large jitter of the normal can make a plane of NaNs: both
+        # paths then hold NaN there
+        bad = (got != want) & ~(got.isnan() & want.isnan())
+        diff = int(bad.sum())
+        fin = bad & got.isfinite() & want.isfinite()
+        gap = ulp_gap(got[fin], want[fin]) if fin.any() else 0
+        assert diff == 0, (f"{diff} differ ({int(fin.sum())} of them "
+                           f"finite, at most {gap} ulp); by component "
+                           f"{bad.sum((0, 1, 2, 3)).tolist()}")
+    cpu = rp.refine_draws(draws.key, PHASE_WARM, 2, 1, 3, (h, w), 1.5,
+                          0.25, "cpu")
+    card = rp.refine_draws(draws.key, PHASE_WARM, 2, 1, 3, (h, w), 1.5,
+                           0.25, cuda)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("preset", ["README_DEMO", "KITTI", "CEN_CS_PP",
+                                    "warm", "sequential"])
+def test_rprop_pair_maps_equal_to_the_generic_path(cuda, preset):
+    """A pipeline pair on the card through RPROP gives the same maps and
+    planes as through perturb_planes fed the same draws; one launch a
+    stage, and every refine span `fused`."""
+    import dataclasses
+
+    from crossscalepatchmatch_tpu_torch import KITTI
+    from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair_warm
+    from crossscalepatchmatch_tpu_torch.ops.cuda import refine_propose as rp
+    from crossscalepatchmatch_tpu_torch.utils import spans
+    from crossscalepatchmatch_tpu_torch.utils.rng import (PHASE_WARM,
+                                                          TorchDraws)
+
+    cfg = {"README_DEMO": README_DEMO, "KITTI": KITTI,
+           "CEN_CS_PP": CEN_CS_PP, "warm": README_DEMO,
+           "sequential": dataclasses.replace(README_DEMO,
+                                             batch_refine=False)}[preset]
+    pair = make_pair(h=96, w=160, max_dis=cfg.max_dis, seed=3)
+    l, r = (torch.as_tensor(x, device=cuda) for x in (pair.left,
+                                                      pair.right))
+    if preset == "warm":
+        prior = run_pair(l, r, 0, cfg, device=cuda)["abc"]
+
+        def call(d):
+            return run_pair_warm(l, r, 5, prior, cfg, 1, device=cuda,
+                                 draws=d)
+        draws = TorchDraws(5, cuda, refine_phase=PHASE_WARM)
+        stages = cfg.refine_stages
+    else:
+        def call(d):
+            return run_pair(l, r, 5, cfg, device=cuda, draws=d)
+        draws = TorchDraws(5, cuda)
+        stages = cfg.max_iter * (cfg.refine_stages if cfg.batch_refine
+                                 else len(cfg.refinement_schedule()))
+    n = rp.launches
+    with spans.recording() as rec:
+        got = call(draws)
+    torch.cuda.synchronize()
+    assert rp.launches == n + stages
+    assert [sp.attrs["fused"] for sp in rec if sp.name == "refine"] == [
+        True] * stages
+    want = call(RefineOnly(draws))
+    assert rp.launches == n + stages
+    for key in ("dis", "abc"):
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_rprop_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from crossscalepatchmatch_tpu_torch.ops.cuda import refine_propose as rp
+
+    abc = rprop_planes(5, 6, seed=0, device=cuda)
+    zs = np.ones(20, np.float32)
+    kw = dict(key=(1, 2), phase=1, iteration=0, zs=zs, ns=zs, eps=1e-8)
+    n = rp.launches
+    for a, rounds in ((abc.cpu(), range(4)), (abc.double(), range(4)),
+                      (abc.transpose(1, 2), range(4)),
+                      (abc[..., :2].contiguous(), range(4)),
+                      (abc, range(17)), (abc, range(0)),
+                      (abc, range(0, 8, 2))):
+        with pytest.raises(ValueError):
+            rp.refine_propose_cuda(a, rounds=rounds, **kw)
+    assert rp.launches == n
+    out = rp.refine_propose_cuda(abc, rounds=range(16), **kw)
+    assert rp.launches == n + 1 and out.shape == (2, 16, 5, 6, 3)

@@ -106,18 +106,25 @@ def test_span_tree_of_a_cold_pair(case, pair):
             assert up.start_ns <= sp.start_ns and sp.end_ns <= up.end_ns
     one = Counter(sp.name for sp in rec[:roots[1]])
     rounds = len(cfg.refinement_schedule())
-    assert one["draws"] == 1 + cfg.max_iter * 2 * rounds
+    # the init's draws, then one a refinement stage: its proposal, the
+    # draws made inside it (utils.rng.TorchDraws.propose)
+    assert one["draws"] == 1 + cfg.max_iter * cfg.refine_stages
     assert one["iteration"] == cfg.max_iter and one["init"] == 1
     assert one["sweep"] == cfg.max_iter * cfg.prop_sweeps
     assert one["refine"] == cfg.max_iter * cfg.refine_stages
-    # KITTI's schedule: 61 draws a pair
-    assert 1 + KITTI.max_iter * 2 * len(KITTI.refinement_schedule()) == 61
+    # KITTI's schedule: 10 rounds in 2 stages, 7 draws spans a pair
+    assert len(KITTI.refinement_schedule()) == 10
+    assert 1 + KITTI.max_iter * KITTI.refine_stages == 7
     paths = profiling.span_paths(rec)
     draws = [p for p, sp in zip(paths, rec) if sp.name == "draws"]
     assert draws[0] == "rank_phase/init/draws"
     assert draws[-1] == "exact_phase/iteration/refine/draws"
     last = [sp for sp in rec[:roots[1]] if sp.name == "draws"][-1]
-    assert last.attrs == {"view": 1, "round": rounds - 1}
+    per = -(-rounds // cfg.refine_stages)
+    first = per * (cfg.refine_stages - 1)
+    assert last.attrs == {"round": first, "k": rounds - first}
+    assert {sp.attrs["fused"] for sp in rec if sp.name == "refine"} == {
+        False}
     sweeps = [sp.attrs for sp in rec[:roots[1]] if sp.name == "sweep"]
     assert sweeps[:2] == [{"s": 0, "k": 8}, {"s": 1, "k": 8}]
 
@@ -133,7 +140,7 @@ def test_span_tree_of_a_warm_pair(pair):
                                    "warm_phase", "plane_to_disp"]
     n = Counter(sp.name for sp in rec)
     assert n["init"] == 0 and n["iteration"] == 2
-    assert n["draws"] == 2 * 2 * len(cfg.refinement_schedule())
+    assert n["draws"] == 2 * cfg.refine_stages
     assert "warm_phase/iteration/refine/draws" in profiling.span_paths(rec)
 
 

@@ -15,12 +15,13 @@ readings from the last profiled run with spans, whose device ops are each
 put down to the span open at their launch (utils/profiling): the
 per-layer readings draws.host_ms, optimizer.host_ms,
 volume_build.device_ms and postprocess.device_ms, host / self / device
-ms and launches a pair by span, the device's idle gaps by the span the
-host was in, the share of device ops joined to a launch inside a pair
-span, the quartiles of start - launch (the device's clock against the
-host's), the profile against the program's launch counters, and each
-run's ms a pair.  Prints one line of JSON a cell and, with --out, writes
-them all there.  Needs a CUDA device.
+ms and launches a pair by span, the share of refinement stages that
+kernel RPROP proposed (the refine spans' `fused`), the device's idle
+gaps by the span the host was in, the share of device ops joined to a
+launch inside a pair span, the quartiles of start - launch (the device's
+clock against the host's), the profile against the program's launch
+counters, and each run's ms a pair.  Prints one line of JSON a cell
+and, with --out, writes them all there.  Needs a CUDA device.
 """
 
 import argparse
@@ -109,6 +110,7 @@ def run_cell(cell, pairs: int, seed: int, device="cuda") -> dict:
         "power_limit": _power_limit() if dev.type == "cuda" else None,
         "ms_pair": ms, "window_s": walls,
         "layers": profiling.layer_metrics(table),
+        "refine_fused_share": profiling.fused_share(host),
         "spans_per_pair": len(host) / pairs,
         "launches_per_pair": len(ops) / pairs,
         "joined_pct": 100.0 * in_pair / max(len(ops), 1),
