@@ -1,5 +1,6 @@
 """Whether what the timed path produced is correct: the outputs of a sample
-of the window's pairs held against the plain reference worked out again
+of the window's pairs held against the configuration's plain reference
+(stereobench.reference, or the module its file names) worked out again
 from the same u8 views and the planes the program returned, and what the
 search found over the whole window held against the scenes' exact
 ground truth.
@@ -30,8 +31,6 @@ from typing import Dict, List
 
 import torch
 
-from . import reference
-
 NUMBERS = ("cost_gap", "dis_diff_px", "valid_diff_px")   # sampled pairs
 WINDOW_NUMBERS = ("bad_px_pct",)                          # every pair
 
@@ -59,13 +58,14 @@ def compare(out: dict, ref: dict) -> Dict[str, float]:
             "valid_diff_px": int((out["valid"] != ref["valid"]).sum())}
 
 
-def judge(kept: list, frames, engine: dict,
+def judge(kept: list, frames, engine: dict, reference,
           controls: Dict[str, tuple] | None = None) -> Dict[str, list]:
     """Each kept pair's numbers: under "program" the program's outputs
-    against the float32 reference; under each name of `controls` (name ->
-    (compute dtype, store dtype)) the reference computed in those dtypes,
-    put in the program's place (a control, which has to fail).
-    `frames(i)` gives pair i's (left, right) views."""
+    against the float32 `reference` (the cell's reference module); under
+    each name of `controls` (name -> (compute dtype, store dtype)) the
+    reference computed in those dtypes, put in the program's place (a
+    control, which has to fail).  `frames(i)` gives pair i's (left, right)
+    views."""
     rows: Dict[str, list] = {"program": []}
     for name in controls or {}:
         rows[name] = []

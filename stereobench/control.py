@@ -8,13 +8,13 @@ this):
 For each seed: the cell's set-up and warm-up, N pairs of its closed loop
 (by default the mix's trace_pairs, the shortest window a run judges)
 with each pair's map kept as a run keeps them, then every compared number:
-the program's (the lower readings); on the kept sample two controls, the
-plain reference put in the program's place at a precision below the one
-the configuration states: all arithmetic in bfloat16 ("bf16"), and
-float32 arithmetic on a volume stored in float8 e4m3 ("fp8_volume"); and,
-for each fault named, the program with that fault planted in this process,
-read the same way as the program.  One JSON line a seed, then the worst
-program reading and the least reading of each control and fault.
+the program's (the lower readings); on the kept sample the controls of
+the configuration's reference (its CONTROLS: the plain reference put in
+the program's place at a precision below the one the configuration
+states); and, for each fault named, the program with that fault planted
+in this process, read the same way as the program.  One JSON line a seed,
+then the worst program reading and the least reading of each control and
+fault.
 """
 
 from __future__ import annotations
@@ -30,10 +30,6 @@ import torch
 
 from . import check, workload
 
-CONTROLS = {"bf16": (torch.bfloat16, torch.bfloat16),
-            "fp8_volume": (torch.float32, torch.float8_e4m3fn)}
-
-
 def _state_unchanged(pm, loop):
     """Each iteration's step returns its state unchanged."""
     return {"iteration_step": lambda state, *a, **k: state}
@@ -41,7 +37,8 @@ def _state_unchanged(pm, loop):
 
 def _rank_bf16(pm, loop):
     """K2's quadrant volumes and QRANK's ranking costs rounded to bfloat16:
-    the ranking one precision below the configuration's float32."""
+    the ranking one precision below the configuration's float32 (the
+    volume path's; a run without a volume calls neither)."""
     build, rank = pm.quadrant_volumes_prepared, pm.quadrant_rank
 
     def volumes(*a, **k):
@@ -118,7 +115,7 @@ def reading(cell, seed: int, pairs: int, scenes, fault: str | None,
         win = loop.run(pairs=pairs, maps="host")
     bad = win.bad_px(loop.pool)
     rows = check.judge(win.kept, loop.pool.frame, cell.config["engine"],
-                       controls)
+                       cell.reference, controls)
     window = {"bad_px_pct": sum(bad) / len(bad)}
     return {name: {k: _finite(v) for k, v in
                    dict(check.worst(r), **window).items()}
@@ -143,7 +140,8 @@ def main(argv=None) -> int:
     numbers = check.NUMBERS + check.WINDOW_NUMBERS
     for seed in [int(s) for s in args.seeds.split(",")]:
         line = {"seed": seed}
-        line.update(reading(cell, seed, pairs, scenes, None, CONTROLS))
+        line.update(reading(cell, seed, pairs, scenes, None,
+                            cell.reference.CONTROLS))
         for f in faults:
             line[f] = reading(cell, seed, pairs, scenes, f,
                               {})["program"]

@@ -31,6 +31,10 @@ import torch
 
 N_LEVELS = 256
 _STORE = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the controls (name -> (compute, store)): all arithmetic in bfloat16, and
+# float32 arithmetic on a volume stored in float8 e4m3
+CONTROLS = {"bf16": (torch.bfloat16, torch.bfloat16),
+            "fp8_volume": (torch.float32, torch.float8_e4m3fn)}
 
 
 def store_dtype(engine: dict) -> torch.dtype:
@@ -350,6 +354,21 @@ def weighted_median(dis: torch.Tensor, imgs: torch.Tensor,
     return out
 
 
+def maps(l_bgr: torch.Tensor, r_bgr: torch.Tensor, abc: torch.Tensor,
+         e: dict, compute: torch.dtype) -> dict:
+    """The maps the engine returns for these planes: "dis" u8[2, H, W] and
+    "valid" bool[2, H, W] (with use_pp the left-right check, the fill and
+    the weighted median; else all valid)."""
+    dis = to_u8(_disp(abc, compute), e["dis_scale"])
+    if not e["use_pp"]:
+        return {"dis": dis, "valid": torch.ones_like(dis, dtype=torch.bool)}
+    valid = lr_check(dis, e, compute)
+    dis = fill(dis, abc, valid, e, compute)
+    imgs = torch.stack([l_bgr, r_bgr])
+    return {"dis": weighted_median(dis, imgs, valid, e, compute),
+            "valid": valid}
+
+
 def outputs(l_bgr: torch.Tensor, r_bgr: torch.Tensor, abc: torch.Tensor,
             e: dict, compute: torch.dtype = torch.float32,
             store: torch.dtype | None = None) -> dict:
@@ -359,13 +378,4 @@ def outputs(l_bgr: torch.Tensor, r_bgr: torch.Tensor, abc: torch.Tensor,
     lv = Levels(l_bgr, r_bgr, e, compute, store)
     cost = plane_cost(lv, abc, e, compute)
     del lv
-    dis = to_u8(_disp(abc, compute), e["dis_scale"])
-    if not e["use_pp"]:
-        return {"cost": cost, "dis": dis, "valid": torch.ones_like(
-            dis, dtype=torch.bool)}
-    valid = lr_check(dis, e, compute)
-    dis = fill(dis, abc, valid, e, compute)
-    imgs = torch.stack([l_bgr, r_bgr])
-    return {"cost": cost, "dis": weighted_median(dis, imgs, valid, e,
-                                                 compute),
-            "valid": valid}
+    return dict(cost=cost, **maps(l_bgr, r_bgr, abc, e, compute))

@@ -1,7 +1,8 @@
 """The least time the H100 could take for the work a pair's schedule needs,
 counted from the configuration and the frame's shape alone (a frozen copy
-of the launch model and the window-sample arithmetic of the program's
-utils/roofline): the same count whatever implements the work.
+of the launch model, the window-sample arithmetic and the fly kernel's
+operation count of the program's utils/roofline): the same count whatever
+implements the work.
 
 A roofline share is that least time over the measured device time.  The
 least time of a launch is the larger of its f32 operations over
@@ -25,6 +26,13 @@ HBM_BYTES_PER_S = 3.35e12
 # in-image sample is counted as in range.
 FLOPS_IN_IMAGE = 5
 FLOPS_IN_RANGE = 5
+# the fly kernel's in-range sample in "cost" mode (K5, K3-fly) adds to the
+# lerp two GRD slice costs (the colour sum's multiply by 1/3, |grad diff| (a
+# subtract and an abs), two mins, two multiplies, an add: 8 each)
+FLY_FLOPS_IN_RANGE = FLOPS_IN_RANGE + 16
+# bytes a pixel of a level's view that the fly kernel reads: u8 BGR and the
+# f32 gray gradient
+FLY_PLANE_BYTES = 3 + 4
 _VOL_BYTES = {"f32": 4, "bf16": 2}
 
 
@@ -109,6 +117,17 @@ def plan(e: dict) -> Tuple[List[Tuple[int, int]], float]:
     return launches, rank_cands
 
 
+def fly_plan(e: dict) -> List[Tuple[int, int]]:
+    """The fly kernel's launches of one pair without a volume, as (K,
+    window stride): the no-volume path prescreens with the fly kernel itself
+    at prescreen_stride when not use_cs (the program's
+    models/patchmatch.make_fly_cost_fns), which `plan` counts as the window
+    prescreen whatever prescreen_mode says; no launch with a volume."""
+    if e["precompute_volume"]:
+        return []
+    return plan(dict(e, prescreen_mode="window"))[0]
+
+
 def axis_count(n: int, hw: int, stride: int, s: int) -> int:
     """Sum over the n fine positions p of the offsets o of range(-hw, hw + 1,
     stride) with 0 <= (p >> s) + o < ceil(n / 2^s)."""
@@ -136,24 +155,50 @@ def least_seconds(bytes_: float, flops: float) -> float:
     return max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S)
 
 
+def _launches_seconds(e: dict, h: int, w: int, launches: list,
+                      level_bytes: int, ops_per_sample: int) -> float:
+    """The least time of window-cost launches (K, stride): per launch K *
+    in-image samples at its stride * ops_per_sample operations; bytes: the
+    levels' data (level_bytes) read once, the candidate planes read and
+    their costs written."""
+    samples = {}
+    total = 0.0
+    for k, stride in launches:
+        if stride not in samples:
+            samples[stride] = in_image_samples(e, h, w, stride)
+        flops = k * samples[stride] * ops_per_sample
+        total += least_seconds(level_bytes + 2 * k * h * w * (3 + 1) * 4,
+                               flops)
+    return total
+
+
 def window_cost_seconds(e: dict, h: int, w: int) -> float:
     """The least time of one pair's window-cost launches (K1, K3 and K4's
     work): per launch K * in-image samples * (FLOPS_IN_IMAGE +
     FLOPS_IN_RANGE) operations; bytes: every level's volume of both views
     in vol_dtype and its packed images (4 bytes a pixel), the candidate
     planes read and their costs written."""
-    launches, _ = plan(e)
     vb = _VOL_BYTES[e["vol_dtype"]]
     levels = sum(2 * hs * ws * (ds * vb + 4)
                  for hs, ws, ds in level_shapes(e, h, w))
-    samples = {}
-    total = 0.0
-    for k, stride in launches:
-        if stride not in samples:
-            samples[stride] = in_image_samples(e, h, w, stride)
-        flops = k * samples[stride] * (FLOPS_IN_IMAGE + FLOPS_IN_RANGE)
-        total += least_seconds(levels + 2 * k * h * w * (3 + 1) * 4, flops)
-    return total
+    return _launches_seconds(e, h, w, plan(e)[0], levels,
+                             FLOPS_IN_IMAGE + FLOPS_IN_RANGE)
+
+
+def fly_cost_seconds(e: dict, h: int, w: int) -> float | None:
+    """The least time of one pair's fly-kernel launches (K5 and K3-fly's
+    work, fly_plan), None where the schedule makes none: per launch K *
+    in-image samples at its stride * (FLOPS_IN_IMAGE + FLY_FLOPS_IN_RANGE)
+    operations; bytes: every level's views of both images (FLY_PLANE_BYTES
+    a pixel) read once, the candidate planes read and their costs
+    written."""
+    launches = fly_plan(e)
+    if not launches:
+        return None
+    planes = sum(2 * hs * ws * FLY_PLANE_BYTES
+                 for hs, ws, _ in level_shapes(e, h, w))
+    return _launches_seconds(e, h, w, launches, planes,
+                             FLOPS_IN_IMAGE + FLY_FLOPS_IN_RANGE)
 
 
 def quadrant_build_samples(h: int, w: int, half_wnd: int,

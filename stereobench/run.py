@@ -18,8 +18,9 @@ torch.profiler instead; the per-layer metrics.  Each pair's left map is
 kept (copied to the host after its latency is read; held on the device in
 the short traced window) and scored against the scene's ground truth once
 the window has closed.  After the window a sample of its pairs, drawn from
-the seed, is held against the plain reference, and the window's bad-pixel
-share against its limit (stereobench.check).  The last line of standard output is one JSON object:
+the seed, is held against the configuration's plain reference, and the
+window's bad-pixel share against its limit (stereobench.check).  The last
+line of standard output is one JSON object:
 correct, attempted, failed, metrics, device (and breakdown when traced),
 then "checks", each number compared beside its limit.
 
@@ -160,7 +161,8 @@ def run_cell(cell: workload.Cell, seed: int, seconds: float, traced: bool,
     kept = win.kept
     del win, tr
     loop.prior = None
-    rows = check.judge(kept, loop.pool.frame, engine)["program"]
+    rows = check.judge(kept, loop.pool.frame, engine,
+                       cell.reference)["program"]
     limits = cell.config["limits"]
     correct, failed, window_ok, numbers = check.verdict(
         rows, {"bad_px_pct": bad_px_pct}, limits)

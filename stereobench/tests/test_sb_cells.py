@@ -1,6 +1,7 @@
 """Every cell of BENCHMARK.json loads: its configuration with every
-CSPMConfig field given, its traffic mix, a reader for each of its
-per-layer metrics; and the files keep to the benchmark's layout."""
+CSPMConfig field given and a plain reference that covers it, its traffic
+mix, a reader for each of its per-layer metrics; and the files keep to the
+benchmark's layout."""
 
 import dataclasses
 import json
@@ -26,7 +27,9 @@ def test_cell_loads(name):
     assert set(cell.config["engine"]) == fields
     cfg = workload.engine_config(cell.config)
     assert cfg.max_dis == cell.config["max_disparity"]
-    reference.check_engine(cell.config["engine"])
+    assert cell.reference.__name__ == cell.config.get(
+        "reference", workload.REFERENCE)
+    cell.reference.check_engine(cell.config["engine"])
     assert set(cell.config["limits"]) == {"cost_gap", "dis_diff_px",
                                           "valid_diff_px", "bad_px_pct"}
     t = cell.traffic
@@ -42,6 +45,39 @@ def test_configs_are_the_ports_presets():
           for c in BENCH["configs"]}
     assert workload.engine_config(by["kitti2015_grd_pp"]) == KITTI
     assert workload.engine_config(by["mb2003_cen_cs_pp"]) == CEN_CS_PP
+    assert workload.engine_config(by["kitti2015_grd_pp_novol"]) == \
+        dataclasses.replace(KITTI, precompute_volume=False)
+
+
+def test_novol_is_kittis_file_with_its_reference():
+    """The no-volume configuration is KITTI's file with precompute_volume
+    false and its own reference, everything else as KITTI's but its name,
+    source, method, deployment and what it assumes about fly_lerp."""
+    kitti, novol = (workload.load_json(os.path.join(
+        REPO, "stereobench", "configs", n + ".json"))
+        for n in ("kitti2015_grd_pp", "kitti2015_grd_pp_novol"))
+    assert novol["engine"] == dict(kitti["engine"], precompute_volume=False)
+    assert novol["reference"] == "stereobench.reference_fly"
+    assert novol["assumed"] == dict(kitti["assumed"],
+                                    fly_lerp=novol["assumed"]["fly_lerp"])
+    own = {"name", "source", "reference", "assumed", "deployment", "method",
+           "engine", "limits"}
+    assert set(novol) == set(kitti) | {"reference"}
+    assert all(novol[k] == kitti[k] for k in set(kitti) - own)
+    assert set(novol["limits"]) == set(kitti["limits"])
+
+
+@pytest.mark.parametrize("name", ["kitti2015_grd_pp", "mb2003_cen_cs_pp"])
+def test_volume_configs_resolve_to_the_volume_reference(name):
+    config = workload.load_json(os.path.join(
+        REPO, "stereobench", "configs", name + ".json"))
+    assert "reference" not in config
+    assert workload.reference_of(config) is reference
+
+
+def test_reference_outside_the_harness_is_refused():
+    with pytest.raises(ValueError, match="under stereobench"):
+        workload.reference_of({"reference": "os.path"})
 
 
 def test_names_and_layout():

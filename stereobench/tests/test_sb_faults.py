@@ -9,10 +9,10 @@ import pytest
 import torch
 
 from crossscalepatchmatch_tpu_torch.models import patchmatch, pipeline
-from stereobench import check, control, run, workload
+from stereobench import check, run, workload
 
 CELLS = ["kitti2015_grd_pp.pairs", "mb2003_cen_cs_pp.pairs",
-         "kitti2015_grd_pp.video"]
+         "kitti2015_grd_pp.video", "kitti2015_grd_pp_novol.pairs"]
 
 
 def _alter(fn, change):
@@ -78,9 +78,11 @@ def test_sound_run_passes_and_control_fails(tiny_root, name):
     win = loop.run(pairs=4)
     bad = win.bad_px(loop.pool)
     window = {"bad_px_pct": sum(bad) / len(bad)}
+    controls = cell.reference.CONTROLS
     rows = check.judge(win.kept, loop.pool.frame, cell.config["engine"],
-                       control.CONTROLS)
+                       cell.reference, controls)
     limits = cell.config["limits"]
     assert check.verdict(rows["program"], window, limits)[0]
-    assert not check.verdict(rows["bf16"], window, limits)[0]
-    assert not check.verdict(rows["fp8_volume"], window, limits)[0]
+    assert len(controls) == 2
+    for name in controls:
+        assert not check.verdict(rows[name], window, limits)[0], name

@@ -6,10 +6,10 @@ import time
 import pytest
 import torch
 
-from stereobench import check, control, run, workload
+from stereobench import check, run, workload
 
 CELLS = ["kitti2015_grd_pp.pairs", "mb2003_cen_cs_pp.pairs",
-         "kitti2015_grd_pp.video"]
+         "kitti2015_grd_pp.video", "kitti2015_grd_pp_novol.pairs"]
 
 
 @pytest.fixture
@@ -31,7 +31,8 @@ def test_cell_is_correct_and_control_fails(card, name):
     bad = win.bad_px(loop.pool)
     window = {"bad_px_pct": sum(bad) / len(bad)}
     rows = check.judge(win.kept, loop.pool.frame, cell.config["engine"],
-                       {"bf16": control.CONTROLS["bf16"]})
+                       cell.reference,
+                       {"bf16": cell.reference.CONTROLS["bf16"]})
     assert check.verdict(rows["program"], window, cell.config["limits"])[0]
     assert not check.verdict(rows["bf16"], window,
                              cell.config["limits"])[0]

@@ -39,7 +39,8 @@ def test_no_jax(path):
 
 
 def test_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "scene.py", "roofline.py"):
+    for name in ("reference.py", "reference_fly.py", "scene.py",
+                 "roofline.py"):
         got = set(top_level_imports(os.path.join(HARNESS, name)))
         assert got <= {"__future__", "dataclasses", "typing", "numpy",
                        "torch"}, (name, got)

@@ -10,7 +10,7 @@ from crossscalepatchmatch_tpu_torch.config import (CEN_CS_PP, KITTI,
                                                    README_DEMO)
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models import pipeline
-from crossscalepatchmatch_tpu_torch.ops import plane_cost
+from crossscalepatchmatch_tpu_torch.ops import onthefly_cost, plane_cost
 from crossscalepatchmatch_tpu_torch.utils import roofline as port
 from stereobench import roofline
 
@@ -32,6 +32,13 @@ CONFIGS = [README_DEMO, CEN_CS_PP, KITTI,
            dataclasses.replace(CEN_CS_PP, adopt_mode="rank", max_iter=2),
            dataclasses.replace(README_DEMO, prop_sweeps=0),
            dataclasses.replace(README_DEMO, precompute_volume=False)]
+NOVOL = dataclasses.replace(KITTI, precompute_volume=False)
+FLY_CONFIGS = [NOVOL, dataclasses.replace(README_DEMO,
+                                          precompute_volume=False),
+               dataclasses.replace(NOVOL, batch_refine=False),
+               dataclasses.replace(NOVOL, prescreen_stride=1),
+               dataclasses.replace(NOVOL, prop_sweeps=0),
+               dataclasses.replace(NOVOL, use_cs=True, reg_lambda=0.3)]
 
 
 @pytest.mark.parametrize("cfg", CONFIGS)
@@ -95,3 +102,57 @@ def test_plan_counts_the_launches_of_a_run(warm):
         pipeline.run_pair(p.left, p.right, 1, cfg, device="cpu")
         e = engine(cfg)
     assert plane_cost.launches == 2 * len(roofline.plan(e)[0])
+
+
+@pytest.mark.parametrize("cfg", FLY_CONFIGS)
+def test_fly_plan_is_the_programs_window_prescreen(cfg):
+    """Without a volume the program prescreens with the fly kernel at the
+    stride: its plan under prescreen_mode "window"."""
+    want, rank_cands = port._plan(
+        dataclasses.replace(cfg, prescreen_mode="window"))
+    assert roofline.fly_plan(engine(cfg)) == want and rank_cands == 0
+
+
+def test_fly_plan_of_the_novol_config():
+    """27 launches a KITTI pair without a volume, 12 of them strided; none
+    with a volume."""
+    launches = roofline.fly_plan(engine(NOVOL))
+    assert len(launches) == 27
+    assert sum(s > 1 for _, s in launches) == 12
+    assert {s for _, s in launches} == {1, NOVOL.prescreen_stride}
+    assert roofline.fly_plan(engine(KITTI)) == []
+    assert roofline.fly_cost_seconds(engine(KITTI), 12, 20) is None
+
+
+@pytest.mark.parametrize("use_cs, warm", [(False, False), (True, False),
+                                          (False, True)])
+def test_fly_plan_counts_the_launches_of_a_run(use_cs, warm):
+    """The plain fly cost's calls (one a launch, both views) in a tiny
+    no-volume run on the CPU, cold and warm started, are the fly plan's
+    launches."""
+    cfg = dataclasses.replace(NOVOL, max_dis=8, wnd_size=5, use_cs=use_cs,
+                              scale_num=3, reg_lambda=0.3 if use_cs else 0.0)
+    p = make_pair(h=16, w=24, max_dis=8, seed=2)
+    prior = pipeline.run_pair(p.left, p.right, 0, cfg, device="cpu")["abc"]
+    onthefly_cost.launches = 0
+    if warm:
+        pipeline.run_pair_warm(p.left, p.right, 1, prior, cfg, 1,
+                               device="cpu")
+        e = roofline.warm_engine(engine(cfg), 1)
+    else:
+        pipeline.run_pair(p.left, p.right, 1, cfg, device="cpu")
+        e = engine(cfg)
+    assert onthefly_cost.launches == len(roofline.fly_plan(e))
+
+
+def test_fly_least_time_uses_the_peaks():
+    e = engine(NOVOL)
+    h, w = 12, 20
+    launches = roofline.fly_plan(e)
+    ops = sum(k * roofline.in_image_samples(e, h, w, s)
+              for k, s in launches) * 26
+    assert roofline.FLOPS_IN_IMAGE + roofline.FLY_FLOPS_IN_RANGE == \
+        port.FLOPS_IN_IMAGE + port.FLY_FLOPS_IN_RANGE["cost"] == 26
+    least = roofline.fly_cost_seconds(e, h, w)
+    assert least >= ops / roofline.F32_FLOP_PER_S
+    assert least >= len(launches) * 2 * h * w * 7 / roofline.HBM_BYTES_PER_S

@@ -22,7 +22,8 @@ END_TO_END = {"pairs_per_s", "pair_ms_p95", "peak_mem_mib", "bad_px_pct",
 
 @pytest.mark.parametrize("name", ["kitti2015_grd_pp.pairs",
                                   "mb2003_cen_cs_pp.pairs",
-                                  "kitti2015_grd_pp.video"])
+                                  "kitti2015_grd_pp.video",
+                                  "kitti2015_grd_pp_novol.pairs"])
 @pytest.mark.parametrize("traced", [False, True])
 def test_result_line(tiny_root, name, traced):
     cell = workload.load_cell(name, root=tiny_root)

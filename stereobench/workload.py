@@ -1,6 +1,7 @@
 """A cell's inputs and its closed loop: the configuration and the traffic
-mix read from their files, the frames made from the seed and put on the
-device, and pairs run one at a time through the program's entry point.
+mix read from their files, the configuration's plain reference resolved,
+the frames made from the seed and put on the device, and pairs run one at
+a time through the program's entry point.
 
 Everything that belongs to one configuration or one mix is data in its
 file; nothing here names a cell.
@@ -9,6 +10,7 @@ file; nothing here names a cell.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import time
@@ -22,6 +24,8 @@ from .scene import make_scene
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 ENTRIES = ("run_pair", "run_pair_warm")
+# the plain reference of a configuration whose file names none
+REFERENCE = "stereobench.reference"
 
 
 def load_json(path: str):
@@ -36,12 +40,27 @@ class Cell:
     config: dict        # stereobench/configs/<config>.json
     traffic: dict       # stereobench/traffic/<traffic>.json
     per_layer: list     # BENCHMARK.json's per-layer metrics
+    reference: object   # the configuration's plain reference module
+
+
+def reference_of(config: dict):
+    """The plain reference module that a configuration names under
+    "reference" (a module under stereobench; REFERENCE where the key is
+    absent).  It exposes check_engine(engine), outputs(l, r, abc, engine,
+    compute=..., store=...) and CONTROLS (name -> (compute, store))."""
+    name = config.get("reference", REFERENCE)
+    if not name.startswith("stereobench."):
+        raise ValueError(f"reference {name!r} is not a module under "
+                         "stereobench")
+    return importlib.import_module(name)
 
 
 def load_cell(name: str, bench: dict | None = None,
               root: str = ROOT) -> Cell:
     """The cell `name` of BENCHMARK.json (or of `bench`), with its
-    configuration and traffic files read; ValueError if it is not there."""
+    configuration and traffic files read and its reference resolved;
+    ValueError if it is not there or its reference does not cover its
+    engine."""
     bench = bench or load_json(os.path.join(root, "BENCHMARK.json"))
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -49,11 +68,13 @@ def load_cell(name: str, bench: dict | None = None,
                          f"(have {sorted(cells)})")
     wl = cells[name]
     cfg = {c["name"]: c for c in bench["configs"]}[wl["config"]]
-    return Cell(name=name, chips=wl["chips"],
-                config=load_json(os.path.join(root, cfg["file"])),
+    config = load_json(os.path.join(root, cfg["file"]))
+    reference = reference_of(config)
+    reference.check_engine(config["engine"])
+    return Cell(name=name, chips=wl["chips"], config=config,
                 traffic=load_json(os.path.join(
                     root, "stereobench", "traffic", wl["traffic"] + ".json")),
-                per_layer=bench["per_layer"])
+                per_layer=bench["per_layer"], reference=reference)
 
 
 def engine_config(config: dict):
