@@ -38,6 +38,15 @@ Phases, each fatal on failure:
      taps share rows), and beside QRANK's bound the floor a gather of its
      taps can reach (quadrant_rank_sectors: the distinct 32-byte sectors
      they touch);
+  4d. BFV (the bilateral volume filter) against its plain version on the
+     card, equal elements (torch.equal) and slices 0 and D - 1 passed
+     through, on the unfiltered volumes a BF path hands it: README_DEMO's
+     level (375x450, D=61), the KITTI scene's (375x1242, D=129) and the
+     coarsest level of a 5-level README_DEMO pyramid (narrower than the
+     35 x 35 window); the plain version's comparison call, the wrapper in
+     turns, its device time queued, one launch a call and one kernel in a
+     captured call's graph, and the bound (utils.roofline
+     .bilateral_volume_work);
   5. K4, the cross-scale window cost: the same on the 5-level census
      pyramid of the bench scene (CEN_CS_PP); f32 within 2e-5 relative, and
      bf16 census volumes (integers, exact in bf16) bit-equal; K = 2, 3, 5,
@@ -96,7 +105,8 @@ Phases, each fatal on failure:
      frame, peak memory, bad-pixel @1px <= 0.01, bit-identical rerun);
      run_pair_resumable (uninterrupted equal to run_pair, rewound to
      iterations 1 and 2 and resumed bit-equal); --aggregator BOX, GF and
-     BF (ms/pair, the filter's device time, peak memory, bad-pixel,
+     BF (ms/pair, the filter's device time on both views of the level,
+     one call of aggregate_volumes, peak memory, bad-pixel,
      printed); small pairs card vs CPU for each aggregator, CEN+CS+BOX and
      a warm frame; and README_DEMO (seeds 0-2), CEN_CS_PP and KITTI (seed
      0) with f32 kernel volumes, their bad-pixel beside phase 7's bf16
@@ -161,7 +171,7 @@ Phases, each fatal on failure:
      counters around its timed calls on every rank); the lines printed.
 Every bound is counted by utils.roofline (bound, window_samples,
 quadrant_build_samples, median_least_ops, grd_volume_work,
-census_volume_work, quadrant_rank_work, quadrant_rank_row_work and the
+census_volume_work, bilateral_volume_work, quadrant_rank_work, quadrant_rank_row_work and the
 per-sample operation counts; quadrant_rank_sectors for QRANK's gather
 floor, median_samples for the bisection's count beside WMF's bound).
 The line before the last is the kernels' JSON record, the last line the
@@ -197,6 +207,13 @@ MANY_KS = (1, 2, 3, 5, 8)
 # the kernels a volume path launches: GRD volumes (GRDV) ranked on the
 # quadrant volumes (K2, QRANK) with K1 exact; census volumes (CENV) with K4
 GRD_PATH = ("k1", "k2", "grdv", "qrank")
+
+
+def agg_path(agg):
+    """The kernels a GRD pair with aggregator `agg` launches: BF adds the
+    bilateral volume filter BFV."""
+    return GRD_PATH + (("bfv",) if agg.value == "BF" else ())
+
 CEN_CS_PATH = ("k4", "k2", "qrank", "cenv")
 OTHER_HALF_WND = 8          # a window other than the presets' half_wnd 17
 SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level, card vs CPU
@@ -708,6 +725,7 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
         build_volume_data)
     from crossscalepatchmatch_tpu_torch.ops.cuda import (_build,
+                                                         bilateral_volume,
                                                          census_volume,
                                                          cross_scale_cost,
                                                          fly_cost,
@@ -724,7 +742,8 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
     from crossscalepatchmatch_tpu_torch.utils.roofline import (
         FLOPS_IN_IMAGE, FLOPS_IN_RANGE, FLY_FLOPS_IN_RANGE,
-        WMF_OPS_PER_SAMPLE, bound, census_volume_work, grd_volume_work,
+        WMF_OPS_PER_SAMPLE, bilateral_volume_work, bound, census_volume_work,
+        grd_volume_work,
         median_least_ops, median_samples, nbytes, quadrant_build_samples,
         quadrant_rank_row_work, quadrant_rank_sectors, quadrant_rank_work,
         refine_propose_work, window_samples)
@@ -1182,6 +1201,76 @@ def main() -> int:
             rec["rprop"][f"{key}_bench"] = val
     torch.cuda.empty_cache()
 
+    # -- 4d. BFV: the bilateral volume filter ---------------------------------
+    def bfv_check(name, vols_in, guides, wnd, reps):
+        """BFV on a level's unfiltered volumes of both views (what
+        build_volume_data hands it on a BF path) against its plain version
+        on the card: equal elements (torch.equal), slices 0 and D - 1 the
+        input's; the plain version's time its comparison call, the
+        wrapper's in turns, its device time queued behind a spinning
+        kernel, one launch a call by the counter and one kernel and
+        nothing else in a captured call's graph; the bound
+        utils.roofline.bilateral_volume_work."""
+        _, bh, bw, bd = vols_in.shape
+        n0 = bilateral_volume.launches
+        got = bilateral_volume.bilateral_volumes_cuda(vols_in, guides, wnd)
+        want, plain_ms = timed_once(
+            lambda: bilateral_volume.bilateral_volumes_plain(vols_in, guides,
+                                                             wnd))
+        same = torch.equal(got, want)
+        diff = int((got != want).sum())
+        ab = float((got - want).abs().max())
+        edges = torch.equal(got[..., [0, bd - 1]], vols_in[..., [0, bd - 1]])
+        del got, want
+        print(f"BFV {name} (2x{bh}x{bw}x{bd}, wnd {wnd}): kernel vs plain on "
+              f"the card {diff} differing f32 elements, slices 0 and D - 1 "
+              f"passed through {edges}")
+        if not same or not edges:
+            raise RuntimeError(f"BFV {name}: {diff} elements differ from the "
+                               f"plain version, edges kept {edges}")
+
+        def kernel():
+            return bilateral_volume.bilateral_volumes_cuda(vols_in, guides,
+                                                           wnd)
+
+        t = time_turns({"kernel": kernel}, {"kernel": reps})
+        dev_ms = queued_ms(kernel, reps)
+        n_graph = graph_kernels(f"BFV {name}", kernel, 1)
+        calls = 1 + (1 + 2 * reps) + (1 + reps) + 2
+        if bilateral_volume.launches - n0 != calls:
+            raise RuntimeError(f"BFV {name}: {bilateral_volume.launches - n0}"
+                               f" launches counted in {calls} calls")
+        b_ms, b_by = bound(*bilateral_volume_work(bh, bw, bd, wnd))
+        print(f"BFV {name}: plain {plain_ms:.3f} ms | wrapper "
+              f"{t['kernel']:.3f} ms, on the device {dev_ms:.4f} ms "
+              f"({n_graph} kernel a call) | bound {b_ms:.4f} ms ({b_by}): "
+              f"device {b_ms / dev_ms:.1%}; {card}")
+        return dict(max_abs_err=ab, differing_elements=diff, ms=t["kernel"],
+                    device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, kernels_a_call=n_graph)
+
+    # README_DEMO-BF's level (375x450, D=61), the new cell's KITTI level
+    # (375x1242, D=129), and the coarsest level of a 5-level README_DEMO
+    # pyramid, narrower than the window (the borders wrap more than once)
+    bvd = build_volume_data(l, r, dataclasses.replace(
+        README_DEMO, use_cs=True, scale_num=5))
+    rec["bfv"] = bfv_check("bench seed 0", bvd.vols[0], bvd.imgs[0],
+                           README_DEMO.wnd_size, 10)
+    coarse = bfv_check("bench seed 0, level 4", bvd.vols[4], bvd.imgs[4],
+                       README_DEMO.wnd_size, 10)
+    del bvd
+    kvd = build_volume_data(kl, kr, KITTI)
+    for key, val in bfv_check("KITTI seed 0", kvd.vols[0], kvd.imgs[0],
+                              KITTI.wnd_size, 5).items():
+        if key != "bound_by":
+            rec["bfv"][f"{key}_kitti"] = val
+    del kvd
+    rec["bfv"]["differing_elements_level4"] = coarse["differing_elements"]
+    rec["bfv"]["max_abs_err"] = max(rec["bfv"]["max_abs_err"],
+                                    rec["bfv"]["max_abs_err_kitti"],
+                                    coarse["max_abs_err"])
+    torch.cuda.empty_cache()
+
     # -- 5. K4 ----------------------------------------------------------------
     ccfg = CEN_CS_PP
     cvd = build_volume_data(l, r, ccfg)
@@ -1633,7 +1722,7 @@ def main() -> int:
     from crossscalepatchmatch_tpu_torch.models.pipeline import (
         run_pair_warm, run_sequence_np)
     from crossscalepatchmatch_tpu_torch.ops.cost_volume import (
-        aggregate_volume)
+        aggregate_volumes)
     from crossscalepatchmatch_tpu_torch.utils.rng import PHASE_WARM
 
     def digest(a):
@@ -1797,10 +1886,9 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated(dev)
         paths[f"aggregator {agg.value}"] = read_counts()
         check_counts(f"aggregator {agg.value}",
-                     paths[f"aggregator {agg.value}"], GRD_PATH)
-        _, agg_ms = timed_once(lambda: [aggregate_volume(
-            plain_vd.vols[0][v], plain_vd.imgs[0][v], acfg)
-            for v in range(2)])
+                     paths[f"aggregator {agg.value}"], agg_path(agg))
+        _, agg_ms = timed_once(lambda: aggregate_volumes(
+            plain_vd.vols[0], plain_vd.imgs[0], acfg))
         bad = bad1(out["dis"].cpu().numpy(), pair, 4)
         bf16_bads[f"README_DEMO-{agg.value}"] = {0: bad}
         print(f"aggregator {agg.value}: {ms_pair:.1f} ms/pair, aggregation "
@@ -1812,7 +1900,7 @@ def main() -> int:
     # frame (both from the CPU's cold planes, the same warm draws)
     for agg in ("BOX", "GF", "BF"):
         scfg = CSPMConfig(aggregator=Aggregator(agg), **base)
-        card_vs_cpu(f"aggregator {agg}", GRD_PATH,
+        card_vs_cpu(f"aggregator {agg}", agg_path(Aggregator(agg)),
                     lambda d, c=scfg: run_pair_np(
                         small.left, small.right, c, device=d,
                         draws=TorchDraws(0, "cpu"))["dis"])
@@ -1839,8 +1927,8 @@ def main() -> int:
             ("CEN_CS_PP", CEN_CS_PP, (*CEN_CS_PATH, "wmf"), bench, (0,), 1.0),
             ("KITTI", KITTI, (*GRD_PATH, "wmf"), kitti, (0,), 3.0),
             *((f"README_DEMO-{agg.value}",
-               dataclasses.replace(README_DEMO, aggregator=agg), GRD_PATH,
-               bench, (0,), 1.0)
+               dataclasses.replace(README_DEMO, aggregator=agg),
+               agg_path(agg), bench, (0,), 1.0)
               for agg in (Aggregator.BOX, Aggregator.GF, Aggregator.BF))):
         _, paths[f"{name} f32"], f32 = main_path(
             f"{name} f32 volumes", dataclasses.replace(pcfg, vol_dtype="f32"),
@@ -2386,6 +2474,10 @@ def main() -> int:
         # per-slice loop (:77), which XLA fuses under run_pair's jit; one
         # call a level, two launches (codes, volumes)
         entry("census_volume (CENV)", "cenv", "census_volume.cu", cenv_src),
+        # not a TPU kernel: the JAX engine's device loop over the window
+        # offsets (lax.fori_loop), which XLA fuses under run_pair's jit
+        entry("bilateral_volume (BFV)", "bfv", "bilateral_volume.cu",
+              "crossscalepatchmatch_tpu/ops/filters.py:161"),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "card check")

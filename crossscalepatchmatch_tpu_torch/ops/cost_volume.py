@@ -2,7 +2,8 @@
 
 Left- and right-referenced GRD or census volumes at one level, or at
 scale_num pyramid levels for cross-scale runs (max_dis halves per level),
-each optionally filtered by cfg.aggregator (ops.filters), with each
+each optionally filtered by cfg.aggregator (ops.filters; BF on the card
+by kernel BFV, ops.cuda.bilateral_volume), with each
 level's per-view saturation value max(volume) of the filtered volume, and
 per level the Lab weight images when cfg.use_lab_weights.
 """
@@ -16,8 +17,10 @@ import torch
 
 from ..config import Aggregator, CostMethod, CSPMConfig
 from ..support import check_supported
+from ..utils.spans import span
 from . import filters
 from .color import bgr_to_lab_u8, bgr_to_rgb
+from .cuda.bilateral_volume import bilateral_volumes
 from .cuda.census_volume import census_volumes
 from .cuda.grd_volume import grd_volumes
 from .pyramid import build_pyramid
@@ -63,33 +66,25 @@ def build_volumes(l_rgb_u8: torch.Tensor, r_rgb_u8: torch.Tensor,
     raise ValueError(f"unknown cost method {cfg.cost_method}")
 
 
-def aggregate_volume(vol: torch.Tensor, guide_u8: torch.Tensor,
-                     cfg: CSPMConfig) -> torch.Tensor:
-    """One view's volume [H, W, D] filtered by cfg.aggregator: BOX (radius
-    3), GF (radius 9, eps 1e-4) or BF (cfg.wnd_size), each guided by the
-    view's u8[H, W, 3] image; NONE returns it as it is."""
-    if cfg.aggregator == Aggregator.NONE:
-        return vol
-    if cfg.aggregator == Aggregator.BOX:
-        return filters.box_filter_volume(vol, radius=3)
-    if cfg.aggregator == Aggregator.GF:
-        return filters.guided_filter_volume(vol, guide_u8, radius=9,
-                                            eps=1e-4)
-    if cfg.aggregator == Aggregator.BF:
-        return filters.bilateral_filter_volume(vol, guide_u8,
-                                               wnd=cfg.wnd_size)
-    raise ValueError(f"unknown aggregator {cfg.aggregator}")
-
-
 def aggregate_volumes(vols: torch.Tensor, guides_u8: torch.Tensor,
                       cfg: CSPMConfig) -> torch.Tensor:
-    """Both views' volumes [2, H, W, D] filtered by cfg.aggregator, each
-    guided by its view's image in guides_u8 [2, H, W, 3] (aggregate_volume);
-    NONE returns them as they are."""
+    """The views' volumes [V, H, W, D] filtered by cfg.aggregator, each
+    guided by its view's u8 image in guides_u8 [V, H, W, 3]: BOX (radius
+    3) and GF (radius 9, eps 1e-4) view by view, BF (cfg.wnd_size) on all
+    views in one call (ops.cuda.bilateral_volume: on the card one BFV
+    launch); NONE returns them as they are."""
     if cfg.aggregator == Aggregator.NONE:
         return vols
-    return torch.stack([aggregate_volume(vols[v], guides_u8[v], cfg)
-                        for v in range(2)])
+    if cfg.aggregator == Aggregator.BF:
+        return bilateral_volumes(vols, guides_u8, cfg.wnd_size)
+    if cfg.aggregator == Aggregator.BOX:
+        return torch.stack([filters.box_filter_volume(vol, radius=3)
+                            for vol in vols])
+    if cfg.aggregator == Aggregator.GF:
+        return torch.stack([filters.guided_filter_volume(
+            vol, guide, radius=9, eps=1e-4)
+            for vol, guide in zip(vols, guides_u8)])
+    raise ValueError(f"unknown aggregator {cfg.aggregator}")
 
 
 def build_volume_data(l_bgr_u8: torch.Tensor, r_bgr_u8: torch.Tensor,
@@ -101,8 +96,10 @@ def build_volume_data(l_bgr_u8: torch.Tensor, r_bgr_u8: torch.Tensor,
       l_bgr_u8 / r_bgr_u8: u8[H, W, 3] views in the loader's BGR order, on
         the device the volumes should live on.
 
-    The aggregation filter (cfg.aggregator) runs per view and level, guided
-    by the level's BGR image, before the saturation value is taken.
+    The aggregation filter (cfg.aggregator) runs per level on both views,
+    guided by the level's BGR images, before the saturation value is
+    taken; each level's filter is an `aggregate` span (filter, level,
+    slices: the inner slices it filters).
     """
     check_supported(cfg, tuple(l_bgr_u8.shape[:2]), l_bgr_u8.device)
     levels = cfg.scale_num if cfg.use_cs else 1
@@ -115,7 +112,12 @@ def build_volume_data(l_bgr_u8: torch.Tensor, r_bgr_u8: torch.Tensor,
         imgs.append(torch.stack([l_pyr[s], r_pyr[s]]))
         vol = build_volumes(bgr_to_rgb(l_pyr[s]), bgr_to_rgb(r_pyr[s]), md,
                             cfg)
-        vols.append(aggregate_volumes(vol, imgs[-1], cfg))
+        if cfg.aggregator == Aggregator.NONE:
+            vols.append(vol)
+        else:
+            with span("aggregate", filter=cfg.aggregator.value, level=s,
+                      slices=max(md - 1, 0)):
+                vols.append(aggregate_volumes(vol, imgs[-1], cfg))
         max_costs.append(vols[-1].amax(dim=(1, 2, 3)))
         if wimgs is not None:
             # per-level Lab like CSPC's per-level conversion (cspc.cc:48-49)

@@ -94,6 +94,11 @@ SOURCES = {
         "cspm_refine_propose": (_P, _P, _I, _I, _I, _I, _U, _U, _U, _U, _F,
                                 _P, _P),
     },
+    "bilateral_volume.cu": {
+        # vol, guide, out, V, H, W, D, wnd, inv_sp2, inv_clr2, stream
+        "cspm_bilateral_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                  _P),
+    },
     "f32_peak.cu": {
         # x, out, n, iters, m, c, stream
         "cspm_f32_peak": (_P, _P, ctypes.c_long, _I, ctypes.c_float,

@@ -119,8 +119,21 @@ def guided_filter(guide: torch.Tensor, p: torch.Tensor, radius: int = 9,
     return q / n
 
 
+# BFCA's colour sigma (the guide in [0, 1])
+BF_SIG_CLR = 0.03
+
+
+def bilateral_constants(wnd: int, sig_clr: float = BF_SIG_CLR):
+    """(inv_sp2, inv_clr2): f32(1 / sig_sp^2) with sig_sp = wnd / 2, and
+    f32(1 / sig_clr^2), both rounded from double as the JAX module forms
+    them (kernel BFV takes the same two)."""
+    sig_sp = wnd / 2.0
+    return (np.float32(1.0 / (sig_sp * sig_sp)),
+            np.float32(1.0 / (sig_clr * sig_clr)))
+
+
 def bilateral_filter(guide: torch.Tensor, p: torch.Tensor, wnd: int,
-                     sig_clr: float = 0.03) -> torch.Tensor:
+                     sig_clr: float = BF_SIG_CLR) -> torch.Tensor:
     """Joint bilateral filter with wrap-around borders, sig_sp = wnd / 2.
 
     Args:
@@ -134,11 +147,10 @@ def bilateral_filter(guide: torch.Tensor, p: torch.Tensor, wnd: int,
     """
     h, w = p.shape[-2:]
     half = wnd // 2
-    sig_sp = wnd / 2.0
     # f32 constants and the spatial term's product in f32, as the JAX
     # module computes them
-    inv_sp2 = np.float32(1.0 / (sig_sp * sig_sp))
-    inv_clr2 = float(np.float32(1.0 / (sig_clr * sig_clr)))
+    inv_sp2, inv_clr2 = bilateral_constants(wnd, sig_clr)
+    inv_clr2 = float(inv_clr2)
     color = guide.dim() == 3
     rows = torch.remainder(torch.arange(-half, h + half, device=p.device), h)
     cols = torch.remainder(torch.arange(-half, w + half, device=p.device), w)
@@ -188,7 +200,7 @@ def guided_filter_volume(vol: torch.Tensor, guide_u8: torch.Tensor,
 
 def bilateral_filter_volume(vol: torch.Tensor, guide_u8: torch.Tensor,
                             wnd: int = 35,
-                            sig_clr: float = 0.03) -> torch.Tensor:
+                            sig_clr: float = BF_SIG_CLR) -> torch.Tensor:
     """BFCA: the wnd x wnd joint bilateral of each inner slice."""
     guide = guide_u8.to(vol.dtype) / 255.0
     return _filter_inner_slices(

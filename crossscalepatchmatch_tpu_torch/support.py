@@ -24,7 +24,9 @@ def check_supported(cfg: CSPMConfig, hw: Tuple[int, int], device) -> None:
       hw: the fine level's (H, W).
       device: where the run happens; only a CUDA device is checked.
 
-    The limits: every kernel takes half_wnd <= 64; the census volume
+    The limits: every kernel takes half_wnd <= 64 (so the bilateral
+    volume filter BFV, whose window is wnd_size, takes its <= 129); the
+    census volume
     kernel (CENV) takes census_wnd <= 15 (7 words of code); the image-lerp
     fly
     kernel (K6: precompute_volume=False, fly_lerp="image") needs max_dis

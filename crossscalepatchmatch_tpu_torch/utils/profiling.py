@@ -272,9 +272,10 @@ def reset_launch_counts() -> None:
     from ..models import postprocess
     from ..ops import (census, grad_cost, onthefly_cost, plane_cost,
                        prescreen_volume)
-    from ..ops.cuda import (census_volume, cross_scale_cost, fly_cost,
-                            grd_volume, quadrant_build, quadrant_rank,
-                            refine_propose, weighted_median, window_cost)
+    from ..ops.cuda import (bilateral_volume, census_volume,
+                            cross_scale_cost, fly_cost, grd_volume,
+                            quadrant_build, quadrant_rank, refine_propose,
+                            weighted_median, window_cost)
 
     window_cost.launches = window_cost.strided_launches = 0
     quadrant_build.launches = cross_scale_cost.launches = 0
@@ -286,6 +287,7 @@ def reset_launch_counts() -> None:
     grad_cost.launches = prescreen_volume.rank_launches = 0
     census_volume.launches = census.launches = 0
     refine_propose.launches = 0
+    bilateral_volume.launches = bilateral_volume.plain_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -293,9 +295,10 @@ def launch_counts() -> Dict[str, int]:
     from ..models import postprocess
     from ..ops import (census, grad_cost, onthefly_cost, plane_cost,
                        prescreen_volume)
-    from ..ops.cuda import (census_volume, cross_scale_cost, fly_cost,
-                            grd_volume, quadrant_build, quadrant_rank,
-                            refine_propose, weighted_median, window_cost)
+    from ..ops.cuda import (bilateral_volume, census_volume,
+                            cross_scale_cost, fly_cost, grd_volume,
+                            quadrant_build, quadrant_rank, refine_propose,
+                            weighted_median, window_cost)
 
     return {"k1": window_cost.launches - window_cost.strided_launches,
             "k3_volume": window_cost.strided_launches,
@@ -311,6 +314,7 @@ def launch_counts() -> Dict[str, int]:
             "qrank": quadrant_rank.launches,
             "cenv": census_volume.launches,
             "rprop": refine_propose.launches,
+            "bfv": bilateral_volume.launches,
             "k1_plain": plane_cost.launches,
             "k2_plain": prescreen_volume.launches,
             "k4_plain": plane_cost.cross_scale_launches,
@@ -318,7 +322,8 @@ def launch_counts() -> Dict[str, int]:
             "wmf_plain": postprocess.plain_launches,
             "grdv_plain": grad_cost.launches,
             "qrank_plain": prescreen_volume.rank_launches,
-            "cenv_plain": census.launches}
+            "cenv_plain": census.launches,
+            "bfv_plain": bilateral_volume.plain_launches}
 
 
 def busy_union(intervals) -> float:
@@ -339,8 +344,8 @@ def kernel_family(name: str, cfg) -> str:
     one level or over the pyramid; K2; fly: the no-volume kernel, K5 / K3;
     WMF: the weighted median and its two preparation kernels; GRDV: the
     GRD cost volume; QRANK: the quadrant ranking; CENV: the census codes
-    and volume; RPROP: a refinement stage's proposal), "other" for
-    PyTorch's own ops."""
+    and volume; RPROP: a refinement stage's proposal; BFV: the bilateral
+    volume filter), "other" for PyTorch's own ops."""
     if "cross_scale_kernel" in name:
         return "K4" if cfg.use_cs else "K1"
     if "quadrant_build_kernel" in name:
@@ -359,6 +364,8 @@ def kernel_family(name: str, cfg) -> str:
         return "CENV"
     if "refine_propose_kernel" in name:
         return "RPROP"
+    if "bilateral_volume_kernel" in name:
+        return "BFV"
     return "other"
 
 

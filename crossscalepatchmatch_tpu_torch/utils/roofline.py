@@ -25,6 +25,8 @@ crossscalepatchmatch_tpu utils/roofline.py).
     of a quadrant row counted once (the bound on candidates that share
     taps); quadrant_rank_sectors: the distinct 32-byte sectors of the
     quadrant volume that a QRANK launch's taps touch;
+  * bilateral_volume_work: the bytes and operations of one launch of the
+    bilateral volume filter (kernel BFV, the BF aggregator) on a level;
   * measure_f32_peak: the f32 ceiling the card sustains, from a
     hand-written FMA-chain kernel (csrc/f32_peak.cu).
 """
@@ -93,6 +95,12 @@ CENSUS_OPS_PER_BIT = 2
 # multiplies, three adds, a divide); the Philox rounds are integer work
 RPROP_FLOPS_PER_PIXEL = 11
 RPROP_FLOPS_PER_CANDIDATE = 33
+# the bilateral volume filter (kernel BFV) per (pixel, window offset): the
+# weight (three subtracts and absolute values, two adds and the 1/3 of the
+# colour mean, its square and scale, the spatial term's subtract, the exp
+# counted as one, the weight sum's add) once, and a multiply and an add for
+# each of the D - 2 inner slices
+BF_FLOPS_PER_WEIGHT = 12
 
 # the JAX model's semantic op counts (crossscalepatchmatch_tpu
 # utils/roofline.py): per (center, offset, candidate) the plane at q (2
@@ -387,6 +395,21 @@ def refine_propose_work(k: int, h: int, w: int) -> Tuple[int, int]:
     n = 2 * h * w
     return 12 * n * (1 + k), (RPROP_FLOPS_PER_PIXEL
                               + RPROP_FLOPS_PER_CANDIDATE * k) * n
+
+
+def bilateral_volume_work(h: int, w: int, d: int,
+                          wnd: int) -> Tuple[int, int]:
+    """(bytes, f32 operations) of one BFV launch: the wnd x wnd bilateral
+    filter of both views' H x W x D volumes on one level
+    (ops.cuda.bilateral_volume.bilateral_volumes).  The borders wrap, so
+    every window offset of every pixel is in the image:
+    2 (D - 2) + BF_FLOPS_PER_WEIGHT operations a (pixel, offset); the f32
+    volumes read once, their D - 2 filtered inner slices written once and
+    the u8 guides read once."""
+    n = 2 * h * w
+    inner = max(d - 2, 0)
+    return (n * (4 * d + 4 * inner + 3),
+            n * wnd * wnd * (2 * inner + BF_FLOPS_PER_WEIGHT))
 
 
 def quadrant_rank_work(abc: torch.Tensor, half_wnd: int,

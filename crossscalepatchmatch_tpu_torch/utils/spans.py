@@ -5,6 +5,8 @@ models/patchmatch, models/postprocess, utils/rng):
 
     pair (entry=run_pair|run_pair_warm)
     ├─ volume_build | fly_data
+    │  └─ aggregate (filter, level, slices: one a level with an
+    │                aggregation filter)
     ├─ quadrant_build_K2
     ├─ rank_phase | exact_phase | warm_phase
     │  ├─ init
@@ -124,19 +126,24 @@ def span(name: str, *, entry: str | None = None, i: int | None = None,
          s: int | None = None, k: int | None = None,
          stage: int | None = None, view: int | None = None,
          round: int | None = None,  # noqa: A002 (the attribute's name)
-         fused: bool | None = None):
+         fused: bool | None = None,
+         filter: str | None = None,  # noqa: A002 (the attribute's name)
+         level: int | None = None, slices: int | None = None):
     """A context manager around one layer's work: a Span while recording,
     else the shared NO_SPAN.  The keywords are the span's attributes:
     entry (the pair's entry point), i (iteration), s (sweep), k
     (candidates a pixel proposed), stage (refinement stage), view and
     round (a draw's key), fused (a refinement stage proposed by kernel
-    RPROP); only those given are kept."""
+    RPROP), filter, level and slices (an aggregation filter, the pyramid
+    level it runs on and the inner slices it filters); only those given
+    are kept."""
     if _recorder is None:
         return NO_SPAN
     attrs = {key: v for key, v in (("entry", entry), ("i", i), ("s", s),
                                    ("k", k), ("stage", stage),
                                    ("view", view), ("round", round),
-                                   ("fused", fused))
+                                   ("fused", fused), ("filter", filter),
+                                   ("level", level), ("slices", slices))
              if v is not None}
     return Span(name, attrs)
 

@@ -1733,3 +1733,128 @@ def test_rprop_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert rp.launches == n
     out = rp.refine_propose_cuda(abc, rounds=range(16), **kw)
     assert rp.launches == n + 1 and out.shape == (2, 16, 5, 6, 3)
+
+
+# -- BFV: the bilateral volume filter (the BF aggregator) --------------------
+
+def bfv_scene(h, w, max_dis, cuda, seed=0):
+    """Both views' GRD volumes f32[2, H, W, D] of a synthetic pair (the
+    kernel GRDV's, equal to the plain version's) and their BGR guides."""
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
+
+    p = make_pair(h=h, w=w, max_dis=max(min(max_dis, w // 4), 1),
+                  seed=seed)
+    l, r = (torch.as_tensor(v, device=cuda) for v in (p.left, p.right))
+    vols = grd_volume.grd_volumes(bgr_to_rgb(l), bgr_to_rgb(r), max_dis)
+    return vols, torch.stack([l, r])
+
+
+@pytest.mark.parametrize("h,w,max_dis,wnd", [
+    (375, 450, 60, 35), (375, 1242, 128, 35), (24, 29, 15, 35),
+    (6, 8, 3, 35), (47, 57, 7, 35), (40, 64, 300, 7), (30, 40, 20, 34),
+    (9, 11, 31, 1), (20, 30, 10, 129)],
+    ids=["readme_demo", "kitti", "coarse_level", "tiny_level",
+         "narrower_than_window", "three_chunks", "even_window", "one_tap",
+         "widest_window"])
+def test_bfv_bit_equal_on_the_card(cuda, h, w, max_dis, wnd):
+    """BFV against filters.bilateral_filter_volume on the same CUDA
+    tensors, both views, element for element: README_DEMO's level (375 x
+    450, D 61), KITTI's (375 x 1242, D 129), a 5-level pyramid's coarse
+    levels narrower and lower than the window (its borders wrap several
+    times), more inner slices than one block holds (three chunks), an even
+    window, a window of one and the widest window (129, past 48 KB of
+    shared memory a block); one launch, slices 0 and D - 1 the input's."""
+    from crossscalepatchmatch_tpu_torch.ops import filters
+    from crossscalepatchmatch_tpu_torch.ops.cuda import bilateral_volume
+
+    vols, guides = bfv_scene(h, w, max_dis, cuda)
+    n = bilateral_volume.launches
+    got = bilateral_volume.bilateral_volumes(vols, guides, wnd)
+    torch.cuda.synchronize()
+    assert bilateral_volume.launches == n + 1
+    assert got.shape == vols.shape
+    assert torch.equal(got[..., 0], vols[..., 0])
+    assert torch.equal(got[..., -1], vols[..., -1])
+    for v in range(2):
+        want = filters.bilateral_filter_volume(vols[v], guides[v], wnd=wnd)
+        bad = got[v] != want
+        assert int(bad.sum()) == 0, (
+            f"view {v}: {int(bad.sum())} differ, at most "
+            f"{ulp_gap(got[v][bad], want[bad])} ulp")
+
+
+def test_bfv_one_launch_a_level_in_run_pair(cuda):
+    """run_pair with the BF aggregator over a 3-level pyramid on the card:
+    one BFV launch and one `aggregate` span a level, the plain filter
+    never called, and the maps those of the same pair with the plain
+    filter put in the kernel's place."""
+    import dataclasses
+
+    from crossscalepatchmatch_tpu_torch.config import Aggregator
+    from crossscalepatchmatch_tpu_torch.ops.cuda import bilateral_volume
+    from crossscalepatchmatch_tpu_torch.utils import spans
+
+    cfg = dataclasses.replace(README_DEMO, max_dis=16, wnd_size=9,
+                              use_cs=True, scale_num=3, reg_lambda=0.3,
+                              aggregator=Aggregator.BF)
+    p = make_pair(h=64, w=96, max_dis=16, seed=2)
+    l, r = (torch.as_tensor(v, device=cuda) for v in (p.left, p.right))
+    reset_counts()
+    with spans.recording() as rec:
+        got = run_pair(l, r, 3, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert bilateral_volume.launches == 3
+    assert bilateral_volume.plain_launches == 0
+    agg = [sp.attrs for sp in rec if sp.name == "aggregate"]
+    assert agg == [{"filter": "BF", "level": s, "slices": (16 >> s) - 1}
+                   for s in range(3)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bilateral_volume, "bilateral_volumes_cuda",
+                   bilateral_volume.bilateral_volumes_plain)
+        want = run_pair(l, r, 3, cfg, device=cuda)
+    assert bilateral_volume.launches == 3
+    for key in ("dis", "valid", "cost", "abc"):
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_bfv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from crossscalepatchmatch_tpu_torch.ops.cuda import bilateral_volume
+
+    vols, guides = bfv_scene(12, 16, 6, cuda)
+    n = bilateral_volume.launches
+    for v, g, wnd in ((vols.cpu(), guides, 5), (vols.double(), guides, 5),
+                      (vols.transpose(1, 2), guides, 5),
+                      (vols, guides[..., :2].contiguous(), 5),
+                      (vols, guides.float(), 5), (vols, guides[:1], 5),
+                      (vols, guides, 0), (vols, guides, 130),
+                      (vols[0], guides[0], 5)):
+        with pytest.raises(ValueError):
+            bilateral_volume.bilateral_volumes_cuda(v, g, wnd)
+    assert bilateral_volume.launches == n
+    two = vols[..., :2].contiguous()
+    assert bilateral_volume.bilateral_volumes(two, guides, 5) is two
+    assert bilateral_volume.launches == n
+
+
+def test_cuda_mean_of_three_is_the_order_bfv_follows(cuda):
+    """The premise of BFV's colour term: PyTorch's CUDA mean over a last
+    axis of 3 adds elements 0 and 2, then 1, and multiplies by f32(1/3)."""
+    v = torch.as_tensor(np.random.default_rng(2).uniform(
+        0, 1, (375, 1242, 3)).astype(np.float32), device=cuda)
+    third = torch.tensor(1.0 / 3.0, dtype=torch.float32, device=cuda)
+    want = ((v[..., 0] + v[..., 2]) + v[..., 1]) * third
+    assert torch.equal(v.mean(-1), want)
+
+
+def test_cuda_addcmul_rounds_once_as_bfv_does(cuda):
+    """The premise of BFV's slice sums: addcmul_ on CUDA tensors rounds
+    s + w * p once (the kernel's fmaf), not the product and then the sum.
+    The f64 product of two f32 values is exact, so f32(s + w * p) in f64
+    is the single rounding but for double rounding, which these draws do
+    not meet."""
+    rng = np.random.default_rng(3)
+    s, w, p = (torch.as_tensor(rng.uniform(0, 1, 200_000).astype(
+        np.float32), device=cuda) for _ in range(3))
+    fused = (s.double() + w.double() * p.double()).float()
+    assert not torch.equal(fused, s + w * p)    # the draws tell them apart
+    assert torch.equal(s.clone().addcmul_(w, p), fused)

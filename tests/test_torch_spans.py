@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from crossscalepatchmatch_tpu_torch import CEN_CS_PP, KITTI, README_DEMO
+from crossscalepatchmatch_tpu_torch.config import Aggregator
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair,
                                                             run_pair_warm)
@@ -127,6 +128,29 @@ def test_span_tree_of_a_cold_pair(case, pair):
         False}
     sweeps = [sp.attrs for sp in rec[:roots[1]] if sp.name == "sweep"]
     assert sweeps[:2] == [{"s": 0, "k": 8}, {"s": 1, "k": 8}]
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("agg", ["BOX", "GF", "BF"])
+def test_aggregate_span_a_level(pair, agg, levels):
+    """With an aggregation filter each level's filter is an `aggregate`
+    span under `volume_build` (filter, level, the inner slices it
+    filters), on the CPU path too; without one there is none."""
+    cfg = dataclasses.replace(GRD, aggregator=Aggregator(agg),
+                              use_cs=levels > 1, scale_num=levels,
+                              reg_lambda=0.3)
+    with spans.recording() as rec:
+        run_pair(pair.left, pair.right, 5, cfg, device="cpu")
+        run_pair(pair.left, pair.right, 5, GRD, device="cpu")
+    paths = profiling.span_paths(rec)
+    second = [i for i, sp in enumerate(rec) if sp.parent < 0][1]
+    got = [(paths[i], sp.seq, sp.attrs) for i, sp in enumerate(rec)
+           if sp.name == "aggregate"]
+    assert got == [("volume_build/aggregate", 0,
+                    {"filter": agg, "level": s, "slices": (12 >> s) - 1})
+                   for s in range(levels)]
+    assert all(i < second for i, sp in enumerate(rec)
+               if sp.name == "aggregate")
 
 
 def test_span_tree_of_a_warm_pair(pair):

@@ -4,7 +4,7 @@
                                                  README_DEMO-fly|KITTI-fly|
                                                  KITTI|README_DEMO-BOX|
                                                  README_DEMO-GF|
-                                                 README_DEMO-BF|
+                                                 README_DEMO-BF|KITTI-BF|
                                                  README_DEMO-warm]
                                        [--h 375 --w 450 --max-dis 60]
 
@@ -19,7 +19,7 @@ the span open at its launch: the volume build (or, without a volume, the
 channel planes' build `fly_data`), the cost functions (the K2 build on
 the volume path), the rank phase, the exact phase, plane_to_disp and
 `postprocess` when the config post-processes; the -BOX/-GF/-BF configs
-filter the volumes in `volume_build`; README_DEMO-warm profiles a warm
+filter the volumes in `volume_build` (an `aggregate` span a level); README_DEMO-warm profiles a warm
 frame, run_pair_warm's one iteration as `warm_phase`, on the scene's next
 frame (new sensor noise) from the first frame's planes), host, self and
 device ms and launches by span, the per-layer readings (draws.host_ms,
@@ -63,6 +63,8 @@ def main() -> int:
             config.README_DEMO, aggregator=a) for a in
            (config.Aggregator.BOX, config.Aggregator.GF,
             config.Aggregator.BF)},
+        "KITTI-BF": dataclasses.replace(config.KITTI,
+                                        aggregator=config.Aggregator.BF),
         "README_DEMO-warm": config.README_DEMO}
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", choices=tuple(configs),
