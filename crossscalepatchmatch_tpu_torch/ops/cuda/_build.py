@@ -95,9 +95,10 @@ SOURCES = {
                                 _P, _P),
     },
     "bilateral_volume.cu": {
-        # vol, guide, out, V, H, W, D, wnd, inv_sp2, inv_clr2, stream
+        # vol, guide, out, V, H, W, D, wnd, inv_sp2, inv_clr2, the launch
+        # plan (dc, per_chunk, chunks, wx, wy), stream
         "cspm_bilateral_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                  _P),
+                                  _I, _I, _I, _I, _I, _P),
     },
     "f32_peak.cu": {
         # x, out, n, iters, m, c, stream

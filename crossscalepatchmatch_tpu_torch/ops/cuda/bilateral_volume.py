@@ -13,6 +13,8 @@ source's note), so its volumes equal the plain version's there.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import MAX_HALF_WND, _build, check_tensor
@@ -24,6 +26,59 @@ launches = 0
 plain_launches = 0
 # the widest window the kernel takes (csrc/bilateral_volume.cu kMaxWnd)
 MAX_WND = 2 * MAX_HALF_WND + 1
+# the kernel's tiling (csrc/bilateral_volume.cu): a warp's pixels along a
+# row and its rows, the window rows a block's ring holds, the shared memory
+# a block may hold on the H100, and the blocks a launch should give the
+# H100's 132 SMs (two each, so one block's barrier overlaps another's work)
+PIX, ROWS = 8, 2
+STAGES = 2
+MAX_SMEM = 232_448
+MIN_BLOCKS = 2 * 132
+# a block's warps along a row and down the rows: 4 x 2, or 2 x 2 on a
+# level too small for MIN_BLOCKS blocks of 4 x 2 or at a window too wide
+# for their shared memory (2 x 2 fits at every window up to MAX_WND)
+BLOCKS = ((4, 2), (2, 2))
+
+
+class Plan(NamedTuple):
+    """How one BFV launch tiles a level (launch_plan)."""
+    dc: int         # consecutive slices a lane holds: 1, 2 or 4
+    per_chunk: int  # inner slices a block filters, at most 32 dc - 1
+    chunks: int     # blocks that split a pixel's inner slices
+    wx: int         # a block's warps along a row (PIX pixels each)
+    wy: int         # ... and down the rows (ROWS rows each)
+    smem: int       # bytes of shared memory a block holds
+    blocks: int     # blocks of the launch, for V views
+
+
+def smem_bytes(dc: int, wx: int, wy: int, wnd: int) -> int:
+    """A block's shared memory (csrc/bilateral_volume.cu smem_bytes): the
+    ring of STAGES window rows of its PIX wx + wnd - 1 columns at 32 dc
+    floats a column, the same rows of the guide as float4, each warp's
+    weight table (PIX + wnd - 1 columns of PIX ROWS floats) and the
+    wrapped column indices."""
+    nb = PIX * wx + wnd - 1
+    return 4 * (STAGES * nb * 32 * dc + STAGES * nb * 4
+                + wx * wy * (PIX + wnd - 1) * PIX * ROWS) + 4 * nb
+
+
+def launch_plan(v: int, h: int, w: int, d: int, wnd: int) -> Plan:
+    """The kernel's tiling of V views of an H x W x D level at window wnd,
+    from the shape alone: the fewest slices a lane that holds the inner
+    slices and sw's slot (past 127 of them, chunks of at most 32 dc - 1
+    slices, as even as they split), then the first block of BLOCKS that
+    fits MAX_SMEM and gives the launch MIN_BLOCKS blocks, else the last."""
+    inner = d - 2
+    dc = 1 if inner < 32 else 2 if inner < 64 else 4
+    chunks = -(-inner // (32 * dc - 1))
+    per_chunk = -(-inner // chunks)
+    chunks = -(-inner // per_chunk)
+    for wx, wy in BLOCKS:
+        smem = smem_bytes(dc, wx, wy, wnd)
+        blocks = v * chunks * -(-w // (PIX * wx)) * -(-h // (ROWS * wy))
+        if smem <= MAX_SMEM and blocks >= MIN_BLOCKS or \
+                (wx, wy) == BLOCKS[-1]:
+            return Plan(dc, per_chunk, chunks, wx, wy, smem, blocks)
 
 
 def bilateral_volumes_plain(vols: torch.Tensor, guides_u8: torch.Tensor,
@@ -62,10 +117,12 @@ def bilateral_volumes_cuda(vols: torch.Tensor, guides_u8: torch.Tensor,
     if d <= 2:
         return vols
     inv_sp2, inv_clr2 = filters.bilateral_constants(wnd)
+    plan = launch_plan(n, h, w, d, wnd)
     out = torch.empty_like(vols)
     err = _build.load().cspm_bilateral_volume(
         vols.data_ptr(), guides_u8.data_ptr(), out.data_ptr(), n, h, w, d,
-        wnd, float(inv_sp2), float(inv_clr2), _build.stream_of(out))
+        wnd, float(inv_sp2), float(inv_clr2), *plan[:5],
+        _build.stream_of(out))
     _build.check(err, "cspm_bilateral_volume")
     launches += 1
     return out

@@ -1749,27 +1749,45 @@ def bfv_scene(h, w, max_dis, cuda, seed=0):
     return vols, torch.stack([l, r])
 
 
-@pytest.mark.parametrize("h,w,max_dis,wnd", [
-    (375, 450, 60, 35), (375, 1242, 128, 35), (24, 29, 15, 35),
-    (6, 8, 3, 35), (47, 57, 7, 35), (40, 64, 300, 7), (30, 40, 20, 34),
-    (9, 11, 31, 1), (20, 30, 10, 129)],
+@pytest.mark.parametrize("h,w,max_dis,wnd,block", [
+    (375, 450, 60, 35, None), (375, 1242, 128, 35, None),
+    (24, 29, 15, 35, None), (6, 8, 3, 35, None), (47, 57, 7, 35, None),
+    (40, 64, 300, 7, None), (30, 40, 20, 34, None), (9, 11, 31, 1, None),
+    (20, 30, 10, 129, None), (30, 70, 127, 35, None),
+    (30, 70, 129, 35, None), (30, 70, 130, 35, None),
+    (20, 133, 128, 35, (4, 2)), (3, 100, 60, 35, (4, 2)),
+    (24, 72, 40, 35, (4, 2))],
     ids=["readme_demo", "kitti", "coarse_level", "tiny_level",
          "narrower_than_window", "three_chunks", "even_window", "one_tap",
-         "widest_window"])
-def test_bfv_bit_equal_on_the_card(cuda, h, w, max_dis, wnd):
+         "widest_window", "d128", "d130", "d131", "partial_last_block",
+         "height_below_block_rows", "wrap_in_segment"])
+def test_bfv_bit_equal_on_the_card(cuda, h, w, max_dis, wnd, block):
     """BFV against filters.bilateral_filter_volume on the same CUDA
     tensors, both views, element for element: README_DEMO's level (375 x
     450, D 61), KITTI's (375 x 1242, D 129), a 5-level pyramid's coarse
     levels narrower and lower than the window (its borders wrap several
     times), more inner slices than one block holds (three chunks), an even
     window, a window of one and the widest window (129, past 48 KB of
-    shared memory a block); one launch, slices 0 and D - 1 the input's."""
+    shared memory a block); D 128, 130 and 131 beside 129, so a pixel's
+    slices start at every 4-byte phase of 16 (130 and 131 in two chunks);
+    and, in blocks of 4 x 2 warps (32 pixels of 4 rows, forced through the
+    launch plan), a width whose last block holds 5 pixels, a height of 3
+    rows under the block's 4, a width of 72 whose blocks' staged columns
+    wrap at both edges.  One launch, slices 0 and D - 1 the input's."""
     from crossscalepatchmatch_tpu_torch.ops import filters
     from crossscalepatchmatch_tpu_torch.ops.cuda import bilateral_volume
 
     vols, guides = bfv_scene(h, w, max_dis, cuda)
     n = bilateral_volume.launches
-    got = bilateral_volume.bilateral_volumes(vols, guides, wnd)
+    with pytest.MonkeyPatch.context() as mp:
+        if block is not None:
+            plan = bilateral_volume.launch_plan
+            wx, wy = block
+            mp.setattr(bilateral_volume, "launch_plan",
+                       lambda *shape: plan(*shape)._replace(
+                           wx=wx, wy=wy, smem=bilateral_volume.smem_bytes(
+                               plan(*shape).dc, wx, wy, wnd)))
+        got = bilateral_volume.bilateral_volumes(vols, guides, wnd)
     torch.cuda.synchronize()
     assert bilateral_volume.launches == n + 1
     assert got.shape == vols.shape

@@ -1,5 +1,5 @@
-"""Time the port's K1, K2, K3, K4, fly, QRANK, WMF, GRDV and census volume
-kernels on a CUDA card, optionally against another checkout of the
+"""Time the port's K1, K2, K3, K4, fly, QRANK, WMF, GRDV, census volume and
+BFV kernels on a CUDA card, optionally against another checkout of the
 repository.
 
     python tools/torch_kernel_ab.py [--parent DIR] [--reps 5]
@@ -23,9 +23,12 @@ alone; GRDV (grd_volumes: both views, the wrapper) on the bench and KITTI
 scenes and the bench tile's full-width row band; the census volumes as
 build_volumes makes them (CENV, or the plain census in a checkout without
 it) at each of the bench scene's 5 CEN_CS_PP levels, all levels together
-and a KITTI-size level.  Every time is CUDA events around `reps` launches
-after a warm-up (GRDV and the census volumes also their kernels' device
-time a call, from torch.profiler, and the kernels a call); where the checkout has prepared pairs (prepare_fly,
+and a KITTI-size level; BFV (bilateral_volumes_cuda: both views, wnd 35) on
+the bench scene's and the KITTI scene's GRD volumes, README_DEMO-BF's level
+(375x450, D 61) and KITTI-BF's (375x1242, D 129).  Every time is CUDA
+events around `reps` launches after a warm-up (GRDV, the census volumes
+and BFV also their kernels' device time a call, from torch.profiler, and
+the kernels a call); where the checkout has prepared pairs (prepare_fly,
 prepare_cross_scale, prepare_volumes), the preparation (packing, the
 pair-layout volumes) is outside the timed region, and a checkout without
 prepare_volumes has its K1 / K2 entries called on pre-packed inputs.
@@ -221,6 +224,17 @@ def main() -> int:
         timed_device(f"census volume {tag} all {levels} level(s)",
                      lambda: [build_volumes(a, b, m, cfg)
                               for a, b, m in lvs])
+    # -- BFV: README_DEMO-BF's and KITTI-BF's level ---------------------------
+    from crossscalepatchmatch_tpu_torch.ops.cuda import bilateral_volume
+
+    for tag, (_, l, r), cfg in (("README_DEMO level", bench, README_DEMO),
+                                ("KITTI level", kitti, KITTI)):
+        vd = build_volume_data(l, r, cfg)
+        vols, guides = vd.vols[0], vd.imgs[0]
+        del vd
+        timed_device(f"BFV {tag}", lambda: bilateral_volume.
+                     bilateral_volumes_cuda(vols, guides, cfg.wnd_size))
+        del vols, guides
     fly_case("K5 K=1", fcfg, bench, 1, "cost", 1)
     fly_case("K5 K=2", fcfg, bench, 2, "cost", 1)
     fly_case("K5 K=3", fcfg, bench, 3, "cost", 1)
