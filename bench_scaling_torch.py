@@ -25,10 +25,9 @@ draw seeds B*i + j.  Each call ends in torch.cuda.synchronize() on every
 rank and a gather of every rank's readings (a barrier); its time is the
 slowest rank's host-clock time.  Every timed call is gated: each pair's
 left map (gathered) has non-occluded bad-pixel @1px <= BAD_PIXEL_MAX
-(0.01, bench_torch's), and on the full mesh the mean over the calls is
-within GAP_MAX (0.005, chip_smoke.py phase 10's bound) of the n = 1
-run's.  A miss raises GateMissed on every rank, so the run exits non-zero
-and prints no result line.
+(0.01), and on the full mesh the mean over the calls is within GAP_MAX
+(0.005) of the n = 1 run's.  A miss raises GateMissed on every rank, so
+the run exits non-zero and prints no result line.
 
 Rank 0 prints one JSON line per mesh, bench_scaling.py's keys ("metric":
 "sharded_pairs_per_second", "mesh": "ty=n" / "data=n", "value" pairs/s,
@@ -57,6 +56,7 @@ exits 1.
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -64,7 +64,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-import bench_torch
 from crossscalepatchmatch_tpu_torch.config import CostMethod, CSPMConfig
 from crossscalepatchmatch_tpu_torch.data import make_pair
 from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
@@ -76,17 +75,44 @@ from crossscalepatchmatch_tpu_torch.parallel.tiled import (
 from crossscalepatchmatch_tpu_torch.utils.profiling import (
     launch_counts, reset_launch_counts)
 
-GateMissed = bench_torch.GateMissed
 THRESH_PX = 1.0
-BAD_PIXEL_MAX = bench_torch.BAD_PIXEL_MAX   # every pair of a timed call
+BAD_PIXEL_MAX = 0.01        # every pair of a timed call
 GAP_MAX = 0.005             # |mean bad-pixel, full mesh - n = 1|
 # the projection's cluster shapes (bench_scaling.py): (hosts, cards)
 PROJECTED = ((1, 4), (1, 8), (2, 16), (4, 32))
 LINK_COPIES = 50            # timed copies of the card-to-card link
 
 
+class GateMissed(RuntimeError):
+    """A timed call's output missed its correctness gate."""
+
+
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def quartiles(xs):
+    q1, med, q3 = np.percentile(np.asarray(xs, np.float64), (25, 50, 75))
+    return dict(median=float(med), q1=float(q1), q3=float(q3),
+                min=float(min(xs)), max=float(max(xs)))
+
+
+def describe_device(dev) -> dict:
+    """What the run ran on: the card's name, power limit (nvidia-smi) and
+    count; "cpu" and no limit on the CPU."""
+    if dev.type != "cuda":
+        return dict(kind="cpu", power_limit=None, count=0)
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        smi = []
+    idx = dev.index or 0
+    limit = smi[idx].split(",")[-1].strip() if len(smi) > idx else None
+    return dict(kind=torch.cuda.get_device_name(dev), power_limit=limit,
+                count=torch.cuda.device_count())
 
 
 def workload_cfg(args) -> CSPMConfig:
@@ -179,14 +205,14 @@ def measure(args, dev, only_one_rank: bool = False) -> list:
              for s in range(b)]
     l = torch.as_tensor(np.stack([p.left for p in pairs]), device=rdev)
     r = torch.as_tensor(np.stack([p.right for p in pairs]), device=rdev)
-    device = bench_torch.describe_device(rdev)
+    device = describe_device(rdev)
     note = run_note(dev.type == "cuda", backend)
     plan = mesh_plan(args, world, cfg.half_wnd)
     rows = []
     for name, n, shape in plan[:1] if only_one_rank else plan:
         mesh = make_mesh(*shape)
         calls = time_mesh(mesh, cfg, l, r, pairs, args.reps, rdev, comm_dev)
-        q = bench_torch.quartiles([c["s"] for c in calls])
+        q = quartiles([c["s"] for c in calls])
         value = b / q["median"]
         base = rows[0]["value"] if rows else value
         row = dict(
@@ -313,7 +339,7 @@ def project_line(args, dev, t1: float, t1_source: str, card_bps) -> dict:
         "rows": rows,
         "left_out": [f"{m}: no figure for its link" for m in left_out],
         "t1_source": t1_source,
-        "device": bench_torch.describe_device(dev),
+        "device": describe_device(dev),
     }
 
 

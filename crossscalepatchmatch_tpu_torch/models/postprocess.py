@@ -31,8 +31,8 @@ N_LEVELS = 256
 # Budget of one block of weighted-median contributions, in f32 elements.
 WMF_BLOCK_ELEMS = 1 << 26
 
-# Calls of weighted_median_plain (a plain count; chip_smoke reads it to show
-# the card's paths never came through here).
+# Calls of weighted_median_plain (a plain count; the GPU tier reads it to
+# show the card's paths never came through here).
 plain_launches = 0
 
 

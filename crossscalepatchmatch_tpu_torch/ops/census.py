@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-# Calls of the plain census volume (a plain count; chip_smoke reads it to
+# Calls of the plain census volume (a plain count; the GPU tier reads it to
 # show the card's main paths never came through here).
 launches = 0
 

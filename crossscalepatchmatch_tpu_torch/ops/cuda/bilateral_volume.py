@@ -20,8 +20,8 @@ import torch
 from . import MAX_HALF_WND, _build, check_tensor
 from .. import filters
 
-# Kernel launches, one a level (a plain count; chip_smoke resets and reads
-# it), and the plain version's calls on a level's views.
+# Kernel launches, one a level (a plain count; the GPU tier resets and
+# reads it), and the plain version's calls on a level's views.
 launches = 0
 plain_launches = 0
 # the widest window the kernel takes (csrc/bilateral_volume.cu kMaxWnd)

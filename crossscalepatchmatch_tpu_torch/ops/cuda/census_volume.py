@@ -21,7 +21,8 @@ from . import MAX_CENSUS_WND, _build, check_cuda_pair, check_views
 from ..census import census_cost_volume
 from ..color import rgb_to_gray_u8
 
-# Kernel calls, one a level (a plain count; chip_smoke resets and reads it).
+# Kernel calls, one a level (a plain count; the GPU tier resets and reads
+# it).
 launches = 0
 
 

@@ -33,7 +33,7 @@ from .. import plane_cost
 from . import (_build, check_half_wnd, check_tensor, pack_bgr,
                pair_volume)
 
-# Kernel launches (a plain count; chip_smoke resets and reads it).
+# Kernel launches (a plain count; the GPU tier resets and reads it).
 launches = 0
 
 MAX_LEVELS = 8

@@ -29,7 +29,7 @@ from . import _build, check_half_wnd, check_tensor, pack_bgr
 
 # Kernel launches by variant, keyed (lerp, lab, strided): lerp "cost" is
 # K5, "image" K6, lab the Lab weight slab of K7, strided the window of K3.
-# chip_smoke clears and reads it.
+# The GPU tier clears and reads it.
 launches: collections.Counter = collections.Counter()
 
 

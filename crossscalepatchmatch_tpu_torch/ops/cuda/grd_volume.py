@@ -28,7 +28,7 @@ from .. import grad_cost
 from ..color import rgb_to_gray_f32
 from ..gradient import sobel_x_k1
 
-# Kernel launches (a plain count; chip_smoke resets and reads it).
+# Kernel launches (a plain count; the GPU tier resets and reads it).
 launches = 0
 
 

@@ -26,7 +26,7 @@ from . import _build, check_tensor
 from .cross_scale_cost import Rect, valid_vectors
 from .window_cost import PreparedVolumes, prepare_volumes
 
-# Kernel launches (a plain count; chip_smoke resets and reads it).  The
+# Kernel launches (a plain count; the GPU tier resets and reads it).  The
 # kernel takes any depth: it runs the slices in chunks of 16.
 launches = 0
 

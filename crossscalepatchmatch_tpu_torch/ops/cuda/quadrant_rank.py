@@ -18,7 +18,7 @@ import torch
 from . import _build
 from .. import prescreen_volume
 
-# Kernel launches (a plain count; chip_smoke resets and reads it).
+# Kernel launches (a plain count; the GPU tier resets and reads it).
 launches = 0
 
 

@@ -30,8 +30,8 @@ import torch
 from . import _build
 from .. import plane
 
-# Kernel launches, one a stage (a plain count; chip_smoke resets and reads
-# it).
+# Kernel launches, one a stage (a plain count; the GPU tier resets and
+# reads it).
 launches = 0
 
 # The most rounds one launch proposes (csrc/refine_propose.cu kMaxRounds).

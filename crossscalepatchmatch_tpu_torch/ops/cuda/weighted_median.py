@@ -27,7 +27,7 @@ import torch
 from . import _build
 from ..plane_cost import L1_MAX
 
-# Kernel launches (a plain count; chip_smoke resets and reads it).
+# Kernel launches (a plain count; the GPU tier resets and reads it).
 launches = 0
 
 # Pixels a block of cspm_wmf_prepare's counting covers (csrc/

@@ -38,7 +38,7 @@ from . import (_build, check_half_wnd, check_tensor, pack_bgr,
 from .cross_scale_cost import (MAX_DIS_LIMIT, Rect, band_rect,
                                check_candidates, level_args, valid_vectors)
 
-# Kernel launches (plain counts; chip_smoke resets and reads them): all,
+# Kernel launches (plain counts; the GPU tier resets and reads them): all,
 # and those at wnd_stride > 1 (K3).
 launches = 0
 strided_launches = 0

@@ -18,8 +18,8 @@ import torch
 from .color import rgb_to_gray_f32
 from .gradient import sobel_x_k1
 
-# Calls of the plain GRD volume (a plain count; chip_smoke reads it to show
-# the card's main paths never came through here).
+# Calls of the plain GRD volume (a plain count; the GPU tier reads it to
+# show the card's main paths never came through here).
 launches = 0
 
 

@@ -42,7 +42,7 @@ from .gradient import sobel_x_k1
 from .plane_cost import asw_weight, level_plane_cost
 from .pyramid import build_pyramid
 
-# Calls of the plain version of the fly kernel (a plain count; chip_smoke
+# Calls of the plain version of the fly kernel (a plain count; the GPU tier
 # reads it to show the card's fly paths never came through here).
 launches = 0
 

@@ -27,8 +27,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-# Calls of the plain versions of K1 and K4 (plain counts; chip_smoke reads
-# them to show the card's main paths never came through here).
+# Calls of the plain versions of K1 and K4 (plain counts; the GPU tier
+# reads them to show the card's main paths never came through here).
 launches = 0
 cross_scale_launches = 0
 

@@ -18,7 +18,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 # Bytes of CUDA tensors staged through host memory (sent and received; a
-# plain count: chip_smoke resets and reads it).
+# plain count: bench_scaling_torch.py resets and reads it).
 host_bytes = 0
 
 

@@ -17,10 +17,10 @@ pipeline records (utils/spans):
   * profile_pair(): one run_pair (or run_pair_warm) call recorded, under
     torch.profiler on a card, and its per-phase summary (host and device
     ms, launches, the device's idle share and where the host held it
-    idle, device time per kernel), which bench_torch.py and
-    tools/torch_profile_pair.py print;
+    idle, device time per kernel), which tools/torch_profile_pair.py
+    prints;
   * reset_launch_counts() / launch_counts(): the kernels' and plain
-    versions' launch counters (chip_smoke.py, bench_scaling_torch.py).
+    versions' launch counters (the GPU tier, bench_scaling_torch.py).
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ crossscalepatchmatch_tpu utils/roofline.py).
   * the card's bound: HBM_BYTES_PER_S, F32_FLOP_PER_S (NVIDIA's H100 SXM
     data sheet at 700 W), the per-sample operation counts, the exact
     window-sample counts of a launch on given planes (axis_count,
-    window_samples), bound() and nbytes(); chip_smoke.py reads its kernels'
-    bounds from these;
+    window_samples), bound() and nbytes(); tools/torch_kernel_ab.py reads
+    its kernels' bounds from these;
   * median_samples: the window samples a bisection for the weighted
     median reads on a validity mask, with WMF_OPS_PER_SAMPLE; and
     median_least_ops, the operations the least work of an exact weighted
@@ -498,13 +498,13 @@ def pipeline_flops(cfg: CSPMConfig, h: int, w: int) -> Dict[str, float]:
     kernels execute, FLOPS_IN_IMAGE per in-image window sample of every
     launch (at its stride, on every pyramid level: exact border counts)
     plus FLOPS_IN_RANGE per in-range one, where this analytic form takes
-    every in-image sample as in range (it has no planes; chip_smoke.py
-    counts the real share on its inputs); K2's 2 * D + 1 per in-image
-    sample of its strided build; the quadrant ranking's two taps per
-    quadrant (RANK_FLOPS_*).  hbm_bytes: per launch the pair-layout
-    volume in cfg.vol_dtype ([2, H, W, D, 2] a level), the packed images,
-    the planes and the outputs; K2 reads the fine level's pair-layout
-    volume and images and writes its quadrant volumes.
+    every in-image sample as in range (it has no planes;
+    tools/torch_kernel_ab.py counts the real share on its inputs); K2's
+    2 * D + 1 per in-image sample of its strided build; the quadrant
+    ranking's two taps per quadrant (RANK_FLOPS_*).  hbm_bytes: per launch
+    the pair-layout volume in cfg.vol_dtype ([2, H, W, D, 2] a level), the
+    packed images, the planes and the outputs; K2 reads the fine level's
+    pair-layout volume and images and writes its quadrant volumes.
     """
     counts = count_plane_cost_work(cfg)
     launches, rank_cands = _plan(cfg)

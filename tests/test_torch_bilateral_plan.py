@@ -5,7 +5,7 @@ of the kernel's chunk edges, the plan fits the H100's 232,448 bytes of
 shared memory a block, its chunks cover every inner slice once with a slot
 left for the weight sum, its blocks tile the level, and the tiling's
 constants are the kernel's.  The kernel itself runs only on the card
-(tests/test_torch_kernels_gpu.py, chip_smoke.py)."""
+(tests/test_torch_kernels_gpu.py)."""
 
 import pathlib
 import re

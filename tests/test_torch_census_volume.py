@@ -8,7 +8,7 @@ census window the kernel does not take.
 Every comparison is exact: the census volume is integers throughout (the
 fixed-point gray image, the comparison bits, their Hamming distances, the
 out-of-range cost wnd^2 - 1), exact in f32.  The kernel itself runs only on
-the card (tests/test_torch_kernels_gpu.py, chip_smoke.py).
+the card (tests/test_torch_kernels_gpu.py).
 """
 
 import dataclasses

@@ -2,12 +2,20 @@
 strided window, volume and fly forms), K4 (cross-scale window cost), K5
 (the no-volume fly cost), K6 (its image-space lerp), K7 (its Lab
 weights), WMF (the weighted median of post-processing), GRDV (the GRD
-cost volume), CENV (the census volume), QRANK (the quadrant ranking) and
-RPROP (a refinement stage's proposal) against their plain PyTorch
-versions, on the card; and the entry
-points (the command line, a warm start, checkpoint and resume, the
-up-front refusal of a window the kernels do not take) running through
-them.
+cost volume), CENV (the census volume), QRANK (the quadrant ranking),
+RPROP (a refinement stage's proposal) and BFV (the bilateral volume
+filter) against their plain PyTorch versions, on the card, at small
+shapes and at the bench and KITTI ones, whole and in band form (a
+kernel's tests carry its key in their names, `fly` for K5, K3's fly form,
+K6 and K7); the launches of a call (a CUDA graph's nodes); the main paths
+at their real size (bad-pixel gates, bit-identical reruns, each kernel's
+launches a pair exactly and no plain version);
+small pairs on the card against the CPU; and the entry points (the
+command line, a warm start, checkpoint and resume, the up-front refusal
+of a window the kernels do not take, the sharded paths on one rank and
+on six gloo ranks sharing the card) running through them.  The kernels'
+times and bounds are tools/torch_kernel_ab.py's, and so is the bench
+tile the band forms are held on (bench_tile).
 
 Run on a machine with a CUDA device:
 
@@ -29,12 +37,19 @@ QRANK's costs to their plain versions' on the card, element for element;
 RPROP's candidates likewise, bit for bit (NaN where both are NaN).
 """
 
+import dataclasses
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from crossscalepatchmatch_tpu_torch import CEN_CS_PP, README_DEMO, CSPMConfig
+from crossscalepatchmatch_tpu_torch import (CEN_CS_PP, KITTI, README_DEMO,
+                                            CSPMConfig)
+from crossscalepatchmatch_tpu_torch.config import Aggregator, CostMethod
 from crossscalepatchmatch_tpu_torch.data import make_pair
+from crossscalepatchmatch_tpu_torch.metrics import bad_pixel_rate
 from crossscalepatchmatch_tpu_torch.models import postprocess
 from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair
 from crossscalepatchmatch_tpu_torch.ops import census, grad_cost, onthefly_cost
@@ -49,11 +64,34 @@ from crossscalepatchmatch_tpu_torch.ops.cuda import weighted_median as wmf
 from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost
 from crossscalepatchmatch_tpu_torch.ops.scale_weights import scale_weights
 from crossscalepatchmatch_tpu_torch.utils.profiling import (
-    reset_launch_counts as reset_counts)
+    launch_counts, reset_launch_counts as reset_counts)
 
 pytestmark = pytest.mark.gpu
 
+_spec = importlib.util.spec_from_file_location(
+    "torch_kernel_ab", os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "torch_kernel_ab.py"))
+kernel_ab = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(kernel_ab)     # at import: nothing of the package
+bench_tile = kernel_ab.bench_tile
+
 REL_TOL = 2e-5
+BENCH = dict(h=375, w=450, max_dis=60)          # the bench scene
+KITTI_SCENE = dict(h=375, w=1242, max_dis=128)
+BAD_PIXEL_MAX = 0.01        # left view, non-occluded, a main path's seed
+
+# The kernels a path launches: GRD volumes (GRDV) ranked on the quadrant
+# volumes (K2, QRANK) with K1 exact; census volumes (CENV) with K4
+GRD_PATH = ("k1", "k2", "grdv", "qrank")
+CEN_CS_PATH = ("k4", "k2", "qrank", "cenv")
+# a main path's launches a pair by kernel (utils.profiling.launch_counts();
+# "fly" every fly launch): 10 exact evaluations, the ranking's one K2 build
+# and 14 QRANK calls, one volume call a level, 6 refinement stages, one
+# median with post-processing; without a volume 27 fly evaluations and 12
+# strided prescreens
+GRD_LAUNCHES = dict(k1=10, k2=1, grdv=1, qrank=14, rprop=6)
+CEN_CS_PP_LAUNCHES = dict(k4=10, k2=1, qrank=14, cenv=5, rprop=6, wmf=1)
+FLY_LAUNCHES = dict(k5=27, fly=27, k3_fly=12, rprop=6)
 
 
 @pytest.fixture
@@ -69,6 +107,20 @@ def assert_close(got, want):
     assert bool(torch.isfinite(got).all())
     err = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
     assert err <= REL_TOL, err
+
+
+def assert_path_launched(counts, kernels):
+    """Every kernel of a path launched, and RPROP (every path refines), and
+    no plain version (launch_counts()' *_plain keys)."""
+    assert all(counts[k] > 0 for k in (*kernels, "rprop")), counts
+    assert not any(n for k, n in counts.items() if k.endswith("_plain")), \
+        counts
+
+
+def assert_launches(counts, per_pair, pairs):
+    """Each kernel launched exactly per_pair[k] times a pair, and nothing
+    else: no other kernel, no plain version."""
+    assert counts == {k: per_pair.get(k, 0) * pairs for k in counts}, counts
 
 
 def random_scene(h, w, d, seed):
@@ -154,6 +206,24 @@ def test_k2_bench_shape(cuda):
                            torch.as_tensor(pair.right, device=cuda), cfg)
     (gb, gw), (wb, ww) = k2_both(vd.imgs[0], vd.vols[0], cfg.half_wnd,
                                  cfg.prescreen_stride, torch.bfloat16)
+    assert_close(gb, wb)
+    assert_close(gw, ww)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k2_kitti_shape(cuda, dtype):
+    """K1 (K = 1) and K2 on the KITTI scene's 129 slices (375 x 1242,
+    max_dis 128), against their plain versions on the same (rounded)
+    volume."""
+    pair = make_pair(seed=0, **KITTI_SCENE)
+    vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
+                           torch.as_tensor(pair.right, device=cuda), KITTI)
+    abc = torch.as_tensor(random_planes(1, 375, 1242, 128, seed=9),
+                          device=cuda)
+    assert_close(*k1_both(vd.imgs[0], vd.vols[0], vd.max_costs[0], abc,
+                          KITTI.half_wnd, 128, dtype))
+    (gb, gw), (wb, ww) = k2_both(vd.imgs[0], vd.vols[0], KITTI.half_wnd,
+                                 KITTI.prescreen_stride, dtype)
     assert_close(gb, wb)
     assert_close(gw, ww)
 
@@ -394,6 +464,45 @@ def test_k4_candidates_windows_levels(cuda, k, hw, levels):
     assert torch.equal(got, want)
     again, _ = k4_both(imgs, vols, mcs, wgts, abc, hw, d, torch.float32)
     assert torch.equal(got, again)
+
+
+def test_k4_bench_shape(cuda):
+    """K4 over the bench scene's 5 CEN_CS_PP census levels, against one
+    plain call on 8 candidates (the plain version takes each candidate on
+    its own, so its first k costs are a K = k call's): the first 1, 2, 3,
+    5 and 8 within 2e-5 on f32 volumes, the first 2 on bf16 census volumes
+    (integers, exact in bf16) bit-equal to the f32 plain costs."""
+    cfg = CEN_CS_PP
+    pair = make_pair(seed=0, **BENCH)
+    vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
+                           torch.as_tensor(pair.right, device=cuda), cfg)
+    wgts = [float(x) for x in scale_weights(cfg.scale_num, cfg.reg_lambda)]
+    abc = torch.as_tensor(random_planes(8, 375, 450, 60, seed=8),
+                          device=cuda)
+    kw = dict(half_wnd=cfg.half_wnd, max_dis=60, gamma=cfg.wgt_gamma)
+    want = torch.stack([plane_cost.cross_scale_plane_cost(
+        [im[v] for im in vd.imgs], [vo[v] for vo in vd.vols],
+        [m[v] for m in vd.max_costs], wgts, abc[v], **kw) for v in range(2)])
+    for k in MANY_KS:
+        assert_close(cross_scale_cost.cross_scale_cost_cuda(
+            vd.imgs, vd.vols, vd.max_costs, wgts, abc[:, :k].contiguous(),
+            **kw), want[:, :k])
+    got = cross_scale_cost.cross_scale_cost_cuda(
+        vd.imgs, [v.bfloat16() for v in vd.vols], vd.max_costs, wgts,
+        abc[:, :2].contiguous(), **kw)
+    assert torch.equal(got, want[:, :2])
+
+
+@pytest.mark.parametrize("k,stride", [(1, 1), (8, 2)])
+def test_fly_kernel_kitti_shape(cuda, k, stride):
+    """K5 (K = 1) and K3's fly form (stride 2, K = 8) on the KITTI scene
+    (375 x 1242, max_dis 128: the other view's staged span is a tile plus
+    128 columns wide), against the plain version."""
+    fd, _ = fly_scene(375, 1242, 128, 1, False, 0, cuda)
+    abc = torch.as_tensor(random_planes(k, 375, 1242, 128, seed=k),
+                          device=cuda)
+    assert_close(*fly_both(fd, None, abc, KITTI.half_wnd, 128, "cost",
+                           stride))
 
 
 def test_pair_volume_on_the_card(cuda):
@@ -807,7 +916,7 @@ def test_warm_start_runs_on_the_card(cuda):
 
 def test_resume_runs_on_the_card(cuda, tmp_path):
     """run_pair_resumable on the card: uninterrupted equal to run_pair,
-    and rewound to iteration 1, resumed bit-equal."""
+    and rewound to iterations 1 and 2, resumed bit-equal."""
     import crossscalepatchmatch_tpu_torch.checkpoint as ck
 
     pair = make_pair(h=48, w=64, max_dis=12, seed=3)
@@ -831,10 +940,11 @@ def test_resume_runs_on_the_card(cuda, tmp_path):
     plain = run_pair(pair.left, pair.right, 0, cfg)
     for k in full:
         np.testing.assert_array_equal(full[k], plain[k].cpu().numpy())
-    ck.save_state(path, saved[1], 1, cfg, 0)
-    resumed = ck.run_pair_resumable(pair.left, pair.right, cfg, path)
-    for k in full:
-        np.testing.assert_array_equal(full[k], resumed[k])
+    for rewind in (1, 2):
+        ck.save_state(path, saved[rewind], rewind, cfg, 0)
+        resumed = ck.run_pair_resumable(pair.left, pair.right, cfg, path)
+        for k in full:
+            np.testing.assert_array_equal(full[k], resumed[k])
 
 
 def test_card_limits_refused_before_any_work(cuda):
@@ -847,42 +957,235 @@ def test_card_limits_refused_before_any_work(cuda):
     assert (window_cost.launches, quadrant_build.launches) == (0, 0)
 
 
-# -- band forms (a spatial tile of parallel.tiled) -----------------------------
+# -- the main paths and the entry points at their real size ----------------
 
-TILE = dict(n_ty=3, n_tx=2, ty=1, tx=1)   # the (1, 3, 2) mesh's middle tile
+# name: (config, scene, the bad-pixel threshold in px (None: not gated,
+# the aggregators, which no cell or bound holds), the seeds (seed 0 run
+# again at the end), the launches a pair)
+MAIN_PATHS = {
+    "README_DEMO": (README_DEMO, BENCH, 1.0, (0, 1, 2), GRD_LAUNCHES),
+    "CEN_CS_PP": (CEN_CS_PP, BENCH, 1.0, (0, 1, 2), CEN_CS_PP_LAUNCHES),
+    "README_DEMO-fly": (dataclasses.replace(
+        README_DEMO, precompute_volume=False), BENCH, 1.0, (0, 1, 2),
+        FLY_LAUNCHES),
+    "KITTI-fly": (dataclasses.replace(KITTI, precompute_volume=False),
+                  KITTI_SCENE, 3.0, (0,), dict(FLY_LAUNCHES, wmf=1)),
+    "KITTI": (KITTI, KITTI_SCENE, 3.0, (0,), dict(GRD_LAUNCHES, wmf=1)),
+    **{f"README_DEMO-{agg.value}": (
+        dataclasses.replace(README_DEMO, aggregator=agg), BENCH, None, (0,),
+        dict(GRD_LAUNCHES, **({"bfv": 1} if agg == Aggregator.BF else {})))
+       for agg in (Aggregator.BOX, Aggregator.GF, Aggregator.BF)},
+}
 
 
-def bench_tile(cfg, cuda):
-    """The bench scene's middle tile of a (1, 3, 2) mesh (rows [125, 250),
-    columns [225, 450): an odd origin): the block's weight images and
-    volumes with the 17-pixel halo on both axes (125 + 34 rows x 225 + 34
-    columns, zeros past the image), the whole coarser levels, the
-    saturation values, and each level's validity interval in the block's
-    coordinates (JAX tiled.py:336-350)."""
-    from crossscalepatchmatch_tpu_torch.parallel.tiled import _ext_from_full
+@pytest.mark.parametrize("path", list(MAIN_PATHS))
+def test_main_path_on_the_card(cuda, path):
+    """A main path at its real size, seed 0 run again at the end: each
+    seed's left bad-pixel (non-occluded) at the path's threshold <= 0.01,
+    finite costs, seed 0 bit-identical on the rerun; each kernel's launches
+    a pair exactly the path's, and no plain version.  With
+    post-processing: postprocess
+    alone on the seed-0 planes gives the pipeline's map, and WMF on the
+    pipeline's own inputs (the filled maps, the LR mask) is u8-equal to
+    its plain version and to that map."""
+    from crossscalepatchmatch_tpu_torch.models.patchmatch import plane_to_disp
 
-    pair = make_pair(h=375, w=450, max_dis=cfg.max_dis, seed=0)
-    vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
-                           torch.as_tensor(pair.right, device=cuda), cfg)
-    hs, ws = 375 // TILE["n_ty"], 450 // TILE["n_tx"]
-    row0, col0 = TILE["ty"] * hs, TILE["tx"] * ws
-    hw = cfg.half_wnd
+    cfg, shape, px, seeds, launches = MAIN_PATHS[path]
+    pair = make_pair(seed=0, **shape)
+    l, r = (torch.as_tensor(x, device=cuda) for x in (pair.left, pair.right))
+    reset_counts()
+    outs = {}
+    for seed in (*seeds, 0):
+        out = run_pair(l, r, seed, cfg, device=cuda)
+        if seed in outs:
+            for k in out:
+                assert torch.equal(out[k], outs[seed][k]), k
+            continue
+        outs[seed] = out
+        assert out["dis"].shape == (2, shape["h"], shape["w"])
+        assert bool(torch.isfinite(out["cost"]).all())
+        if px is not None:
+            bad = bad_pixel_rate(out["dis"][0].cpu().numpy() / cfg.dis_scale,
+                                 pair.disp_left, pair.valid_left, px)
+            assert bad <= BAD_PIXEL_MAX, (seed, bad)
+    torch.cuda.synchronize()
+    assert_launches(launch_counts(), launches, len(seeds) + 1)
+    if cfg.use_pp:
+        out, imgs = outs[0], torch.stack([l, r])
+        dis = plane_to_disp(out["abc"], cfg.dis_scale)
+        assert torch.equal(postprocess.postprocess(dis, out["abc"], imgs,
+                                                   cfg)[0], out["dis"])
+        filled = postprocess.fill_invalid(dis, out["abc"], out["valid"], cfg)
+        got = wmf.weighted_median_cuda(
+            filled, imgs, out["valid"], plane_cost.asw_lut(cfg.wmf_gamma,
+                                                           cuda),
+            half_wnd=cfg.half_wnd)
+        assert torch.equal(got, postprocess.weighted_median_plain(
+            filled, imgs, out["valid"], cfg))
+        assert torch.equal(got, out["dis"])
 
-    def ext(x):
-        return _ext_from_full(_ext_from_full(x, row0, hs, hw, 1), col0, ws,
-                              hw, 2).contiguous()
 
-    imgs = [ext(vd.imgs[0])] + vd.imgs[1:]
-    vols = [ext(vd.vols[0])] + vd.vols[1:]
-    bounds = [(-row0, (im.shape[1] << s) - row0, -col0,
-               (im.shape[2] << s) - col0)
-              for s, im in enumerate(vd.imgs)]
-    bounds[0] = (-row0, 375 - row0, -col0, 450 - col0)
-    g_row = row0 + torch.arange(-hw, hs + hw, device=cuda)
-    g_col = col0 + torch.arange(-hw, ws + hw, device=cuda)
-    valid = ((g_row >= 0) & (g_row < 375), (g_col >= 0) & (g_col < 450))
-    return dict(pair=pair, imgs=imgs, vols=vols, mcs=vd.max_costs, hs=hs,
-                ws=ws, origin=(row0, col0), bounds=bounds, valid=valid)
+def test_warm_frame_on_the_card(cuda):
+    """run_sequence_np with README_DEMO on the bench scene: a cold frame,
+    then a warm one (the same geometry, the next frame's sensor noise):
+    the warm frame's bad-pixel @1px <= 0.01, the GRD path's kernels
+    launched and no plain version, the sequence bit-identical on a
+    rerun."""
+    from crossscalepatchmatch_tpu_torch.models.pipeline import run_sequence_np
+
+    pair = make_pair(seed=0, **BENCH)
+    nxt = make_pair(seed=0, noise_sigma=2.0, **BENCH)
+    frames = [(pair.left, pair.right), (nxt.left, nxt.right)]
+    reset_counts()
+    seq = list(run_sequence_np(frames, README_DEMO, seed=0))
+    torch.cuda.synchronize()
+    assert_path_launched(launch_counts(), GRD_PATH)
+    again = list(run_sequence_np(frames, README_DEMO, seed=0))
+    for a, b in zip(seq, again):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    bad = bad_pixel_rate(seq[1]["dis"][0] / README_DEMO.dis_scale,
+                         nxt.disp_left, nxt.valid_left, 1.0)
+    assert bad <= BAD_PIXEL_MAX, bad
+
+
+SMALL = dict(max_dis=12, dis_scale=16, wnd_size=11, vol_dtype="f32")
+CS3 = dict(use_cs=True, reg_lambda=0.3, scale_num=3)
+# name: (config fields over SMALL, the kernels the card's run launches)
+SMALL_PAIRS = {
+    "README_DEMO-like": ({}, GRD_PATH),
+    "CEN_CS_PP-like": (dict(cost_method=CostMethod.CEN, use_pp=True, **CS3),
+                       (*CEN_CS_PATH, "wmf")),
+    "window-prescreen": (dict(prescreen_mode="window"),
+                         ("k1", "k3_volume", "grdv")),
+    "fly-cost": (dict(precompute_volume=False), ("k5", "k3_fly")),
+    "fly-image-CS": (dict(precompute_volume=False, fly_lerp="image",
+                          wnd_size=7, **CS3), ("k6",)),
+    "fly-Lab": (dict(precompute_volume=False, use_lab_weights=True),
+                ("k5", "k7", "k3_fly")),
+    "BOX": (dict(aggregator=Aggregator.BOX), GRD_PATH),
+    "GF": (dict(aggregator=Aggregator.GF), GRD_PATH),
+    "BF": (dict(aggregator=Aggregator.BF), (*GRD_PATH, "bfv")),
+    "CEN+CS+BOX": (dict(cost_method=CostMethod.CEN,
+                        aggregator=Aggregator.BOX, **CS3), CEN_CS_PATH),
+    "warm": ({}, GRD_PATH),
+}
+SMALL_AGREE_MIN = 0.98      # share of u8 pixels within 1 level
+
+
+@pytest.mark.parametrize("name", list(SMALL_PAIRS))
+def test_small_pair_card_against_cpu(cuda, name):
+    """A 48 x 64 pair on the card (the kernels) and on the CPU (the plain
+    versions) from the same draws: at least 98 % of the u8 map pixels
+    within one level; the card's run launches the config's kernels and no
+    plain version.  `warm`: a warm frame from the CPU's cold planes, with
+    the same warm draws on both."""
+    from crossscalepatchmatch_tpu_torch.models.pipeline import (run_pair_np,
+                                                                run_pair_warm)
+    from crossscalepatchmatch_tpu_torch.utils.rng import (PHASE_WARM,
+                                                          TorchDraws)
+
+    fields, kernels = SMALL_PAIRS[name]
+    cfg = CSPMConfig(**{**SMALL, **fields})
+    pair = make_pair(h=48, w=64, max_dis=12, seed=3)
+    if name == "warm":
+        prior = run_pair_np(pair.left, pair.right, cfg, device="cpu",
+                            draws=TorchDraws(0, "cpu"))["abc"]
+
+    def run(device):
+        if name == "warm":
+            return run_pair_warm(
+                pair.left, pair.right, 1, prior, cfg, device=device,
+                draws=TorchDraws(1, "cpu", refine_phase=PHASE_WARM))[
+                    "dis"].cpu().numpy()
+        return run_pair_np(pair.left, pair.right, cfg, device=device,
+                           draws=TorchDraws(0, "cpu"))["dis"]
+
+    reset_counts()
+    on_card = run(cuda)
+    torch.cuda.synchronize()
+    assert_path_launched(launch_counts(), kernels)
+    on_cpu = run(torch.device("cpu"))
+    agree = float((np.abs(on_card.astype(int) - on_cpu.astype(int)) <= 1)
+                  .mean())
+    assert agree >= SMALL_AGREE_MIN, agree
+
+
+def test_cli_input_list_on_the_card(cuda, tmp_path):
+    """python -m crossscalepatchmatch_tpu_torch in a process of its own,
+    with the README demo's flags and --input_list of two runs (seeds 0
+    and 1) on PNGs of the bench scene: two runs, seed 0's maps
+    run_pair_np's byte for byte, seed 1's other maps within the bad-pixel
+    gate @1px."""
+    import pathlib
+    import subprocess
+    import sys
+
+    from PIL import Image
+
+    from crossscalepatchmatch_tpu_torch import cli
+    from crossscalepatchmatch_tpu_torch import io as cspm_io
+    from crossscalepatchmatch_tpu_torch.models.pipeline import run_pair_np
+
+    pair = make_pair(seed=0, **BENCH)
+    lp, rp = str(tmp_path / "l.png"), str(tmp_path / "r.png")
+    cspm_io.write_bgr(lp, pair.left)
+    cspm_io.write_bgr(rp, pair.right)
+
+    def flags(seed):
+        return [f"--l_img_file={lp}", f"--r_img_file={rp}",
+                f"--l_dis_file={tmp_path}/s{seed}_l.png",
+                f"--r_dis_file={tmp_path}/s{seed}_r.png", "--max_dis=60",
+                "--dis_scale=4", "--cc_name=GRD", "--use_cs=false",
+                "--use_pp=false", "--reg_lambda=0.0", f"--seed={seed}"]
+
+    lst = tmp_path / "input.txt"
+    lst.write_text("".join(f"cspm {' '.join(flags(seed))}\n"
+                           for seed in (0, 1)))
+    res = subprocess.run(
+        [sys.executable, "-m", "crossscalepatchmatch_tpu_torch",
+         f"--input_list={lst}"], capture_output=True, text=True, timeout=600,
+        cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+    assert res.returncode == 0, res.stderr
+    assert sum(ln.startswith("Total Time:")
+               for ln in res.stdout.splitlines()) == 2
+    maps = [np.stack([np.asarray(Image.open(tmp_path / f"s{seed}_{v}.png"))
+                      for v in "lr"]) for seed in (0, 1)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(flags(0)))
+    want = run_pair_np(pair.left, pair.right, cfg, seed=0)["dis"]
+    np.testing.assert_array_equal(maps[0], want)
+    assert not np.array_equal(maps[1], want)
+    assert bad_pixel_rate(maps[1][0] / 4, pair.disp_left, pair.valid_left,
+                          1.0) <= BAD_PIXEL_MAX
+
+
+@pytest.mark.parametrize("cc", ["GRD", "CEN"])
+def test_volumes_on_the_card_match_the_oracle(cuda, cc):
+    """build_volumes on the card (GRDV, CENV) against the native oracle's
+    cost_volume (csrc/cspm_oracle.cc, built with g++) on a 64 x 96 d = 12
+    scene, both views, within 1e-4."""
+    import shutil
+
+    from crossscalepatchmatch_tpu_torch import oracle
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
+    from crossscalepatchmatch_tpu_torch.ops.cost_volume import build_volumes
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    p = make_pair(h=64, w=96, max_dis=12, seed=11)
+    both = build_volumes(
+        bgr_to_rgb(torch.as_tensor(p.left, device=cuda)),
+        bgr_to_rgb(torch.as_tensor(p.right, device=cuda)), 12,
+        CSPMConfig(max_dis=12, dis_scale=16, cost_method=CostMethod[cc]))
+    both = both.double().cpu().numpy()
+    for right in (False, True):
+        want = oracle.cost_volume(p.left, p.right, max_dis=12, cc_name=cc,
+                                  right=right)
+        np.testing.assert_allclose(np.moveaxis(both[int(right)], -1, 0),
+                                   want, rtol=1e-4, atol=1e-4)
+
+
+# -- band forms (a spatial tile of parallel.tiled: kernel_ab.bench_tile) ------
 
 
 @pytest.mark.parametrize("k,stride", [(1, 1), (2, 1), (8, 2)])
@@ -936,22 +1239,72 @@ def test_k2_band_form_bench_tile(cuda):
     assert torch.equal(gb, wb) and torch.equal(gw, ww)
 
 
+@pytest.mark.parametrize("row0,rows", [(0, 384), (0, 192), (192, 192)],
+                         ids=["whole", "ty0", "ty1"])
+def test_k1_k2_row_band_forms(cuda, row0, rows):
+    """K1 (K = 1, 2) and K2 on the tiles bench_scaling_torch.py's default
+    workload hands them (384 x 448, d = 60, wnd 35, GRD): the whole image
+    of the (1, 1, 1) mesh and both row bands of the (1, 2, 1) mesh, rows
+    extended by the half window (zeros past the image), columns not: f32
+    bit-equal to their plain band forms."""
+    from crossscalepatchmatch_tpu_torch.parallel.tiled import _ext_from_full
+
+    h, w, md = 384, 448, 60
+    cfg = CSPMConfig(max_dis=md, dis_scale=4, wnd_size=35)
+    hw, gamma, stride = cfg.half_wnd, cfg.wgt_gamma, cfg.prescreen_stride
+    pair = make_pair(h=h, w=w, max_dis=md, seed=0)
+    vd = build_volume_data(torch.as_tensor(pair.left, device=cuda),
+                           torch.as_tensor(pair.right, device=cuda), cfg)
+    imgs, vols = (_ext_from_full(x, row0, rows, hw, 1).contiguous()
+                  for x in (vd.imgs[0], vd.vols[0].float()))
+    mc = vd.max_costs[0]
+    bounds = (-row0, h - row0, 0, w)
+    prep = window_cost.prepare_volumes(
+        imgs, vols, mc, half_wnd=hw, max_dis=md, gamma=gamma,
+        rows_extended=True, cols_extended=False)
+    band = prep.plain_band(bounds)
+    for k in (1, 2):
+        abc = torch.as_tensor(random_planes(k, rows, w, md, seed=row0 + k),
+                              device=cuda)
+        got = window_cost.window_cost_prepared(prep, abc, half_wnd=hw,
+                                               max_dis=md, bounds=bounds)
+        want = torch.stack([plane_cost.window_plane_cost(
+            imgs[v], vols[v], mc[v], abc[v], half_wnd=hw, max_dis=md,
+            gamma=gamma, **band) for v in range(2)])
+        assert torch.equal(got, want), k
+    gb, gw = quadrant_build.quadrant_volumes_prepared(
+        prep, half_wnd=hw, gamma=gamma, stride=stride, bounds=bounds)
+    rv, cv = cross_scale_cost.valid_vectors(prep.rect(bounds), prep.array_hw,
+                                            cuda)
+    parts = [prescreen_volume.build_quadrant_volumes(
+        imgs[v], vols[v], rv[:, None] & cv[None, :], half_wnd=hw,
+        gamma=gamma, stride=stride) for v in range(2)]
+    wb, ww = (torch.stack([p[i] for p in parts])[:, :, hw:hw + rows]
+              for i in range(2))
+    assert torch.equal(gb, wb) and torch.equal(gw, ww)
+
+
 def test_k4_band_form_bench_tile(cuda):
     """K4 over the 5-level census pyramid on the bench tile (level 0 the
-    extended block, levels 1-4 whole, the odd origin (125, 225)): f32
-    bit-equal to the plain band form."""
+    extended block, levels 1-4 whole, the odd origin (125, 225)): f32, and
+    bf16 census volumes (integers, exact in bf16), bit-equal to the plain
+    band form."""
     cfg = CEN_CS_PP
     t = bench_tile(cfg, cuda)
     hw = cfg.half_wnd
     wgts = [float(x) for x in scale_weights(cfg.scale_num, cfg.reg_lambda)]
-    prep = cross_scale_cost.prepare_cross_scale(
-        t["imgs"], t["vols"], t["mcs"], wgts, half_wnd=hw,
-        max_dis=cfg.max_dis, gamma=cfg.wgt_gamma, rows_extended=True,
-        cols_extended=True, origin=t["origin"], bounds=t["bounds"])
     abc = torch.as_tensor(random_planes(2, t["hs"], t["ws"], cfg.max_dis,
                                         seed=7, wild=False), device=cuda)
-    got = cross_scale_cost.cross_scale_cost_prepared(
-        prep, abc, half_wnd=hw, max_dis=cfg.max_dis, levels=cfg.scale_num)
+    got = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        prep = cross_scale_cost.prepare_cross_scale(
+            t["imgs"], [v.to(dtype) for v in t["vols"]], t["mcs"], wgts,
+            half_wnd=hw, max_dis=cfg.max_dis, gamma=cfg.wgt_gamma,
+            rows_extended=True, cols_extended=True, origin=t["origin"],
+            bounds=t["bounds"])
+        got[dtype] = cross_scale_cost.cross_scale_cost_prepared(
+            prep, abc, half_wnd=hw, max_dis=cfg.max_dis,
+            levels=cfg.scale_num)
     rv, cv = t["valid"]
     origins = [(hw, hw)] + [t["origin"]] * (cfg.scale_num - 1)
     want = torch.stack([plane_cost.cross_scale_plane_cost(
@@ -960,7 +1313,8 @@ def test_k4_band_form_bench_tile(cuda):
         max_dis=cfg.max_dis, gamma=cfg.wgt_gamma, origins=origins,
         row_valids=[rv] + [None] * 4, col_valids=[cv] + [None] * 4)
         for v in range(2)])
-    assert torch.equal(got, want)
+    assert torch.equal(got[torch.float32], want)
+    assert torch.equal(got[torch.bfloat16], want)
 
 
 @pytest.mark.parametrize("row0,col0,levels", [(7, 9, 3), (13, 5, 4)])
@@ -1007,9 +1361,12 @@ def test_k4_band_form_odd_origins(cuda, row0, col0, levels):
 
 
 def test_sharded_pipeline_on_the_card(cuda, tmp_path):
-    """run_batch_sharded on a world of one rank on the card (a (1, 1, 1)
-    mesh, the in-process group) launches the band forms and no plain
-    version, and gives finite maps of the right shape."""
+    """On a world of one rank on the card (a (1, 1, 1) mesh, the
+    in-process group; NCCL): run_batch_sharded launches the band forms and
+    no plain version and gives finite maps of the right shape;
+    run_sequence_batch (2 streams x 3 frames) equals run_sequence_np on
+    each stream, and the no-volume data-only mesh run_pair on each pair,
+    byte for byte."""
     import subprocess
     import sys
 
@@ -1017,14 +1374,18 @@ def test_sharded_pipeline_on_the_card(cuda, tmp_path):
         "import torch, numpy as np\n"
         "from crossscalepatchmatch_tpu_torch import CSPMConfig\n"
         "from crossscalepatchmatch_tpu_torch.data import make_pair\n"
+        "from crossscalepatchmatch_tpu_torch.models.pipeline import (\n"
+        "    run_pair, run_sequence_np)\n"
         "from crossscalepatchmatch_tpu_torch.ops import plane_cost, "
         "prescreen_volume\n"
         "from crossscalepatchmatch_tpu_torch.ops.cuda import window_cost, "
         "quadrant_build\n"
         "from crossscalepatchmatch_tpu_torch.parallel.mesh import "
         "initialize_multihost\n"
-        "from crossscalepatchmatch_tpu_torch.parallel.tiled import "
-        "run_batch_sharded\n"
+        "from crossscalepatchmatch_tpu_torch.parallel.tiled import (\n"
+        "    run_batch_sharded, run_sequence_batch)\n"
+        "from crossscalepatchmatch_tpu_torch.utils.profiling import (\n"
+        "    launch_counts, reset_launch_counts)\n"
         "mesh = initialize_multihost()\n"
         "p = make_pair(h=48, w=64, max_dis=12, seed=3)\n"
         "cfg = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11)\n"
@@ -1033,12 +1394,94 @@ def test_sharded_pipeline_on_the_card(cuda, tmp_path):
         "assert dis.shape == (1, 2, 48, 64) and dis.is_cuda\n"
         "assert window_cost.launches > 0 and quadrant_build.launches == 1\n"
         "assert plane_cost.launches == prescreen_volume.launches == 0\n"
+        "streams = [make_pair(h=48, w=64, max_dis=12, seed=s)\n"
+        "           for s in (3, 4)]\n"
+        "ls = np.stack([q.left for q in streams])\n"
+        "rs = np.stack([q.right for q in streams])\n"
+        "seq = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11,\n"
+        "                 vol_dtype='f32')\n"
+        "batched = [{k: v.cpu().numpy() for k, v in o.items()} for o in\n"
+        "           run_sequence_batch([(ls, rs)] * 3, seq, mesh, seed=7)]\n"
+        "for b, q in enumerate(streams):\n"
+        "    solo = list(run_sequence_np([(q.left, q.right)] * 3, seq,\n"
+        "                                seed=7 + 1000003 * b))\n"
+        "    for t in range(3):\n"
+        "        for k in ('dis', 'abc'):\n"
+        "            assert np.array_equal(batched[t][k][b], solo[t][k])\n"
+        "fly = CSPMConfig(max_dis=12, dis_scale=16, wnd_size=11,\n"
+        "                 vol_dtype='f32', precompute_volume=False)\n"
+        "reset_launch_counts()\n"
+        "fly_dis = run_batch_sharded(ls, rs, [3, 5], fly, mesh)\n"
+        "c = launch_counts()\n"
+        "assert c['k5'] and c['k3_fly'] and c['rprop']\n"
+        "assert not any(n for k, n in c.items() if k.endswith('_plain'))\n"
+        "for b, seed in enumerate((3, 5)):\n"
+        "    assert torch.equal(fly_dis[b], run_pair(ls[b], rs[b], seed,\n"
+        "                                            fly)['dis'])\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600,
                          cwd=str(__import__("pathlib").Path(
                              __file__).resolve().parents[1]))
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_gloo_mesh_on_one_card(cuda, tmp_path):
+    """Ranks sharing the one card over gloo (halos staged through the
+    host; tests/torch_sharded_worker.py): on a (1, 3, 2) mesh of six,
+    README_DEMO and CEN_CS_PP on the bench scene through the band forms,
+    the left bad-pixel @1px <= 0.01 and within 0.005 of one device's run,
+    the path's kernels launched on the ranks and no plain version, a rerun
+    bit-identical; and a 48 x 64 pair on a (1, 2, 2) mesh of four, on the
+    card against the same mesh on the CPU with the same draws (at least
+    98 % of the u8 pixels within one level)."""
+    from torch_sharded_worker import spawn
+
+    def ranks(device, mesh, pair, runs, reps, cpu_draws):
+        tmp = tmp_path / f"{device}-{len(runs)}-{mesh[1]}"
+        tmp.mkdir()
+        out = spawn(dict(job="card_mesh", device=device, mesh=mesh,
+                         reps=reps, cpu_draws=cpu_draws,
+                         l=pair.left[None], r=pair.right[None], seeds=[0],
+                         runs={n: dataclasses.asdict(c)
+                               for n, (c, _) in runs.items()}),
+                    mesh[0] * mesh[1] * mesh[2], str(tmp))
+        for name, (_, kernels) in runs.items():
+            got = [rk[name] for rk in out]
+            assert_path_launched({k: sum(g["counts"][k] for g in got)
+                                  for k in got[0]["counts"]}, kernels)
+            assert all(g["same"] for g in got)
+        return out
+
+    pair = make_pair(seed=0, **BENCH)
+    runs = {"README_DEMO": (README_DEMO, GRD_PATH),
+            "CEN_CS_PP": (CEN_CS_PP, (*CEN_CS_PATH, "wmf"))}
+    out = ranks("cuda", (1, 3, 2), pair, runs, 2, False)
+    for name, (cfg, _) in runs.items():
+        dis = out[0][name]["dis"]
+        assert dis.shape == (1, 2, 375, 450)
+        one = run_pair(pair.left, pair.right, 0, cfg, device=cuda)["dis"]
+        bad, single = (bad_pixel_rate(d / cfg.dis_scale, pair.disp_left,
+                                      pair.valid_left, 1.0)
+                       for d in (dis[0, 0], one[0].cpu().numpy()))
+        assert bad <= BAD_PIXEL_MAX and abs(bad - single) <= 0.005, (
+            name, bad, single)
+    small = make_pair(h=48, w=64, max_dis=12, seed=3)
+    runs = {"small": (CSPMConfig(use_pp=True, **SMALL), (*GRD_PATH, "wmf")),
+            "window-prescreen": (CSPMConfig(prescreen_mode="window",
+                                            **SMALL),
+                                 ("k1", "k3_volume", "grdv"))}
+    on_card = ranks("cuda", (1, 2, 2), small, runs, 1, True)
+    on_cpu = spawn(dict(job="card_mesh", device="cpu", mesh=(1, 2, 2),
+                        reps=1, cpu_draws=True, l=small.left[None],
+                        r=small.right[None], seeds=[0],
+                        runs={n: dataclasses.asdict(c)
+                              for n, (c, _) in runs.items()}),
+                   4, str(tmp_path))
+    for name in runs:
+        a, b = (x[0][name]["dis"].astype(int) for x in (on_card, on_cpu))
+        agree = float((np.abs(a - b) <= 1).mean())
+        assert agree >= SMALL_AGREE_MIN, (name, agree)
 
 
 @pytest.mark.parametrize("m,c,iters", [(1.0, 1.0, 8), (0.75, 0.5, 8),
@@ -1150,6 +1593,29 @@ def test_wmf_band_form(cuda, wnd, hs, ws):
                          imgs[:, :, hw:-hw].contiguous(),
                          valid[:, :, hw:-hw].contiguous(), wnd, **kw)
     assert torch.equal(got, want)
+
+
+def test_wmf_band_form_is_the_whole_image_tile(cuda):
+    """The band form on the bench tile of a (1, 3, 2) mesh, its block
+    extended by the half window (zeros, so invalid, past the image) as
+    parallel.tiled passes it: u8-equal to its plain band form and to the
+    whole image's weighted median cut to the tile."""
+    from crossscalepatchmatch_tpu_torch.parallel.tiled import _ext_from_full
+
+    hw, hs, ws = 17, 125, 225
+    dis, imgs, valid = wmf_scene(375, 450, 7, 0.2, cuda)
+    whole, want = wmf_both(dis, imgs, valid, 2 * hw + 1)
+    assert torch.equal(whole, want)
+
+    def ext(x):
+        return _ext_from_full(_ext_from_full(x, hs, hs, hw, 1), ws, ws, hw,
+                              2).contiguous()
+
+    got, want = wmf_both(ext(dis), ext(imgs), ext(valid.to(torch.uint8))
+                         .bool(), 2 * hw + 1, center_row0=hw, out_h=hs,
+                         center_col0=hw, out_w=ws)
+    assert torch.equal(got, want)
+    assert torch.equal(got, whole[:, hs:2 * hs, ws:2 * ws])
 
 
 def test_wmf_kitti_shape(cuda):
@@ -1876,3 +2342,86 @@ def test_cuda_addcmul_rounds_once_as_bfv_does(cuda):
     fused = (s.double() + w.double() * p.double()).float()
     assert not torch.equal(fused, s + w * p)    # the draws tell them apart
     assert torch.equal(s.clone().addcmul_(w, p), fused)
+
+
+# -- one call: its kernels and nothing else --------------------------------
+
+def graph_node_types(fn):
+    """The node types of the CUDA graph that capturing one call of fn
+    records, after a warm-up call: every kernel or copy fn puts on the
+    stream is a node, an allocation from PyTorch's caching allocator
+    none; type 0 is a kernel (CU_GRAPH_NODE_TYPE_KERNEL)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value:
+        assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    g.reset()
+    return kinds
+
+
+@pytest.mark.parametrize("kernel", ["grdv", "cenv", "rprop", "bfv"])
+def test_a_call_launches_its_kernels_and_nothing_else(cuda, kernel):
+    """The CUDA graph that capturing one call of a wrapper records holds
+    its kernels and no other node, on the bench scene: GRDV one kernel for
+    both views (nothing packed before it), CENV two a level (the codes,
+    then both views' volumes) over CEN_CS_PP's 5 levels, RPROP one for a
+    stage of 4 rounds, BFV one for README_DEMO's level."""
+    from crossscalepatchmatch_tpu_torch.models.patchmatch import (
+        refinement_magnitudes)
+    from crossscalepatchmatch_tpu_torch.ops.color import bgr_to_rgb
+    from crossscalepatchmatch_tpu_torch.ops.cuda import bilateral_volume
+    from crossscalepatchmatch_tpu_torch.ops.pyramid import build_pyramid
+    from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
+
+    pair = make_pair(seed=0, **BENCH)
+    l, r = (torch.as_tensor(x, device=cuda) for x in (pair.left, pair.right))
+    if kernel == "grdv":
+        lv, rv = bgr_to_rgb(l), bgr_to_rgb(r)
+
+        def call():
+            return grd_volume.grd_volumes(lv, rv, 60)
+        want = 1
+    elif kernel == "cenv":
+        lp, rp = build_pyramid(l, 5), build_pyramid(r, 5)
+        lvs = [(bgr_to_rgb(lp[s]), bgr_to_rgb(rp[s]), 60 >> s)
+               for s in range(5)]
+
+        def call():
+            return [census_volume.census_volumes(a, b, m,
+                                                 CEN_CS_PP.census_wnd)
+                    for a, b, m in lvs]
+        want = 2 * len(lvs)
+    elif kernel == "rprop":
+        abc = rprop_planes(375, 450, seed=1, device=cuda)
+        zs, ns = refinement_magnitudes(CEN_CS_PP)
+        draws = TorchDraws(0, cuda)
+
+        def call():
+            return draws.propose(abc, 1, range(5, 9), zs, ns, CEN_CS_PP.eps)
+        want = 1
+    else:
+        vols, guides = bfv_scene(375, 450, 60, cuda)
+
+        def call():
+            return bilateral_volume.bilateral_volumes_cuda(vols, guides, 35)
+        want = 1
+    assert graph_node_types(call) == [0] * want

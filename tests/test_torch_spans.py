@@ -8,7 +8,9 @@ one shared object and nothing is kept.  A pair's spans form the tree
 utils/spans documents, phases in utils/profiling.PHASES's order.  The
 joins are checked on hand-made spans and device ops: each op goes to the
 innermost span open at its launch, idle gaps to the span open at their
-middle.
+middle.  The profiled pair (utils.profiling.profile_pair, which
+tools/torch_profile_pair.py prints) must give run_pair's (run_pair_warm's)
+outputs bit for bit: nothing but the recording may differ.
 """
 
 import dataclasses
@@ -168,6 +170,41 @@ def test_span_tree_of_a_warm_pair(pair):
     assert "warm_phase/iteration/refine/draws" in profiling.span_paths(rec)
 
 
+@pytest.mark.parametrize("case", ["grd", "cen_cs_pp", "no_volume", "warm"])
+def test_profiled_pair_equals_run_pair(case):
+    cfg = {"grd": GRD,
+           "cen_cs_pp": dataclasses.replace(CEN_CS_PP, scale_num=3,
+                                            **SMALL),
+           "no_volume": dataclasses.replace(KITTI, precompute_volume=False,
+                                            **SMALL),
+           "warm": GRD}[case]
+    pair = make_pair(h=32, w=48, max_dis=12, seed=3)
+    prior = None
+    if case == "warm":
+        prior = run_pair(pair.left, pair.right, 0, cfg, device="cpu")["abc"]
+        want = run_pair_warm(pair.left, pair.right, 5, prior, cfg, 1,
+                             device="cpu")
+    else:
+        want = run_pair(pair.left, pair.right, 5, cfg, device="cpu")
+    got, summary, prof = profiling.profile_pair(
+        pair.left, pair.right, 5, cfg, device="cpu", prior_abc=prior)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    names = [p["name"] for p in summary["phases"]]
+    first = "volume_build" if cfg.precompute_volume else "fly_data"
+    second = ["quadrant_build_K2"] if cfg.precompute_volume else []
+    middle = (["warm_phase"] if case == "warm"
+              else ["rank_phase", "exact_phase"])
+    assert names == ([first] + second + middle + ["plane_to_disp"]
+                     + (["postprocess"] if cfg.use_pp else []))
+    # no device: no profiler, every device reading not measured
+    assert prof is None
+    assert summary["device_ms"] is None and summary["idle_share"] is None
+    assert all(p["device_ms"] is None for p in summary["phases"])
+    assert summary["wall_ms"] > 0
+
+
 def test_profiled_pair_on_the_cpu_times_phases_from_spans(pair):
     out, s, prof = profiling.profile_pair(pair.left, pair.right, 5,
                                           CONFIGS["cen_cs_pp"], device="cpu")
@@ -290,6 +327,61 @@ def test_idle_gaps_are_placed_by_launch_and_named_by_span(skewed):
         assert g["ms"] == pytest.approx(ms, abs=1e-4)
         assert g["at_ms"] == pytest.approx(at, abs=1e-4)
     assert profiling.idle_gaps(ops, []) == []
+
+
+def test_summary_of_device_events():
+    """The device readings of a profile (times in us): busy union, idle
+    share, kernels by family, each op put down to the phase it was
+    launched in, idle gaps named by the span the host was in."""
+    rec = [mk("pair", 0, 200, entry="run_pair"),
+           mk("volume_build", 0, 100, 0),
+           mk("exact_phase", 100, 200, 0)]
+    us = 1000
+    ops = [("void cross_scale_kernel<float>(...)", 10, 30, 5),
+           ("void quadrant_build_kernel<float>(...)", 20, 40, 8),
+           ("elementwise_kernel", 150, 160, 148)]
+    ops = [(a * us, b * us, n, t * us) for n, a, b, t in ops]
+    s = profiling.summarize(rec, ops, 0.2, GRD)
+    assert s["busy_ms"] == pytest.approx(0.04)
+    assert s["device_ms"] == pytest.approx(0.05)
+    assert s["idle_share"] == pytest.approx(0.8)
+    assert s["launches"] == 3 and s["joined"] == 1.0
+    assert s["kernels"] == {"K1": {"ms": pytest.approx(0.02), "launches": 1},
+                            "K2": {"ms": pytest.approx(0.02), "launches": 1},
+                            "other": {"ms": pytest.approx(0.01),
+                                      "launches": 1}}
+    assert [(p["name"], p["launches"]) for p in s["phases"]] == [
+        ("volume_build", 2), ("exact_phase", 1)]
+    assert s["phases"][0]["device_ms"] == pytest.approx(0.03)
+    # each gap on the host's clock, ending at the launch of the op that
+    # ends it: 0-5 us and 38-148 us, both mostly in the volume build
+    gaps = [(g["span"], g["ms"], g["at_ms"]) for g in s["idle_gaps"]]
+    assert gaps == [("volume_build", pytest.approx(0.11),
+                     pytest.approx(0.038)),
+                    ("volume_build", pytest.approx(0.005), 0.0)]
+    assert s["idle_by_phase"] == {"volume_build": pytest.approx(0.115)}
+    assert s["spans"]["volume_build"]["device_ms"] == pytest.approx(0.04)
+    assert s["spans"]["pair"]["launches"] == 3
+    assert s["layers"]["volume_build.device_ms"] == pytest.approx(0.04)
+    assert s["layers"]["postprocess.device_ms"] is None
+    assert profiling.kernel_family("void cross_scale_kernel<bf16>", CEN_CS_PP
+                                   ) == "K4"
+    assert profiling.kernel_family("fly_cost_kernel<false, false>", KITTI
+                                   ) == "fly"
+    assert profiling.kernel_family(
+        "(anonymous namespace)::weighted_median_kernel(unsigned int const*)",
+        KITTI) == "WMF"
+    for prep in ("wmf_pack_count_kernel(unsigned char const*)",
+                 "wmf_compact_kernel(unsigned char const*)"):
+        assert profiling.kernel_family(
+            f"(anonymous namespace)::{prep}", KITTI) == "WMF"
+    assert profiling.kernel_family(
+        "(anonymous namespace)::grd_volume_kernel(uint2 const*, float*)",
+        KITTI) == "GRDV"
+    assert profiling.kernel_family(
+        "(anonymous namespace)::quadrant_rank_kernel(float const*)",
+        CEN_CS_PP) == "QRANK"
+    assert any("idle gaps" in line for line in profiling.format_profile(s))
 
 
 def test_chrome_trace_carries_the_spans(tmp_path, pair):

@@ -4,7 +4,7 @@ on the CPU.
 roofline.count_plane_cost_work must give the JAX launch model's dict for
 every config, and the port's optimizer must launch what it counts;
 pipeline_flops' semantic count is the JAX formula; the card's bound helpers
-(moved out of chip_smoke.py) keep the values they gave there.  debug's
+(tools/torch_kernel_ab.py's bounds) keep their pinned values.  debug's
 functions give the same text, dicts and pixels as JAX's.
 """
 
@@ -119,7 +119,8 @@ def pinned_planes():
 
 
 def test_bound_helpers_keep_their_values():
-    """The values chip_smoke.py's own copies gave before they moved here."""
+    """The values the card's bound helpers have given since they were
+    written (tools/torch_kernel_ab.py's bounds)."""
     assert [roofline.axis_count(13, 3, 1, 0), roofline.axis_count(13, 3, 2, 0),
             roofline.axis_count(13, 3, 1, 1),
             roofline.axis_count(9, 2, 1, 2, 1, 0, 3),

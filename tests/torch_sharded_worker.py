@@ -5,9 +5,10 @@
 The test (tests/test_torch_sharded*.py) writes CASE.pkl, starts WORLD of
 these processes, and reads OUT_DIR/rank{RANK}.pkl back.  A rank joins a
 gloo group through the file store STORE, runs the case's `job` on the
-CPU and pickles what it returns.  It imports the port only, never JAX:
-draws that replay the JAX engine come in the case as numpy arrays
-(ReplayDraws).
+CPU (job_card_mesh: on the case's device, the card for
+tests/test_torch_kernels_gpu.py) and pickles what it returns.  It imports
+the port only, never JAX: draws that replay the JAX engine come in the
+case as numpy arrays (ReplayDraws).
 """
 
 import os
@@ -97,6 +98,35 @@ def job_run_batch_sharded(case):
     mesh = make_mesh(*case["mesh"])
     return tiled.run_batch_sharded(l, r, seeds, cfg, mesh, device="cpu",
                                    draws=draw_factory(case)).numpy()
+
+
+def job_card_mesh(case):
+    """run_batch_sharded on case["device"] for each named config of
+    case["runs"], `reps` times (the draws TorchDraws(seed, "cpu", tile)
+    where case["cpu_draws"], the default ones otherwise): per config the
+    last run's maps, this rank's launch counts of it, and whether every
+    run gave the same maps."""
+    from crossscalepatchmatch_tpu_torch.utils.profiling import (
+        launch_counts, reset_launch_counts)
+    from crossscalepatchmatch_tpu_torch.utils.rng import TorchDraws
+
+    device = torch.device(case["device"])
+    mesh = make_mesh(*case["mesh"])
+    draws = ((lambda seed, tile: TorchDraws(seed, "cpu", tile=tile))
+             if case["cpu_draws"] else None)
+    out = {}
+    for name, kw in case["runs"].items():
+        maps = []
+        for _ in range(case["reps"]):
+            reset_launch_counts()
+            maps.append(tiled.run_batch_sharded(
+                case["l"], case["r"], case["seeds"], port_cfg(kw), mesh,
+                device=device, draws=draws))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        out[name] = dict(dis=maps[-1].cpu().numpy(), counts=launch_counts(),
+                         same=all(torch.equal(m, maps[0]) for m in maps))
+    return out
 
 
 def job_sequence(case):

@@ -10,8 +10,8 @@
 
 Runs the port's main path at the named config once to warm up, then once
 recorded by span (utils/spans) under torch.profiler's device activity
-(utils.profiling.profile_pair, which bench_torch.py profiles with too;
-nothing synchronises inside the pair), and prints: the wall time of the
+(utils.profiling.profile_pair; nothing synchronises inside the pair),
+and prints: the wall time of the
 profiled pair, the summed device time, the device's idle share over the
 pair (1 - busy/wall, busy being the union of kernel intervals), the host
 time, device time and launches per phase span (each device op put down to
