@@ -57,9 +57,11 @@ SOURCES = {
     "fly_cost.cu": {
         # per-level host arrays: refs (colour, gradient), wgt imgs, hs, ws,
         # max_dis, scale wgts; levels, image, lab, coef[6] (host), abc,
-        # lut, out, K, H, W, half_wnd, stride, stream
+        # lut, out, K, H, W, half_wnd, stride, the launch plan (rows,
+        # tile_rows, lattice, cands, per_chunk, smem), stream
         "cspm_fly_cost": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                          _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                          _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _P),
     },
     "weighted_median.cu": {
         # dis, imgs, valid, packed, counts, len(counts), idx, n (device),

@@ -13,6 +13,13 @@ a volume.
 into the kernel's layout, builds the weight table and the per-level
 argument arrays; `fly_cost_prepared` then only launches.  On CPU tensors
 the same object routes to the plain version.
+
+Two designs (csrc/fly_cost.cu), chosen by `launch_plan` from the call's
+shape: in cost-lerp mode (K5, K3's fly form, K7) a block computes each
+window row's GRD slice costs once into a shared-memory row buffer that all
+its centers and candidates read (the shared-row design); in image-lerp
+mode (K6), or where that buffer does not fit a block's shared memory, a
+thread computes every sample's data term itself.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
-from typing import List, Sequence, Tuple
+import functools
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -31,6 +39,8 @@ from . import _build, check_half_wnd, check_tensor, pack_bgr
 # K5, "image" K6, lab the Lab weight slab of K7, strided the window of K3.
 # The GPU tier clears and reads it.
 launches: collections.Counter = collections.Counter()
+# The launches among them that took the shared-row design, keyed alike.
+shared_launches: collections.Counter = collections.Counter()
 
 
 def count(lerp: str | None = None, lab: bool | None = None,
@@ -45,6 +55,115 @@ def count(lerp: str | None = None, lab: bool | None = None,
 MAX_LEVELS = 8
 # trunc(dq) is read from the mantissa of dq + 2^23 (csrc/window_common.cuh)
 MAX_DIS_LIMIT = 1 << 22
+
+# The kernels' tiling (csrc/fly_cost.cu, csrc/window_common.cuh): a tile's
+# columns and most rows, the weight table's entries, the shared-row
+# design's raw and slice-cost rings, and the H100's shared memory a block
+# may hold, an SM has, and the runtime keeps of each block.
+TX, MAX_TY = 32, 16
+LUT_N = 766
+RAW_STAGES, COST_STAGES = 3, 2
+RANGE_WORDS = 8
+MAX_SMEM = 232_448
+SM_SMEM = 233_472
+BLOCK_RESERVE = 1024
+# candidates a thread of the shared-row design holds (its instances)
+ROW_CANDS = (1, 2, 4, 5, 8)
+
+
+class Plan(NamedTuple):
+    """How one fly launch runs (launch_plan)."""
+    rows: bool       # the shared-row design, else one sample at a time
+    tile_rows: int   # a block's rows of 32 pixels: 16 or 8
+    lattice: int     # its pixels' spacing: 1, or the stride (shared rows)
+    cands: int       # candidates a thread holds (1 one sample at a time)
+    per_chunk: int   # candidates a block takes
+    chunks: int      # blocks along z a view: ceil(K / per_chunk)
+    smem: int        # shared bytes a block
+    grid: Tuple[int, int, int]
+
+
+def cost_stride(max_dis: int) -> int:
+    """The row buffer's column stride in floats (csrc/fly_cost.cu
+    cost_stride): odd, so 32 neighbouring columns at one slice lie in 32
+    banks."""
+    return max_dis | 1
+
+
+def row_cols(half_wnd: int, stride: int, lattice: int) -> int:
+    """The shared-row design's tile columns (csrc/fly_cost.cu row_cols):
+    every column from the tile's first center - half_wnd to its last +
+    half_wnd, or on a lattice only the columns its windows sample."""
+    if lattice == 1:
+        return TX + 2 * half_wnd
+    return TX - 1 + (2 * half_wnd) // stride + 1
+
+
+def rows_smem_bytes(half_wnd: int, stride: int, lattice: int, max_dis: int,
+                    lab: bool) -> int:
+    """A block's shared memory in the shared-row design (csrc/fly_cost.cu
+    rows_smem_bytes): the rows' slice ranges, the weight table, RAW_STAGES
+    window rows of the other view's reachable columns (8 bytes a pixel) and
+    of the tile's colour, gradient and, with Lab weights, Lab words, and
+    COST_STAGES rows of the slice costs 1 .. max_dis of the tile's
+    columns."""
+    tw = row_cols(half_wnd, stride, lattice)
+    ow = lattice * (tw - 1) + 1 + max_dis
+    return 4 * (RANGE_WORDS + LUT_N
+                + RAW_STAGES * (2 * ow + tw * (3 if lab else 2))
+                + COST_STAGES * tw * cost_stride(max_dis))
+
+
+def sample_smem_bytes(half_wnd: int, max_dis: int, lab: bool,
+                      tile_rows: int) -> int:
+    """A block's shared memory one sample at a time (csrc/fly_cost.cu
+    sample_smem_bytes): the level-0 tiles of the reference view, its Lab
+    words, and the other view's reachable columns."""
+    tile = (TX + 2 * half_wnd) * (tile_rows + 2 * half_wnd)
+    oth = (TX + 2 * half_wnd + max_dis) * (tile_rows + 2 * half_wnd)
+    return 4 * (LUT_N + tile * (3 if lab else 2) + oth * 2)
+
+
+def resident_warps(smem: int, tile_rows: int) -> int:
+    """Warps an SM keeps resident with this tile one sample at a time, at
+    the 64 registers a thread that two 512-thread blocks leave."""
+    if smem > MAX_SMEM:
+        return 0
+    by_smem = SM_SMEM // (smem + BLOCK_RESERVE)
+    return min(by_smem, 2 * MAX_TY // tile_rows) * tile_rows
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(k: int, h: int, w: int, half_wnd: int, max_dis: int,
+                stride: int, levels: int, lab: bool, image: bool) -> Plan:
+    """The design and tiling of one launch on K candidates of an H x W
+    frame at a window stride over `levels` levels, from the call's shape
+    alone (max_dis the finest level's; a coarser level needs less): cost
+    lerp takes the shared-row design where its rings fit a block, a thread
+    holding the fewest of ROW_CANDS that take a chunk of at most 8
+    candidates (the K split as evenly as it goes), and at one level with a
+    stride a block's pixels on a lattice of that step (its windows then
+    sample one residue of rows and columns); image lerp (K6, whose data
+    term reads the other view at fractional columns: no integer slice to
+    share), and cost lerp past the rings' fit, compute one sample at a time
+    on a tile of 16 rows unless 8 keep more warps resident."""
+    if not image:
+        lat = stride if levels == 1 else 1
+        smem = rows_smem_bytes(half_wnd, stride, lat, max_dis, lab)
+        if smem <= MAX_SMEM:
+            chunks = -(-k // ROW_CANDS[-1])
+            per = -(-k // chunks)
+            cands = min(c for c in ROW_CANDS if c >= per)
+            chunks = -(-k // per)
+            return Plan(True, MAX_TY, lat, cands, per, chunks, smem,
+                        (-(-w // (TX * lat)) * lat,
+                         -(-h // (MAX_TY * lat)) * lat, 2 * chunks))
+    w16 = resident_warps(sample_smem_bytes(half_wnd, max_dis, lab, 16), 16)
+    w8 = resident_warps(sample_smem_bytes(half_wnd, max_dis, lab, 8), 8)
+    rows = 16 if w16 >= w8 else 8
+    return Plan(False, rows, 1, 1, 1, k,
+                sample_smem_bytes(half_wnd, max_dis, lab, rows),
+                (-(-w // TX), -(-h // rows), 2 * k))
 
 
 def interleave_ref(img_u8: torch.Tensor, grd: torch.Tensor) -> torch.Tensor:
@@ -188,11 +307,18 @@ def fly_cost_prepared(prep: PreparedFly, abc: torch.Tensor, *, half_wnd: int,
     lib = _build.load()
     out = torch.empty((2, k, h, w), dtype=torch.float32, device=abc.device)
     lab = prep.fd.wimgs is not None
+    plan = launch_plan(k, h, w, half_wnd, max_dis, wnd_stride, levels, lab,
+                       prep.kw["lerp"] == "image")
     err = lib.cspm_fly_cost(
         *prep.args, abc.data_ptr(), prep.tensors[-1].data_ptr(),
-        out.data_ptr(), k, h, w, half_wnd, wnd_stride, _build.stream_of(abc))
+        out.data_ptr(), k, h, w, half_wnd, wnd_stride, int(plan.rows),
+        plan.tile_rows, plan.lattice, plan.cands, plan.per_chunk, plan.smem,
+        _build.stream_of(abc))
     _build.check(err, "cspm_fly_cost")
-    launches[(prep.kw["lerp"], lab, wnd_stride > 1)] += 1
+    key = (prep.kw["lerp"], lab, wnd_stride > 1)
+    launches[key] += 1
+    if plan.rows:
+        shared_launches[key] += 1
     return out
 
 

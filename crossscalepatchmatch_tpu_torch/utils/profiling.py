@@ -280,6 +280,7 @@ def reset_launch_counts() -> None:
     window_cost.launches = window_cost.strided_launches = 0
     quadrant_build.launches = cross_scale_cost.launches = 0
     fly_cost.launches.clear()
+    fly_cost.shared_launches.clear()
     weighted_median.launches = postprocess.plain_launches = 0
     grd_volume.launches = quadrant_rank.launches = 0
     plane_cost.launches = prescreen_volume.launches = 0

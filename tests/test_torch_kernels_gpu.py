@@ -505,6 +505,56 @@ def test_fly_kernel_kitti_shape(cuda, k, stride):
                            stride))
 
 
+# The shared-row design (csrc/fly_cost.cu) at every (K, stride) the
+# no-volume schedule launches, on planes over the whole slice range, on
+# planes of nearly one slice (a warp's lanes on neighbouring columns at one
+# slice: the bank-conflict case) and on far planes whose taps leave both
+# image edges (the border pseudo-cost in the row buffer)
+FLY_ROW_RUNS = [(1, 1), (2, 1), (5, 2), (8, 2)]
+
+
+@pytest.fixture(scope="module")
+def kitti_fly_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return fly_scene(375, 1242, 128, 1, False, 0, torch.device("cuda:0"))[0]
+
+
+def kitti_fly_planes(kind, k, seed):
+    h, w, d = 375, 1242, 128
+    if kind == "random":
+        return random_planes(k, h, w, d, seed)
+    rng = np.random.default_rng(seed)
+    if kind == "flat":
+        ab = rng.uniform(-1e-4, 1e-4, (2, k, h, w, 2))
+        dc = 37.25 + rng.uniform(-0.02, 0.02, (2, k, h, w))
+    else:
+        ab = rng.uniform(-0.05, 0.05, (2, k, h, w, 2))
+        dc = rng.uniform(90.0, 127.0, (2, k, h, w))
+    ab, dc = ab.astype(np.float32), dc.astype(np.float32)
+    xs = np.arange(w, dtype=np.float32)
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    c = dc - ab[..., 0] * xs - ab[..., 1] * ys
+    return np.concatenate([ab, c[..., None]], axis=-1)
+
+
+@pytest.mark.parametrize("kind", ["random", "flat", "edges"])
+@pytest.mark.parametrize("k,stride", FLY_ROW_RUNS)
+def test_fly_rows_bit_equal_at_kitti(kitti_fly_scene, kind, k, stride):
+    """K5 and K3's fly form on the KITTI scene (375 x 1242, max_dis 128),
+    both views, through the shared-row design: the f32 costs equal the
+    plain version's bit for bit."""
+    fd = kitti_fly_scene
+    assert fly_cost.launch_plan(k, 375, 1242, KITTI.half_wnd, 128, stride,
+                                1, False, False).rows
+    abc = torch.as_tensor(kitti_fly_planes(kind, k, seed=500 + k),
+                          device=fd.imgs[0].device)
+    before = sum(fly_cost.shared_launches.values())
+    got, want = fly_both(fd, None, abc, KITTI.half_wnd, 128, "cost", stride)
+    assert sum(fly_cost.shared_launches.values()) == before + 1
+    assert torch.equal(got, want)
+
+
 def test_pair_volume_on_the_card(cuda):
     vol = torch.rand((2, 5, 7, 9), device=cuda).to(torch.bfloat16)
     pv = cross_scale_cost.pair_volume(vol)
@@ -857,6 +907,9 @@ def test_no_volume_pipeline_runs_through_the_kernels(cuda, kw, n_fly,
     assert fly_cost.count() == n_fly
     assert fly_cost.count(strided=True) == n_strided
     assert fly_cost.count(lab=True) == (n_fly if cfg.use_lab_weights else 0)
+    # cost lerp takes the shared-row design on every launch, K6 on none
+    assert sum(fly_cost.shared_launches.values()) == (
+        n_fly if cfg.fly_lerp == "cost" else 0)
     assert (window_cost.launches, quadrant_build.launches,
             cross_scale_cost.launches) == (0, 0, 0)
     assert onthefly_cost.launches == 0 and plane_cost.launches == 0

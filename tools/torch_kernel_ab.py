@@ -699,7 +699,7 @@ CASES = {
            lambda c: fly_cases(c, "bench", "K5 cross-scale", [(1, 1)]),
            lambda c: fly_cases(c, "KITTI", "K5", [(1, 1), (2, 1)])],
     "k3_fly": [lambda c: fly_cases(c, "bench", "K5", [(8, 2), (5, 2)]),
-               lambda c: fly_cases(c, "KITTI", "K5", [(8, 2)])],
+               lambda c: fly_cases(c, "KITTI", "K5", [(8, 2), (5, 2)])],
     "k6": [lambda c: fly_cases(c, "bench", "K6", [(1, 1), (2, 1)])],
     "k7": [lambda c: fly_cases(c, "bench", "K7", [(1, 1)])],
     "wmf": [median_cases],
