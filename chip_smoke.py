@@ -10,11 +10,12 @@ Phases, each fatal on failure:
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (timed);
   3. each main path of the GPU tier's MAIN_PATHS (README_DEMO, CEN_CS_PP,
-     both without a volume, KITTI, the BOX, GF and BF aggregators) on its
+     README_DEMO and KITTI without a volume, KITTI without a volume in
+     image-lerp mode (K6), KITTI, the BOX, GF and BF aggregators) on its
      scene, seed 0, three runs: the `dis` digest, ms/pair, peak device
      memory and the launches of a pair (every launch counter reset just
      before the first run);
-  4. the GPU tier's tests at the paths' shapes (SHAPE_TESTS, 71 of them:
+  4. the GPU tier's tests at the paths' shapes (SHAPE_TESTS, 86 of them:
      the bench and KITTI scenes, the bench tile's band forms, the main
      paths, the warm frame, the sharded paths, a call's launches): each
      kernel's wrapper against its plain version there, each path's

@@ -44,7 +44,8 @@ def _make_cost_fns(l: torch.Tensor, r: torch.Tensor, cfg: CSPMConfig):
             vd = build_volume_data(l, r, cfg)
         with span("quadrant_build_K2"):
             return (*pm.make_cost_fns(cfg, vd), vd.imgs[0])
-    with span("fly_data"):
+    with span("fly_data", lerp=cfg.fly_lerp,
+              levels=cfg.scale_num if cfg.use_cs else 1):
         fd = build_fly_data(l, r, cfg)
         return (*pm.make_fly_cost_fns(cfg, fd), fd.imgs[0])
 

@@ -4,7 +4,8 @@ The pipeline opens a span at each layer boundary of a pair (models/pipeline,
 models/patchmatch, models/postprocess, utils/rng):
 
     pair (entry=run_pair|run_pair_warm)
-    ├─ volume_build | fly_data
+    ├─ volume_build | fly_data (lerp: the data term, "cost" or "image";
+    │                           levels)
     │  └─ aggregate (filter, level, slices: one a level with an
     │                aggregation filter)
     ├─ quadrant_build_K2
@@ -128,22 +129,25 @@ def span(name: str, *, entry: str | None = None, i: int | None = None,
          round: int | None = None,  # noqa: A002 (the attribute's name)
          fused: bool | None = None,
          filter: str | None = None,  # noqa: A002 (the attribute's name)
-         level: int | None = None, slices: int | None = None):
+         level: int | None = None, slices: int | None = None,
+         lerp: str | None = None, levels: int | None = None):
     """A context manager around one layer's work: a Span while recording,
     else the shared NO_SPAN.  The keywords are the span's attributes:
     entry (the pair's entry point), i (iteration), s (sweep), k
     (candidates a pixel proposed), stage (refinement stage), view and
     round (a draw's key), fused (a refinement stage proposed by kernel
     RPROP), filter, level and slices (an aggregation filter, the pyramid
-    level it runs on and the inner slices it filters); only those given
-    are kept."""
+    level it runs on and the inner slices it filters), lerp and levels (the
+    no-volume data term, "cost" or "image", and the pyramid levels it
+    sums); only those given are kept."""
     if _recorder is None:
         return NO_SPAN
     attrs = {key: v for key, v in (("entry", entry), ("i", i), ("s", s),
                                    ("k", k), ("stage", stage),
                                    ("view", view), ("round", round),
                                    ("fused", fused), ("filter", filter),
-                                   ("level", level), ("slices", slices))
+                                   ("level", level), ("slices", slices),
+                                   ("lerp", lerp), ("levels", levels))
              if v is not None}
     return Span(name, attrs)
 

@@ -84,6 +84,29 @@ def test_image_lerp_never_takes_the_shared_rows(lab, hw):
                 assert p.chunks == k and p.grid[2] == 2 * k
 
 
+def test_image_kitti_schedule_one_sample_at_a_time():
+    """Each of the image-lerp KITTI pair's 27 launches (the configuration
+    kitti2015_grd_pp_novol_img: K6, 12 of them at stride 2 as its own
+    prescreen) computes one sample at a time on 16-row tiles: the weight
+    table, the reference tile's 66 x 50 pixels and the other view's 194 x
+    50 reachable columns, 8 bytes a pixel, 107,064 bytes a block, two
+    blocks an SM; a block a candidate and view."""
+    img = json.loads((ROOT / "stereobench" / "configs" /
+                      "kitti2015_grd_pp_novol_img.json").read_text())["engine"]
+    assert img == dict(NOVOL, fly_lerp="image")
+    launches = roofline.fly_plan(img)
+    assert len(launches) == 27 and sum(s > 1 for _, s in launches) == 12
+    assert fc.sample_smem_bytes(17, 128, False, 16) == 4 * (
+        766 + 2 * 66 * 50 + 2 * 194 * 50) == 107_064
+    for k, stride in launches:
+        p = plan(k, img["wnd_size"] // 2, img["max_dis"], stride,
+                 image=True)
+        assert not p.rows and p.tile_rows == fc.MAX_TY, (k, p)
+        assert p.smem == 107_064 and p.chunks == k
+        assert 2 * (p.smem + fc.BLOCK_RESERVE) <= fc.SM_SMEM
+        assert p.grid == (39, 24, 2 * k)
+
+
 def test_wide_window_and_range_fall_back():
     """half_wnd 64 at a large max_dis: the rings pass a block's shared
     memory, so the launch computes one sample at a time (and where that

@@ -88,10 +88,12 @@ CEN_CS_PATH = ("k4", "k2", "qrank", "cenv")
 # "fly" every fly launch): 10 exact evaluations, the ranking's one K2 build
 # and 14 QRANK calls, one volume call a level, 6 refinement stages, one
 # median with post-processing; without a volume 27 fly evaluations and 12
-# strided prescreens
+# strided prescreens, in cost-lerp mode (K5) or PatchMatch Stereo's image
+# lerp (K6, at stride 2 its own prescreen)
 GRD_LAUNCHES = dict(k1=10, k2=1, grdv=1, qrank=14, rprop=6)
 CEN_CS_PP_LAUNCHES = dict(k4=10, k2=1, qrank=14, cenv=5, rprop=6, wmf=1)
 FLY_LAUNCHES = dict(k5=27, fly=27, k3_fly=12, rprop=6)
+FLY_IMAGE_LAUNCHES = dict(k6=27, fly=27, k3_fly=12, rprop=6)
 
 
 @pytest.fixture
@@ -503,6 +505,26 @@ def test_fly_kernel_kitti_shape(cuda, k, stride):
                           device=cuda)
     assert_close(*fly_both(fd, None, abc, KITTI.half_wnd, 128, "cost",
                            stride))
+
+
+@pytest.mark.parametrize("k,stride", [(1, 1), (8, 2)])
+def test_fly_image_kitti_shape(cuda, k, stride):
+    """K6 (K = 1) and its stride-2 form (K = 8), PatchMatch Stereo's image
+    lerp, on the KITTI scene (375 x 1242, max_dis 128), both views, one
+    sample at a time (a 16-row tile: 107,064 bytes of shared memory a
+    block, tests/test_torch_fly_plan.py), planes that leave the range and
+    wrap past either border: within REL_TOL of the plain version, and the
+    same bits on a rerun."""
+    fd, _ = fly_scene(375, 1242, 128, 1, False, 0, cuda)
+    abc = torch.as_tensor(random_planes(k, 375, 1242, 128, seed=600 + k),
+                          device=cuda)
+    kw = dict(half_wnd=KITTI.half_wnd, max_dis=128, lerp="image",
+              wnd_stride=stride, **FLY_KW)
+    before = sum(fly_cost.shared_launches.values())
+    got = fly_cost.fly_cost_cuda(fd, None, abc, **kw)
+    assert_close(got, onthefly_cost.fly_plane_cost(fd, None, abc, **kw))
+    assert torch.equal(got, fly_cost.fly_cost_cuda(fd, None, abc, **kw))
+    assert sum(fly_cost.shared_launches.values()) == before
 
 
 # The shared-row design (csrc/fly_cost.cu) at every (K, stride) the
@@ -1023,6 +1045,9 @@ MAIN_PATHS = {
         FLY_LAUNCHES),
     "KITTI-fly": (dataclasses.replace(KITTI, precompute_volume=False),
                   KITTI_SCENE, 3.0, (0,), dict(FLY_LAUNCHES, wmf=1)),
+    "KITTI-fly-image": (dataclasses.replace(
+        KITTI, precompute_volume=False, fly_lerp="image"), KITTI_SCENE, 3.0,
+        (0,), dict(FLY_IMAGE_LAUNCHES, wmf=1)),
     "KITTI": (KITTI, KITTI_SCENE, 3.0, (0,), dict(GRD_LAUNCHES, wmf=1)),
     **{f"README_DEMO-{agg.value}": (
         dataclasses.replace(README_DEMO, aggregator=agg), BENCH, None, (0,),
@@ -1063,6 +1088,9 @@ def test_main_path_on_the_card(cuda, path):
             assert bad <= BAD_PIXEL_MAX, (seed, bad)
     torch.cuda.synchronize()
     assert_launches(launch_counts(), launches, len(seeds) + 1)
+    # every cost-lerp launch takes the shared-row design, no K6 launch
+    assert sum(fly_cost.shared_launches.values()) == fly_cost.count(
+        lerp="cost")
     if cfg.use_pp:
         out, imgs = outs[0], torch.stack([l, r])
         dis = plane_to_disp(out["abc"], cfg.dis_scale)

@@ -133,6 +133,22 @@ def test_span_tree_of_a_cold_pair(case, pair):
 
 
 @pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("lerp", ["cost", "image"])
+def test_fly_data_span_names_its_data_term(pair, lerp, levels):
+    """Without a volume the fly_data span carries the data term (lerp:
+    "cost" for K5, "image" for K6) and the levels it sums; with a volume
+    there is none."""
+    cfg = dataclasses.replace(CONFIGS["no_volume"], fly_lerp=lerp,
+                              use_cs=levels > 1, scale_num=max(levels, 2),
+                              reg_lambda=0.3)
+    with spans.recording() as rec:
+        run_pair(pair.left, pair.right, 5, cfg, device="cpu")
+        run_pair(pair.left, pair.right, 5, GRD, device="cpu")
+    got = [(sp.seq, sp.attrs) for sp in rec if sp.name == "fly_data"]
+    assert got == [(0, {"lerp": lerp, "levels": levels})]
+
+
+@pytest.mark.parametrize("levels", [1, 3])
 @pytest.mark.parametrize("agg", ["BOX", "GF", "BF"])
 def test_aggregate_span_a_level(pair, agg, levels):
     """With an aggregation filter each level's filter is an `aggregate`

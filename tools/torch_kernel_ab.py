@@ -16,10 +16,11 @@ utils.profiling.launch_counts(): K1 / K3's volume form / K2 / QRANK on the
 bench and KITTI scenes' GRD volumes and in band form on the bench scene's
 middle tile of a (1, 3, 2) mesh (125 + 34 rows x 225 + 34 columns); K4 on
 the bench scene's 5 CEN_CS_PP levels, whole and in band form; the fly
-kernel variant by variant (K5, K3's fly form, K6, K7, the 5-level
-cross-scale fly) on the bench and KITTI scenes; QRANK on random planes
-(test_planes) and on the pipeline's candidates (the propagation stencil's
-neighbours of the seed-0 run_pair output's final planes); WMF on the seed-0
+kernel variant by variant (K5, K3's fly form, K6 and its stride-2 form,
+K7, the 5-level cross-scale fly) on the bench and KITTI scenes; QRANK on
+random planes (test_planes) and on the pipeline's candidates (the
+propagation stencil's neighbours of the seed-0 run_pair output's final
+planes); WMF on the seed-0
 CEN_CS_PP and KITTI pairs' inputs and in band form on the bench tile (the
 wrapper and the kernel's launch alone); GRDV on both scenes and the bench
 tile's full-width rows; CENV at each CEN_CS_PP level, all 5 and a KITTI-size
@@ -415,8 +416,9 @@ FLY_VARIANTS = {"K5": {}, "K6": dict(fly_lerp="image"),
 
 def fly_cases(ctx, tag, variant, runs):
     """The fly kernel's variant (FLY_VARIANTS) on the KITTI or bench scene,
-    at each (K, stride) of runs; stride > 1 is K3's fly form.  The plain
-    version: onthefly_cost.fly_plane_cost."""
+    at each (K, stride) of runs; stride > 1 is K3's fly form (K6's own at
+    stride 2: "K6 <tag> K=<k> stride <stride>").  The plain version:
+    onthefly_cost.fly_plane_cost."""
     from crossscalepatchmatch_tpu_torch import KITTI, README_DEMO
     from crossscalepatchmatch_tpu_torch.ops import onthefly_cost
     from crossscalepatchmatch_tpu_torch.ops.cuda import fly_cost
@@ -438,8 +440,11 @@ def fly_cases(ctx, tag, variant, runs):
     prep = fly_cost.prepare_fly(fd, wg, **fkw)
     for k, stride in runs:
         abc = ctx.planes(scene, cfg.max_dis, k)
-        name = f"K3 fly stride {stride}" if stride > 1 else variant
-        yield Case(f"{name} {tag} K={k}", functools.partial(
+        name = (f"K3 fly stride {stride} {tag} K={k}"
+                if stride > 1 and variant == "K5" else
+                f"{variant} {tag} K={k}"
+                + (f" stride {stride}" if stride > 1 else ""))
+        yield Case(name, functools.partial(
             fly_cost.fly_cost_prepared, prep, abc, half_wnd=cfg.half_wnd,
             max_dis=cfg.max_dis, levels=levels, wnd_stride=stride),
             window_work(abc, [*fd.imgs, *fd.grds, *(fd.wimgs or [])],
@@ -700,7 +705,8 @@ CASES = {
            lambda c: fly_cases(c, "KITTI", "K5", [(1, 1), (2, 1)])],
     "k3_fly": [lambda c: fly_cases(c, "bench", "K5", [(8, 2), (5, 2)]),
                lambda c: fly_cases(c, "KITTI", "K5", [(8, 2), (5, 2)])],
-    "k6": [lambda c: fly_cases(c, "bench", "K6", [(1, 1), (2, 1)])],
+    "k6": [lambda c: fly_cases(c, "bench", "K6", [(1, 1), (2, 1)]),
+           lambda c: fly_cases(c, "KITTI", "K6", [(1, 1), (8, 2)])],
     "k7": [lambda c: fly_cases(c, "bench", "K7", [(1, 1)])],
     "wmf": [median_cases],
     "grdv": [grd_volume_cases],

@@ -16,8 +16,10 @@ put down to the span open at their launch (utils/profiling): the
 per-layer readings draws.host_ms, optimizer.host_ms,
 volume_build.device_ms and postprocess.device_ms, host / self / device
 ms and launches a pair by span, the share of refinement stages that
-kernel RPROP proposed (the refine spans' `fused`), the device's idle
-gaps by the span the host was in, the share of device ops joined to a
+kernel RPROP proposed (the refine spans' `fused`), the no-volume data
+term the pairs ran (the fly_data spans' `lerp`: "cost" for K5, "image"
+for K6; none with a volume), the device's idle gaps by the span the host
+was in, the share of device ops joined to a
 launch inside a pair span, the quartiles of start - launch (the device's
 clock against the host's), the profile against the program's launch
 counters, and each run's ms a pair.  Prints one line of JSON a cell
@@ -111,6 +113,8 @@ def run_cell(cell, pairs: int, seed: int, device="cuda") -> dict:
         "ms_pair": ms, "window_s": walls,
         "layers": profiling.layer_metrics(table),
         "refine_fused_share": profiling.fused_share(host),
+        "fly_lerp": sorted({sp.attrs["lerp"] for sp in host
+                            if sp.name == "fly_data"}),
         "spans_per_pair": len(host) / pairs,
         "launches_per_pair": len(ops) / pairs,
         "joined_pct": 100.0 * in_pair / max(len(ops), 1),
