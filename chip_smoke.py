@@ -15,7 +15,7 @@ Phases, each fatal on failure:
      scene, seed 0, three runs: the `dis` digest, ms/pair, peak device
      memory and the launches of a pair (every launch counter reset just
      before the first run);
-  4. the GPU tier's tests at the paths' shapes (SHAPE_TESTS, 86 of them:
+  4. the GPU tier's tests at the paths' shapes (SHAPE_TESTS, 98 of them:
      the bench and KITTI scenes, the bench tile's band forms, the main
      paths, the warm frame, the sharded paths, a call's launches): each
      kernel's wrapper against its plain version there, each path's

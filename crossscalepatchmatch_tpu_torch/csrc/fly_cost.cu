@@ -28,8 +28,9 @@
 // packed BGR one; LAB = false: both read the BGR one.
 //
 // Two designs, chosen per launch from its shape by ops/cuda/fly_cost.py
-// launch_plan (one launch a call either way; both kernels keep
-// "fly_cost_kernel" in their names).
+// launch_plan (one launch a call either way; all three kernels keep
+// "fly_cost_kernel" in their names): the shared rows, a kernel each lerp,
+// where they fit a block, else one sample at a time.
 //
 // The shared-row design, fly_cost_kernel_rows (cost lerp: K5, K3's fly
 // form, K7).  A slice cost cost(q, f) depends on q and f alone, not on the
@@ -86,9 +87,58 @@
 // unrolling the sample loop by 2 or 4, or the cost loop by 4 (+-3 %);
 // reloading b each row to spare registers (+9 % at K = 8, more spills).
 //
-// One sample at a time, fly_cost_kernel (K6 always: its data term reads
-// the other view at fractional columns, with no integer slice to share;
-// cost lerp where the shared rows do not fit a block).  What bounds it on
+// The shared-row design of image lerp, fly_cost_kernel_image_rows (K6 and
+// its stride-2 form).  K6 has no integer slice to share: its data term
+// reads the other view at fractional columns.  What one sample at a time
+// repeats is the unpacking: six tap channels a candidate and sample from
+// packed words (a shift, a mask and a conversion each) and the pixel's
+// three again for each candidate.  Timed one sample at a time on a KITTI
+// pair's own 27 calls (118.4 ms): the taps read as ready floats 100.5 ms;
+// the pixel's channels as floats too 106.3 (the extra 16-byte load costs
+// more than three conversions); the index conversions replaced by exact
+// integer arithmetic 119.5; no conversion at all 109.2; the weight a
+// constant 116.8.  So the taps' unpack is what staging removes:
+//   * a ring of 17 tile rows holds the other view's reachable columns as
+//     f32 channels (B, G, R, gradient: 16 bytes a column, wrapped modulo
+//     the level width as HandleBorder wraps them, one column past max_dis
+//     for a match that rounds onto it) beside the tile's weight words and
+//     gradients (and colour words with LAB): a column is unpacked once a
+//     row a block, a tap is one 16-byte load of ready floats;
+//   * the block walks its window diagonally: at step t every warp adds its
+//     window row lat * t - hw, so the 16 warps read 16 consecutive tile
+//     rows while the next one is filled, one barrier a step, and no warp
+//     waits out a row its window lacks (walking the rows in order, as cost
+//     lerp does, idles ~30 % of the warps at each barrier: 106.8 -> 101.9
+//     ms a pair);
+//   * a thread holds C = 1, 2, 4, 5 or 8 candidates (cost lerp's chunks)
+//     that share each sample's weight, pixel and loop;
+//   * at one level with a stride the rows lie on a lattice of that step and
+//     the 32 columns stay adjacent: on a column lattice neighbouring lanes'
+//     taps lie 32 bytes apart, two to a bank (101.9 -> 96.8 ms);
+//   * the sample's pixel is its colour word, read for the weight and
+//     unpacked once for the C candidates, and its gradient, not a 16-byte
+//     row of channels (96.8 -> 91.7 ms).
+// What bounds it: shared-memory traffic beside the instruction rate.  The two
+// taps are 32 bytes a candidate and sample; without their loads a pair takes
+// 79.9 ms, without the weight table 94.0.  Every rounding step is the
+// one-sample design's, in its order, so the costs are bit-equal to it.
+// Measured (H100 80GB HBM3, 700 W; KITTI, both views, the pipeline's own
+// candidates; one sample at a time -> this design): K = 1 3.16 -> 2.75 ms,
+// K = 2 6.27 -> 5.55, K = 5 at stride 2 4.30 -> 3.14, K = 8 at stride 2
+// 6.89 -> 4.83; a pair's 27 launches 117.6 -> 91.9 ms.  Measured and dropped:
+// both taps' colour words and gradients in one 16-byte record (half the taps'
+// bytes, six unpacks a candidate: 106.1 ms with conversions, 94.8 with
+// byte-permute and magic-number ones; faster only at K = 2), those
+// conversions for the pixel (+1 %), the weight table replicated 8 times
+// against bank conflicts (+1 %), b in shared memory or b * dy a sample for
+// C = 8's spills (+-0.2 %), each view's direction fixed at compile time
+// (+0.1 %), the sample loop unrolled by 2 (+0.2 %), the next row's pixels by
+// cp.async a step ahead (+0.6 %), one block an SM at 128 registers for C >= 5
+// (+2 %), the prescreen's K = 8 and 5 as chunks of 4 (+12 %).
+//
+// One sample at a time, fly_cost_kernel (cost lerp at a wide window and
+// range, image lerp at a window of at most 7 past a range of ~780: where
+// the shared rows do not fit a block, which no cell does).  What bounds it on
 // the H100: instruction issue (~3.6 of 4 a clock), neither bytes (the
 // inputs are O(H*W) per level) nor the f32 peak: a window sample is a
 // chain of shared loads (pixel, weight table), the range test and two GRD
@@ -113,8 +163,9 @@
 //     version's own exp; the cost-mode colour TAD of u8 channels is one
 //     exact integer __vsadu4.
 // Measured and dropped there: 2 or 4 candidates per thread sharing the
-// weight (no gain even at the prescreen's 8 candidates, see
-// window_common.cuh), instances with half_wnd 17 and the stride fixed at
+// weight (no gain even at the prescreen's 8 candidates: the shared part is
+// small in this design, see window_common.cuh), instances with half_wnd 17
+// and the stride fixed at
 // compile time (slower than the runtime loop), cp.async / TMA staging (a
 // block stages 19 pixels a thread against 1,225 window samples).
 //
@@ -188,6 +239,27 @@ __device__ __forceinline__ float lerp2(float fw, float omfw, float a,
   return __fadd_rn(__fmul_rn(fw, a), __fmul_rn(omfw, b));
 }
 
+// A pixel's BGR channels and gradient as floats: (B, G, R, gradient).
+__device__ __forceinline__ float4 channels(uint32_t col, float grd) {
+  return make_float4(chan(col, 0), chan(col, 1), chan(col, 2), grd);
+}
+
+// The image-lerp data term: q against the other view lerped at other_x
+// between taps t0 at ox = trunc(other_x) and t1 at ox + 1, one_ox the float
+// ox + 1 (every argument as channels gives it).
+__device__ __forceinline__ float tap_term(const Grd& g, float4 q,
+                                          float other_x, float one_ox,
+                                          float4 t0, float4 t1) {
+  const float fw = __fsub_rn(one_ox, other_x);
+  const float omfw = __fsub_rn(1.f, fw);
+  const float sum = __fadd_rn(
+      __fadd_rn(fabsf(__fsub_rn(q.x, lerp2(fw, omfw, t0.x, t1.x))),
+                fabsf(__fsub_rn(q.y, lerp2(fw, omfw, t0.y, t1.y)))),
+      fabsf(__fsub_rn(q.z, lerp2(fw, omfw, t0.z, t1.z))));
+  const float gl = lerp2(fw, omfw, t0.w, t1.w);
+  return mix(g, third(sum), fabsf(__fsub_rn(q.w, gl)));
+}
+
 // val(q) of one candidate at an in-range dq (see the header comment).
 // o_row indexes the other view's staged row by level column; dir is -1 for
 // the left view (its match lies at q_x - d), +1 for the right.
@@ -199,21 +271,10 @@ __device__ __forceinline__ float data_term(const Grd& g, uint2 q, int qx,
   if (IMAGE) {
     const float other_x = __fadd_rn(fqx, dir < 0 ? -dq : dq);
     const int ox = (int)other_x;  // C trunc; |other_x| < ws + max_dis
-    const float fw = __fsub_rn((float)(ox + 1), other_x);
-    const float omfw = __fsub_rn(1.f, fw);
     const uint2 t0 = o_row[ox], t1 = o_row[ox + 1];
-    const float sum = __fadd_rn(
-        __fadd_rn(fabsf(__fsub_rn(chan(q.x, 0),
-                                  lerp2(fw, omfw, chan(t0.x, 0),
-                                        chan(t1.x, 0)))),
-                  fabsf(__fsub_rn(chan(q.x, 1),
-                                  lerp2(fw, omfw, chan(t0.x, 1),
-                                        chan(t1.x, 1))))),
-        fabsf(__fsub_rn(chan(q.x, 2),
-                        lerp2(fw, omfw, chan(t0.x, 2), chan(t1.x, 2)))));
-    const float gl = lerp2(fw, omfw, __uint_as_float(t0.y),
-                           __uint_as_float(t1.y));
-    return mix(g, third(sum), fabsf(__fsub_rn(qg, gl)));
+    return tap_term(g, channels(q.x, qg), other_x, (float)(ox + 1),
+                    channels(t0.x, __uint_as_float(t0.y)),
+                    channels(t1.x, __uint_as_float(t1.y)));
   }
   const float t = biased_trunc(dq);
   // slices f and f + 1: adjacent columns, the second one farther out
@@ -695,6 +756,218 @@ fly_cost_kernel_rows(const Levels lv,
   }
 }
 
+// ---- The shared-row design of image lerp (K6) ----
+
+// Image lerp's ring of tile rows: the 16 a block's warps read at a step
+// and the one filled meanwhile (kMaxTY + 1).
+constexpr int kTapRows = 17;
+// The weight table's words in image lerp's layout, padded to a multiple of
+// 4 so the ring's 16-byte loads are aligned.
+constexpr int kTapLut = 768;
+static_assert(kTapRows == kMaxTY + 1 && kTapLut >= kLutN && kTapLut % 4 == 0,
+              "image lerp's layout");
+
+// Shared memory of image lerp's shared-row design, from level 0: the weight
+// table, then kTapRows tile rows, each the other view's reachable columns
+// as f32 channels (16 bytes a column: the tile's 32 + 2 hw columns, max_dis
+// beyond them and one more, the far tap of a match that rounds onto
+// max_dis) and the tile's 32 + 2 hw columns as weight words (colour, or
+// Lab with LAB), gradients and, with LAB, colour words.
+size_t image_rows_smem_bytes(int hw, int max_dis0, bool lab) {
+  const size_t tw = kTX + 2 * hw, ow = tw + max_dis0 + 1;
+  return (kTapLut + kTapRows * (4 * ow + tw * (lab ? 3 : 2))) *
+         sizeof(uint32_t);
+}
+
+// Window cost of every level for C candidates a thread, image lerp (the
+// chunks as in fly_cost_kernel_rows).  A block is 32 adjacent columns of
+// 16 rows; with a lattice (one level, stride lat > 1) the rows lie lat
+// apart at one residue (blockIdx.y = row block * lat + residue), so its
+// windows sample one residue of rows, and its 32 columns stay adjacent:
+// neighbouring lanes read neighbouring columns at each window offset, in
+// distinct banks.  The block walks its window diagonally: at step t every
+// warp (one center row) adds its window row dy = lat * t - hw, tile row
+// c + t for its center's tile row c, dx ascending, so its sum keeps the
+// plain version's order, and the 16 warps read 16 consecutive tile rows at
+// once: none waits out a row its window lacks.  The tile rows sit in a
+// ring of kTapRows, the other view's reachable columns (wrapped modulo the
+// level width, HandleBorder) as f32 channels and the tile's weight words
+// and gradients: at step t rows t .. t + 15 are read while row t + 16 is
+// filled, one barrier a step.  A sample unpacks its pixel's colour word
+// once for its C candidates; each candidate lerps two ready taps.
+template <bool LAB, int C>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fly_cost_kernel_image_rows(const Levels lv,
+                           const float* __restrict__ abc,  // [2, K, H, W, 3]
+                           const float* __restrict__ lut,  // [766]
+                           float* __restrict__ out,        // [2, K, H, W]
+                           int K, int H, int W, int hw, int stride, int lat,
+                           int per_chunk, const Grd g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int ty = blockDim.y;
+  const int threads = kTX * ty;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * kTX + lane;
+  const int chunks = gridDim.z >> 1;
+  const int v = blockIdx.z / chunks;
+  const int k0 = (blockIdx.z - v * chunks) * per_chunk;
+  const int n = min(per_chunk, K - k0);
+  const bool left = v == 0;
+  const int by = blockIdx.y / lat;
+  const int x0 = blockIdx.x * kTX;  // first pixel
+  const int y0 = by * ty * lat + (blockIdx.y - by * lat);
+  if (y0 >= H) return;  // a residue past the image's edge
+  const int x = x0 + lane, y = y0 + lat * warp;
+  const bool active = x < W && y < H;
+  const int x_last = min(x0 + kTX, W) - 1;
+  const int y_last = y0 + lat * min(ty - 1, (H - 1 - y0) / lat);
+
+  // the layout of image_rows_smem_bytes
+  const int tw_max = kTX + 2 * hw;
+  const int ow_max = tw_max + lv.max_dis[0] + 1;
+  float* s_lut = reinterpret_cast<float*>(smem);
+  float4* s_fo = reinterpret_cast<float4*>(smem + kTapLut);
+  uint32_t* s_wt = reinterpret_cast<uint32_t*>(s_fo + kTapRows * ow_max);
+  float* s_gt = reinterpret_cast<float*>(s_wt + kTapRows * tw_max);
+  uint32_t* s_ct = reinterpret_cast<uint32_t*>(s_gt + kTapRows * tw_max);
+
+  for (int i = tid; i < kLutN; i += threads) s_lut[i] = lut[i];
+  const float fstride = (float)stride;
+  const int steps = (2 * hw) / lat + 1;  // a center's window rows
+
+  for (int s = 0; s < lv.n; ++s) {
+    const int hs = lv.h[s], ws = lv.w[s], md = lv.max_dis[s];
+    const int cx0 = x0 >> s, cy0 = y0 >> s;
+    const int qx0 = cx0 - hw;  // level column of tile column 0
+    const int qy0 = cy0 - hw;  // level row of tile row 0
+    // tile columns qx0 + m, tile rows qy0 + lat * m, other view's columns
+    const int tw = (x_last >> s) - cx0 + 1 + 2 * hw;
+    const int th = ((y_last >> s) - cy0) / lat + steps;
+    const int ow = tw + md + 1;
+    // level column of the other row's first column
+    const int ox0 = left ? qx0 - md : qx0;
+    const size_t plane = (size_t)hs * ws;
+    const uint2* ref_v = lv.ref[s] + v * plane;
+    const uint2* ref_o = lv.ref[s] + (1 - v) * plane;
+    const uint32_t* lab_v = LAB ? lv.wgt[s] + v * plane : nullptr;
+
+    // the thread's center and its C candidate planes at this level
+    const int cx = x >> s, cy = y >> s;
+    const Span sx = axis_span(cx, ws, hw, stride);
+    const int dx0 = sx.lo * stride - hw;  // the row's first in-image offset
+    const int nx = sx.hi - sx.lo + 1;
+    const int m0 = cx + dx0 - qx0;  // its tile column
+    const int c_row = (cy - cy0) / lat;  // the center's tile row, less hw
+    const float fdx0 = (float)dx0;
+    const float fqx0 = (float)(cx + dx0);
+    const float scale = 1.f / (float)(1 << s);  // exact
+    const float fmax = (float)md;
+    uint32_t wc = 0;
+    float a[C], b[C], d_f[C], acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      a[c] = b[c] = d_f[c] = acc[c] = 0.f;
+      if (active) {
+        const int k = k0 + min(c, n - 1);
+        const size_t pix = ((size_t)(v * K + k) * H + y) * W + x;
+        const Plane p = load_plane(abc, pix, x, y);
+        a[c] = p.a;
+        b[c] = p.b;
+        d_f[c] = __fmul_rn(p.d0, scale);
+      }
+    }
+    if (active) wc = LAB ? lab_v[(size_t)cy * ws + cx]
+                         : ref_v[(size_t)cy * ws + cx].x;
+
+    // tile row m's pixels into ring slot m % kTapRows: the other view's
+    // reachable columns wrapped modulo the width, the tile's columns inside
+    // the image (a row outside it is never read)
+    auto fill = [&](int m) {
+      const int gy = qy0 + lat * m;
+      if (m >= th || gy < 0 || gy >= hs) return;
+      const size_t row = (size_t)gy * ws;
+      const int slot = m % kTapRows;
+      float4* fo = s_fo + slot * ow_max;
+      const int to = slot * tw_max;
+      for (int i = tid; i < ow + tw; i += threads) {
+        if (i < ow) {
+          const int gx = ((ox0 + i) % ws + ws) % ws;
+          const uint2 p = ref_o[row + gx];
+          fo[i] = channels(p.x, __uint_as_float(p.y));
+        } else {
+          const int j = i - ow, gx = qx0 + j;
+          if (gx < 0 || gx >= ws) continue;
+          const uint2 p = ref_v[row + gx];
+          s_wt[to + j] = LAB ? lab_v[row + gx] : p.x;
+          s_gt[to + j] = __uint_as_float(p.y);
+          if (LAB) s_ct[to + j] = p.x;
+        }
+      }
+    };
+
+    __syncthreads();  // the previous level's rows are no longer read
+    for (int m = 0; m < kTapRows - 1; ++m) fill(m);
+    __syncthreads();
+    for (int t = 0; t < steps; ++t) {
+      fill(t + kTapRows - 1);  // into the slot row t - 1 left
+      const int dy = lat * t - hw;
+      if (active && nx > 0 && (dy + hw) % stride == 0 && cy + dy >= 0 &&
+          cy + dy < hs) {
+        const int slot = (c_row + t) % kTapRows;
+        const float fdy = (float)dy;
+        float bdy[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) bdy[c] = __fmul_rn(b[c], fdy);
+        // the sample's pixel: weight word, gradient, colour word
+        const int qo = slot * tw_max + m0;
+        const uint32_t* wp = s_wt + qo;
+        const float* gp = s_gt + qo;
+        const uint32_t* cp = (LAB ? s_ct : s_wt) + qo;
+        // the other view's row by level column
+        const float4* o_row = s_fo + slot * ow_max - ox0;
+        float fdx = fdx0, fqx = fqx0;
+        for (int i = 0; i < nx; ++i) {
+          const uint32_t qw = *wp;
+          const float wgt = s_lut[__vsadu4(wc, qw)];
+          const float4 q = channels(LAB ? *cp : qw, *gp);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float dq =
+                __fadd_rn(__fadd_rn(d_f[c], __fmul_rn(a[c], fdx)), bdy[c]);
+            const bool in = dq >= 1.f && dq < fmax;  // NaN fails both
+            const float other_x = __fadd_rn(fqx, left ? -dq : dq);
+            const int ox = (int)other_x;  // C trunc
+            float4 t0 = make_float4(0.f, 0.f, 0.f, 0.f), t1 = t0;
+            if (in) {
+              t0 = o_row[ox];
+              t1 = o_row[ox + 1];
+            }
+            const float val =
+                tap_term(g, q, other_x, (float)(ox + 1), t0, t1);
+            acc[c] = __fadd_rn(acc[c], __fmul_rn(wgt, in ? val : g.sat));
+          }
+          wp += stride;
+          gp += stride;
+          cp += stride;
+          fdx += fstride;  // small integers: exact, equal to (float)dx
+          fqx += fstride;
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (c < n) {
+          float* o = out + ((size_t)(v * K + k0 + c) * H + y) * W + x;
+          const float term = __fmul_rn(lv.scale_wgt[s], acc[c]);
+          *o = s == 0 ? term : __fadd_rn(*o, term);
+        }
+      }
+    }
+  }
+}
+
 // ---- Launches ----
 
 // Shared memory of the one-sample-at-a-time design: the level-0 tiles of
@@ -756,7 +1029,42 @@ cudaError_t launch_rows(const Levels& lv, const void* abc, const void* lut,
   return cudaGetLastError();
 }
 
-template <bool LAB>
+template <bool LAB, int C>
+cudaError_t launch_image_rows(const Levels& lv, const void* abc,
+                              const void* lut, void* out, int K, int H, int W,
+                              int hw, int stride, int lat, int per_chunk,
+                              size_t smem, const Grd& g, cudaStream_t stream) {
+  if (smem < image_rows_smem_bytes(hw, lv.max_dis[0], LAB))
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(fly_cost_kernel_image_rows<LAB, C>, smem);
+  if (e != cudaSuccess) return e;
+  const int chunks = (K + per_chunk - 1) / per_chunk;
+  const int gx = (W + kTX - 1) / kTX;
+  const int gy = (H + kMaxTY * lat - 1) / (kMaxTY * lat) * lat;
+  if (2 * chunks > 65535 || gy > 65535) return cudaErrorInvalidValue;
+  fly_cost_kernel_image_rows<LAB, C>
+      <<<dim3(gx, gy, 2 * chunks), dim3(kTX, kMaxTY), smem, stream>>>(
+          lv, static_cast<const float*>(abc), static_cast<const float*>(lut),
+          static_cast<float*>(out), K, H, W, hw, stride, lat, per_chunk, g);
+  return cudaGetLastError();
+}
+
+// The shared-row design's launch for a thread's C candidates: image lerp's
+// kernel or cost lerp's.
+template <bool IMAGE, bool LAB, int C>
+cudaError_t launch_shared_rows(const Levels& lv, const void* abc,
+                               const void* lut, void* out, int K, int H,
+                               int W, int hw, int stride, int lat,
+                               int per_chunk, size_t smem, const Grd& g,
+                               cudaStream_t stream) {
+  if (IMAGE)
+    return launch_image_rows<LAB, C>(lv, abc, lut, out, K, H, W, hw, stride,
+                                     lat, per_chunk, smem, g, stream);
+  return launch_rows<LAB, C>(lv, abc, lut, out, K, H, W, hw, stride, lat,
+                             per_chunk, smem, g, stream);
+}
+
+template <bool IMAGE, bool LAB>
 cudaError_t launch_rows_cands(const Levels& lv, const void* abc,
                               const void* lut, void* out, int K, int H, int W,
                               int hw, int stride, int lat, int cands,
@@ -765,20 +1073,25 @@ cudaError_t launch_rows_cands(const Levels& lv, const void* abc,
   if (per_chunk < 1 || per_chunk > cands) return cudaErrorInvalidValue;
   switch (cands) {
     case 1:
-      return launch_rows<LAB, 1>(lv, abc, lut, out, K, H, W, hw, stride, lat,
-                                 per_chunk, smem, g, stream);
+      return launch_shared_rows<IMAGE, LAB, 1>(lv, abc, lut, out, K, H, W, hw,
+                                               stride, lat, per_chunk, smem,
+                                               g, stream);
     case 2:
-      return launch_rows<LAB, 2>(lv, abc, lut, out, K, H, W, hw, stride, lat,
-                                 per_chunk, smem, g, stream);
+      return launch_shared_rows<IMAGE, LAB, 2>(lv, abc, lut, out, K, H, W, hw,
+                                               stride, lat, per_chunk, smem,
+                                               g, stream);
     case 4:
-      return launch_rows<LAB, 4>(lv, abc, lut, out, K, H, W, hw, stride, lat,
-                                 per_chunk, smem, g, stream);
+      return launch_shared_rows<IMAGE, LAB, 4>(lv, abc, lut, out, K, H, W, hw,
+                                               stride, lat, per_chunk, smem,
+                                               g, stream);
     case 5:
-      return launch_rows<LAB, 5>(lv, abc, lut, out, K, H, W, hw, stride, lat,
-                                 per_chunk, smem, g, stream);
+      return launch_shared_rows<IMAGE, LAB, 5>(lv, abc, lut, out, K, H, W, hw,
+                                               stride, lat, per_chunk, smem,
+                                               g, stream);
     case 8:
-      return launch_rows<LAB, 8>(lv, abc, lut, out, K, H, W, hw, stride, lat,
-                                 per_chunk, smem, g, stream);
+      return launch_shared_rows<IMAGE, LAB, 8>(lv, abc, lut, out, K, H, W, hw,
+                                               stride, lat, per_chunk, smem,
+                                               g, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -791,13 +1104,13 @@ cudaError_t launch_rows_cands(const Levels& lv, const void* abc,
 // pointers; Lab only when lab), shapes, the levels' max_dis and scale
 // weights.  coef = (alpha, 1 - alpha, tau_clr, tau_grd, border_thres, sat).
 // The launch plan (ops/cuda/fly_cost.py launch_plan): rows 1 for the
-// shared-row design (cost lerp only; 16-row tiles), 0 for one sample at a
+// shared-row design (either lerp; 16-row tiles), 0 for one sample at a
 // time (16 or 8 tile rows); the lattice step of the shared-row design's
-// pixels (1, or the stride at one level); the candidates a thread holds
-// (1, 2, 4, 5 or 8; 1 one sample at a time) and a block takes; the shared
-// bytes a block.  Returns cudaErrorInvalidValue for a plan the kernels do
-// not take (more than 227 KB of shared memory, or fewer bytes than the
-// design lays out).
+// rows, and in cost lerp its columns (1, or the stride at one level); the
+// candidates a thread holds (1, 2, 4, 5 or 8; 1 one sample at a time) and
+// a block takes; the shared bytes a block.  Returns cudaErrorInvalidValue
+// for a plan the kernels do not take (more than 227 KB of shared memory, or
+// fewer bytes than the design lays out).
 extern "C" int cspm_fly_cost(
     const void* const* refs, const void* const* wgts_img, const int* hs,
     const int* ws, const int* max_dis, const float* scale_wgts, int levels,
@@ -808,7 +1121,7 @@ extern "C" int cspm_fly_cost(
   if (levels < 1 || levels > kMaxLevels || stride < 1 || K < 1 ||
       smem < 0 || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  if (rows && (image || tile_rows != kMaxTY ||
+  if (rows && (tile_rows != kMaxTY ||
                (lattice != 1 && (lattice != stride || levels != 1))))
     return (int)cudaErrorInvalidValue;
   Levels lv;
@@ -827,13 +1140,22 @@ extern "C" int cspm_fly_cost(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t bytes = (size_t)smem;
   if (rows) {
+    if (image) {
+      if (lab)
+        return (int)launch_rows_cands<true, true>(
+            lv, abc, lut, out, K, H, W, half_wnd, stride, lattice, cands,
+            per_chunk, bytes, g, st);
+      return (int)launch_rows_cands<true, false>(
+          lv, abc, lut, out, K, H, W, half_wnd, stride, lattice, cands,
+          per_chunk, bytes, g, st);
+    }
     if (lab)
-      return (int)launch_rows_cands<true>(lv, abc, lut, out, K, H, W,
-                                          half_wnd, stride, lattice, cands,
-                                          per_chunk, bytes, g, st);
-    return (int)launch_rows_cands<false>(lv, abc, lut, out, K, H, W,
-                                         half_wnd, stride, lattice, cands,
-                                         per_chunk, bytes, g, st);
+      return (int)launch_rows_cands<false, true>(
+          lv, abc, lut, out, K, H, W, half_wnd, stride, lattice, cands,
+          per_chunk, bytes, g, st);
+    return (int)launch_rows_cands<false, false>(
+        lv, abc, lut, out, K, H, W, half_wnd, stride, lattice, cands,
+        per_chunk, bytes, g, st);
   }
   if (image) {
     if (lab)

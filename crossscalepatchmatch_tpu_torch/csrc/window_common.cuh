@@ -9,11 +9,14 @@
 // 16, or 8 where the fly kernel's staging needs it), a thread owns one fine
 // pixel of one candidate plane (blockIdx.z = view * K + candidate), and its
 // sum keeps the plain version's order: dy-major, dx ascending, a skipped
-// sample adds nothing.  (A chunk of 2 or 4 candidates per thread, sharing the staged
-// pixel and its weight, was measured on an H100 and dropped: the shared part
-// is about 10 of a sample's 33 (K4) to 67 (fly) instructions, the compiler
-// saved 2 of them per candidate, and the registers of the second chain cost
-// more than that.)
+// sample adds nothing.  (A chunk of 2 or 4 candidates per thread, sharing
+// the staged pixel and its weight, was measured on an H100 and dropped one
+// sample at a time: the shared part is about 10 of a sample's 33 (K4) to 67
+// (fly) instructions, the compiler saved 2 of them per candidate, and the
+// registers of the second chain cost more than that.  The fly kernel's
+// shared-row designs take 1 to 8 candidates a thread, where the shared part
+// grows: a row's slice costs (cost lerp), the taps' unpack and the pixel's
+// (image lerp; see fly_cost.cu).)
 
 #pragma once
 

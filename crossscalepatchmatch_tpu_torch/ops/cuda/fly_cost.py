@@ -15,11 +15,13 @@ argument arrays; `fly_cost_prepared` then only launches.  On CPU tensors
 the same object routes to the plain version.
 
 Two designs (csrc/fly_cost.cu), chosen by `launch_plan` from the call's
-shape: in cost-lerp mode (K5, K3's fly form, K7) a block computes each
-window row's GRD slice costs once into a shared-memory row buffer that all
-its centers and candidates read (the shared-row design); in image-lerp
-mode (K6), or where that buffer does not fit a block's shared memory, a
-thread computes every sample's data term itself.
+shape: a block walks its window rows, building each once into shared
+memory that all its centers and candidates read (the shared-row design):
+the GRD slice costs in cost-lerp mode (K5, K3's fly form, K7), the other
+view's reachable columns as f32 channels in image-lerp mode (K6, a ring
+of tile rows walked diagonally); where those rows do not fit a block's
+shared memory, a thread computes every sample's data term itself, one
+sample at a time.
 """
 
 from __future__ import annotations
@@ -58,11 +60,13 @@ MAX_DIS_LIMIT = 1 << 22
 
 # The kernels' tiling (csrc/fly_cost.cu, csrc/window_common.cuh): a tile's
 # columns and most rows, the weight table's entries, the shared-row
-# design's raw and slice-cost rings, and the H100's shared memory a block
+# design's raw and slice-cost rings (cost lerp), its ring of tile rows and
+# padded weight table (image lerp), and the H100's shared memory a block
 # may hold, an SM has, and the runtime keeps of each block.
 TX, MAX_TY = 32, 16
 LUT_N = 766
 RAW_STAGES, COST_STAGES = 3, 2
+TAP_ROWS, TAP_LUT = 17, 768
 RANGE_WORDS = 8
 MAX_SMEM = 232_448
 SM_SMEM = 233_472
@@ -75,7 +79,8 @@ class Plan(NamedTuple):
     """How one fly launch runs (launch_plan)."""
     rows: bool       # the shared-row design, else one sample at a time
     tile_rows: int   # a block's rows of 32 pixels: 16 or 8
-    lattice: int     # its pixels' spacing: 1, or the stride (shared rows)
+    lattice: int     # its rows' spacing, and in cost lerp its columns':
+    #                  1, or the stride (shared rows)
     cands: int       # candidates a thread holds (1 one sample at a time)
     per_chunk: int   # candidates a block takes
     chunks: int      # blocks along z a view: ceil(K / per_chunk)
@@ -114,6 +119,18 @@ def rows_smem_bytes(half_wnd: int, stride: int, lattice: int, max_dis: int,
                 + COST_STAGES * tw * cost_stride(max_dis))
 
 
+def image_rows_smem_bytes(half_wnd: int, max_dis: int, lab: bool) -> int:
+    """A block's shared memory in image lerp's shared-row design
+    (csrc/fly_cost.cu image_rows_smem_bytes): the weight table (TAP_LUT
+    words) and TAP_ROWS tile rows, each the other view's reachable columns
+    as f32 channels (16 bytes a column: the tile's 32 + 2 half_wnd columns,
+    max_dis beyond them and one more) and the tile's columns as weight
+    words, gradients and, with Lab weights, colour words."""
+    tw = TX + 2 * half_wnd
+    ow = tw + max_dis + 1
+    return 4 * (TAP_LUT + TAP_ROWS * (4 * ow + tw * (3 if lab else 2)))
+
+
 def sample_smem_bytes(half_wnd: int, max_dis: int, lab: bool,
                       tile_rows: int) -> int:
     """A block's shared memory one sample at a time (csrc/fly_cost.cu
@@ -138,26 +155,33 @@ def launch_plan(k: int, h: int, w: int, half_wnd: int, max_dis: int,
                 stride: int, levels: int, lab: bool, image: bool) -> Plan:
     """The design and tiling of one launch on K candidates of an H x W
     frame at a window stride over `levels` levels, from the call's shape
-    alone (max_dis the finest level's; a coarser level needs less): cost
-    lerp takes the shared-row design where its rings fit a block, a thread
-    holding the fewest of ROW_CANDS that take a chunk of at most 8
-    candidates (the K split as evenly as it goes), and at one level with a
-    stride a block's pixels on a lattice of that step (its windows then
-    sample one residue of rows and columns); image lerp (K6, whose data
-    term reads the other view at fractional columns: no integer slice to
-    share), and cost lerp past the rings' fit, compute one sample at a time
-    on a tile of 16 rows unless 8 keep more warps resident."""
-    if not image:
-        lat = stride if levels == 1 else 1
-        smem = rows_smem_bytes(half_wnd, stride, lat, max_dis, lab)
-        if smem <= MAX_SMEM:
-            chunks = -(-k // ROW_CANDS[-1])
-            per = -(-k // chunks)
-            cands = min(c for c in ROW_CANDS if c >= per)
-            chunks = -(-k // per)
-            return Plan(True, MAX_TY, lat, cands, per, chunks, smem,
-                        (-(-w // (TX * lat)) * lat,
-                         -(-h // (MAX_TY * lat)) * lat, 2 * chunks))
+    alone (max_dis the finest level's; a coarser level needs less): either
+    lerp (cost, K5 / K7; image, K6) takes the shared-row design where its
+    rings fit a block, a thread holding the fewest of ROW_CANDS that take a
+    chunk of at most 8 candidates (the K split as evenly as it goes), and
+    at one level with a stride a block's pixels on a lattice of that step
+    (its windows then sample one residue of rows and columns); past the
+    rings' fit a launch computes one sample at a time on a tile of 16 rows
+    unless 8 keep more warps resident."""
+    lat = stride if levels == 1 else 1
+    smem = (image_rows_smem_bytes(half_wnd, max_dis, lab) if image else
+            rows_smem_bytes(half_wnd, stride, lat, max_dis, lab))
+    if smem <= MAX_SMEM:
+        chunks = -(-k // ROW_CANDS[-1])
+        per = -(-k // chunks)
+        cands = min(c for c in ROW_CANDS if c >= per)
+        chunks = -(-k // per)
+        lx = 1 if image else lat  # image lerp's columns stay adjacent
+        return Plan(True, MAX_TY, lat, cands, per, chunks, smem,
+                    (-(-w // (TX * lx)) * lx,
+                     -(-h // (MAX_TY * lat)) * lat, 2 * chunks))
+    return sample_plan(k, h, w, half_wnd, max_dis, lab)
+
+
+def sample_plan(k: int, h: int, w: int, half_wnd: int, max_dis: int,
+                lab: bool) -> Plan:
+    """One sample at a time (either lerp): a block a candidate and view, on
+    a tile of 16 rows unless 8 keep more warps resident."""
     w16 = resident_warps(sample_smem_bytes(half_wnd, max_dis, lab, 16), 16)
     w8 = resident_warps(sample_smem_bytes(half_wnd, max_dis, lab, 8), 8)
     rows = 16 if w16 >= w8 else 8

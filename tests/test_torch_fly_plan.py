@@ -1,12 +1,14 @@
 """The fly kernel's launch plan on the CPU (ops.cuda.fly_cost.launch_plan):
 the design and tiling the wrapper hands csrc/fly_cost.cu for a call's
 shape.  Every launch of the no-volume KITTI schedule takes the shared-row
-design, image lerp (K6) never does, a window and range too wide for the
-rings fall back to one sample at a time, a plan fits a block's 232,448
-bytes wherever a design does, the row buffer's column stride spreads 32
-neighbouring columns over 32 banks, and the grid stays within its limits.
-The kernel itself runs only on the card (tests/test_torch_kernels_gpu.py,
-its `_fly_` tests)."""
+design in either lerp (cost: K5, K7; image: K6), a window and range too
+wide for the rings fall back to one sample at a time, a plan fits a
+block's 232,448 bytes wherever a design does, the row buffer's column
+stride spreads 32 neighbouring columns over 32 banks, image lerp's
+diagonal walk reads every window row of every center once, in order, from
+a ring slot filled before and not yet refilled, and the grid stays within
+its limits.  The kernel itself runs only on the card
+(tests/test_torch_kernels_gpu.py, its `_fly_` tests)."""
 
 import json
 import pathlib
@@ -43,6 +45,9 @@ def test_plan_constants_are_the_kernels():
     fly, common = constants("fly_cost.cu"), constants("window_common.cuh")
     assert (fc.RAW_STAGES, fc.COST_STAGES, fc.RANGE_WORDS) == (
         fly["kRawStages"], fly["kCostStages"], fly["kRangeWords"])
+    assert (fc.TAP_ROWS, fc.TAP_LUT) == (fly["kTapRows"], fly["kTapLut"])
+    assert fc.TAP_ROWS == fc.MAX_TY + 1  # 16 rows read, one filled
+    assert fc.TAP_LUT >= fc.LUT_N and fc.TAP_LUT % 4 == 0
     assert 2 * fly["kRangeSlots"] <= fly["kRangeWords"]
     assert (fc.RANGE_WORDS + fc.LUT_N) % 2 == 0  # the raw rows 8-aligned
     assert (fc.TX, fc.MAX_TY, fc.LUT_N, fc.MAX_SMEM) == (
@@ -74,37 +79,102 @@ def test_novol_kitti_schedule_takes_the_shared_rows(lab):
 
 @pytest.mark.parametrize("lab", [False, True])
 @pytest.mark.parametrize("hw", HALF_WNDS)
-def test_image_lerp_never_takes_the_shared_rows(lab, hw):
+def test_image_lerp_takes_the_shared_rows(lab, hw):
+    """Image lerp takes the shared-row design wherever its ring fits a
+    block: the thread's candidates as in cost lerp, at one level with a
+    stride the rows on a lattice of that step and the 32 columns of a block
+    adjacent; past the ring's fit, one sample at a time (sample_plan)."""
     for md in MAX_DIS:
         for k in (1, 2, 5, 8, 40):
-            for stride, levels in ((1, 1), (2, 1), (1, 5)):
+            for stride, levels in ((1, 1), (2, 1), (1, 5), (3, 5)):
                 p = plan(k, hw, md, stride, levels, lab, True, (28, 44))
-                assert not p.rows and p.cands == p.per_chunk == 1
-                assert p.lattice == 1
-                assert p.chunks == k and p.grid[2] == 2 * k
+                if fc.image_rows_smem_bytes(hw, md, lab) > fc.MAX_SMEM:
+                    assert p == fc.sample_plan(k, 28, 44, hw, md, lab)
+                    continue
+                lat = stride if levels == 1 else 1
+                assert p.rows and p.lattice == lat, (md, k, stride, p)
+                assert p.smem == fc.image_rows_smem_bytes(hw, md, lab)
+                assert p.per_chunk <= p.cands <= 8 and p.chunks == -(-k // 8)
+                assert p.grid == (2, -(-28 // (16 * lat)) * lat,
+                                  2 * p.chunks)
 
 
-def test_image_kitti_schedule_one_sample_at_a_time():
+@pytest.mark.parametrize("lab", [False, True])
+def test_image_kitti_schedule_takes_the_shared_rows(lab):
     """Each of the image-lerp KITTI pair's 27 launches (the configuration
     kitti2015_grd_pp_novol_img: K6, 12 of them at stride 2 as its own
-    prescreen) computes one sample at a time on 16-row tiles: the weight
-    table, the reference tile's 66 x 50 pixels and the other view's 194 x
-    50 reachable columns, 8 bytes a pixel, 107,064 bytes a block, two
-    blocks an SM; a block a candidate and view."""
+    prescreen; with Lab weights too) takes the shared-row design: one chunk
+    a view holding every candidate, 16-row tiles, the stride-2 launches'
+    rows on a lattice of step 2 and their columns adjacent; the ring of 17
+    tile rows, each the other view's 32 + 34 + 128 + 1 = 195 columns as
+    16-byte channels and the tile's 66 columns as weight words, gradients
+    (and with Lab colour words), beside the 768-word weight table: 65,088
+    bytes a block (69,576 with Lab), two blocks an SM."""
     img = json.loads((ROOT / "stereobench" / "configs" /
                       "kitti2015_grd_pp_novol_img.json").read_text())["engine"]
     assert img == dict(NOVOL, fly_lerp="image")
     launches = roofline.fly_plan(img)
     assert len(launches) == 27 and sum(s > 1 for _, s in launches) == 12
-    assert fc.sample_smem_bytes(17, 128, False, 16) == 4 * (
-        766 + 2 * 66 * 50 + 2 * 194 * 50) == 107_064
+    smem = 4 * (768 + 17 * (4 * 195 + (3 if lab else 2) * 66))
+    assert smem == (69_576 if lab else 65_088)
     for k, stride in launches:
-        p = plan(k, img["wnd_size"] // 2, img["max_dis"], stride,
+        p = plan(k, img["wnd_size"] // 2, img["max_dis"], stride, lab=lab,
                  image=True)
-        assert not p.rows and p.tile_rows == fc.MAX_TY, (k, p)
-        assert p.smem == 107_064 and p.chunks == k
+        assert p.rows and p.tile_rows == fc.MAX_TY, (k, p)
+        assert p.chunks == 1 and p.per_chunk == p.cands == k
+        assert p.lattice == stride and p.smem == smem
         assert 2 * (p.smem + fc.BLOCK_RESERVE) <= fc.SM_SMEM
-        assert p.grid == (39, 24, 2 * k)
+        assert p.grid == (39, 24, 2)
+
+
+@pytest.mark.parametrize("lab", [False, True])
+@pytest.mark.parametrize("hw", [0, 1, 3])
+def test_image_lerp_falls_back_past_the_ring(lab, hw):
+    """A window of at most 7 at a range past ~780: the ring passes a
+    block's shared memory while one sample at a time fits (the GPU tier's
+    eight-row case: half_wnd 3, max_dis 1500, 181,704 bytes with Lab); a
+    range one shorter than the ring's fit takes the shared rows."""
+    md = min(m for m in range(4096)
+             if fc.image_rows_smem_bytes(hw, m, lab) > fc.MAX_SMEM)
+    assert 750 <= md <= 900
+    for m in (md, 1500):
+        p = plan(2, hw, m, 2, lab=lab, image=True, shape=(20, 1600))
+        assert not p.rows and p == fc.sample_plan(2, 20, 1600, hw, m, lab)
+        assert p.smem <= fc.MAX_SMEM
+    assert plan(2, hw, md - 1, 2, lab=lab, image=True).rows
+    if hw == 3 and lab:
+        assert plan(2, 3, 1500, 2, lab=True, image=True,
+                    shape=(20, 1600))[1:3] == (8, 1)
+        assert fc.sample_smem_bytes(3, 1500, True, 8) == 181_704
+
+
+@pytest.mark.parametrize("hw", [0, 1, 2, 3, 17, 36, MAX_HALF_WND])
+@pytest.mark.parametrize("stride,lat", [(1, 1), (2, 2), (3, 3), (2, 1),
+                                        (3, 1)])
+def test_image_walk_reads_each_row_once_from_a_filled_slot(hw, stride, lat):
+    """Image lerp's diagonal walk (csrc/fly_cost.cu
+    fly_cost_kernel_image_rows): tile rows 0 .. 15 fill the ring before
+    step 0, step t fills row t + 16 beside its reads, and at step t the
+    center at tile row c (less hw; up to 16 a block) adds window row dy =
+    lat * t - hw, tile row c + t, where its window holds it.  Each center
+    adds every window row once, dy ascending (the plain version's order),
+    from the slot its row was filled into and no later fill has taken, and
+    a step's fill never takes a slot the step reads."""
+    ring = {m % fc.TAP_ROWS: m for m in range(fc.TAP_ROWS - 1)}
+    seen = {c: [] for c in range(fc.MAX_TY)}
+    for t in range(2 * hw // lat + 1):
+        filled = t + fc.TAP_ROWS - 1
+        if (lat * t) % stride:
+            ring[filled % fc.TAP_ROWS] = filled
+            continue
+        for c in seen:
+            m = c + t
+            assert ring.get(m % fc.TAP_ROWS) == m, (t, c)
+            assert m % fc.TAP_ROWS != filled % fc.TAP_ROWS
+            seen[c].append(lat * t - hw)
+        ring[filled % fc.TAP_ROWS] = filled  # after the step's barrier
+    want = list(range(-hw, hw + 1, stride))
+    assert all(dys == want for dys in seen.values())
 
 
 def test_wide_window_and_range_fall_back():
@@ -133,16 +203,16 @@ def test_every_plan_fits_a_block(lab, image):
             for stride, levels in ((1, 1), (2, 1), (3, 5)):
                 p = plan(2, hw, md, stride, levels, lab, image)
                 lat = stride if levels == 1 else 1
-                fits = (not image and fc.rows_smem_bytes(
-                    hw, stride, lat, md, lab) <= fc.MAX_SMEM) or any(
+                rows = (fc.image_rows_smem_bytes(hw, md, lab) if image else
+                        fc.rows_smem_bytes(hw, stride, lat, md, lab))
+                fits = rows <= fc.MAX_SMEM or any(
                     fc.sample_smem_bytes(hw, md, lab, r) <= fc.MAX_SMEM
                     for r in (8, 16))
                 if fits:
                     assert p.smem <= fc.MAX_SMEM, (hw, md, p)
                 else:
                     assert not p.rows and p.smem > fc.MAX_SMEM
-                want = (fc.rows_smem_bytes(hw, stride, lat, md, lab)
-                        if p.rows else
+                want = (rows if p.rows else
                         fc.sample_smem_bytes(hw, md, lab, p.tile_rows))
                 assert p.smem == want
 
@@ -204,36 +274,43 @@ def test_chunks_cover_the_candidates_and_the_grid_fits(k):
             assert p.chunks == -(-k // 8)
 
 
+@pytest.mark.parametrize("image", [False, True])
 @pytest.mark.parametrize("stride", [1, 2, 3, 7])
 @pytest.mark.parametrize("shape", [KITTI_HW, (375, 450), (20, 30), (1, 1),
                                    (37, 53)])
-def test_lattice_blocks_cover_every_pixel_once(stride, shape):
+def test_lattice_blocks_cover_every_pixel_once(stride, shape, image):
     """The shared-row design's blocks (csrc/fly_cost.cu: blockIdx.x =
-    column block * lattice + residue, rows alike; pixels x0 + lattice *
-    lane) take every pixel of the frame once."""
+    column block * lattice + residue, rows alike, pixels x0 + lattice *
+    lane; image lerp's columns adjacent, blockIdx.x = column block) take
+    every pixel of the frame once."""
     h, w = shape
-    p = plan(1, 17, 128, stride, shape=shape)
+    p = plan(1, 17, 128, stride, image=image, shape=shape)
     lat = p.lattice
     assert lat == stride
+    lat_x = 1 if image else lat
     seen = {}
     for gx in range(p.grid[0]):
         for gy in range(p.grid[1]):
-            bx, by = gx // lat, gy // lat
-            x0 = bx * fc.TX * lat + gx - bx * lat
+            bx, by = gx // lat_x, gy // lat
+            x0 = bx * fc.TX * lat_x + gx - bx * lat_x
             y0 = by * p.tile_rows * lat + gy - by * lat
             for ly in range(p.tile_rows):
                 for lx in range(fc.TX):
-                    x, y = x0 + lat * lx, y0 + lat * ly
+                    x, y = x0 + lat_x * lx, y0 + lat * ly
                     if x < w and y < h:
                         seen[(y, x)] = seen.get((y, x), 0) + 1
     assert len(seen) == h * w and set(seen.values()) == {1}
 
 
 def test_sample_design_keeps_its_tile_rule():
-    """One sample at a time: 16 rows unless 8 keep more warps resident or
-    only 8 fit (the GPU tier's eight-row cases)."""
-    assert plan(1, 36, 128, image=True, shape=(20, 150)).tile_rows == 8
-    assert plan(1, 32, 128, lab=True, image=True,
-                shape=(20, 150)).tile_rows == 8
-    assert plan(1, 17, 128, image=True).tile_rows == 16
-    assert plan(1, 48, 4, image=True, shape=(20, 30)).tile_rows == 8
+    """One sample at a time (sample_plan, either lerp): 16 rows unless 8
+    keep more warps resident or only 8 fit; a launch past the shared rows'
+    fit takes it (the GPU tier's eight-row cases: half_wnd 3, max_dis
+    1500, cost lerp and image lerp with Lab)."""
+    assert fc.sample_plan(1, 20, 150, 36, 128, False).tile_rows == 8
+    assert fc.sample_plan(1, 20, 150, 32, 128, True).tile_rows == 8
+    assert fc.sample_plan(1, *KITTI_HW, 17, 128, False).tile_rows == 16
+    assert fc.sample_plan(1, 20, 30, 48, 4, False).tile_rows == 8
+    for lab, image in ((False, False), (True, True)):
+        p = plan(2, 3, 1500, 2, lab=lab, image=image, shape=(20, 1600))
+        assert not p.rows and p.tile_rows == 8 and p.grid == (50, 3, 4)

@@ -510,11 +510,11 @@ def test_fly_kernel_kitti_shape(cuda, k, stride):
 @pytest.mark.parametrize("k,stride", [(1, 1), (8, 2)])
 def test_fly_image_kitti_shape(cuda, k, stride):
     """K6 (K = 1) and its stride-2 form (K = 8), PatchMatch Stereo's image
-    lerp, on the KITTI scene (375 x 1242, max_dis 128), both views, one
-    sample at a time (a 16-row tile: 107,064 bytes of shared memory a
-    block, tests/test_torch_fly_plan.py), planes that leave the range and
-    wrap past either border: within REL_TOL of the plain version, and the
-    same bits on a rerun."""
+    lerp, on the KITTI scene (375 x 1242, max_dis 128), both views, through
+    the shared-row design (a ring of 17 tile rows: 65,088 bytes of shared
+    memory a block, tests/test_torch_fly_plan.py), planes that leave the
+    range and wrap past either border: within REL_TOL of the plain version,
+    and the same bits on a rerun."""
     fd, _ = fly_scene(375, 1242, 128, 1, False, 0, cuda)
     abc = torch.as_tensor(random_planes(k, 375, 1242, 128, seed=600 + k),
                           device=cuda)
@@ -524,7 +524,7 @@ def test_fly_image_kitti_shape(cuda, k, stride):
     got = fly_cost.fly_cost_cuda(fd, None, abc, **kw)
     assert_close(got, onthefly_cost.fly_plane_cost(fd, None, abc, **kw))
     assert torch.equal(got, fly_cost.fly_cost_cuda(fd, None, abc, **kw))
-    assert sum(fly_cost.shared_launches.values()) == before
+    assert sum(fly_cost.shared_launches.values()) == before + 2
 
 
 # The shared-row design (csrc/fly_cost.cu) at every (K, stride) the
@@ -577,6 +577,42 @@ def test_fly_rows_bit_equal_at_kitti(kitti_fly_scene, kind, k, stride):
     assert torch.equal(got, want)
 
 
+def one_sample_at_a_time(k, h, w, half_wnd, max_dis, stride, levels, lab,
+                         image):
+    """fly_cost.launch_plan's stand-in that sends every launch to the one
+    sample at a time design (its fallback)."""
+    return fly_cost.sample_plan(k, h, w, half_wnd, max_dis, lab)
+
+
+@pytest.mark.parametrize("kind", ["random", "flat", "edges"])
+@pytest.mark.parametrize("k,stride", FLY_ROW_RUNS)
+def test_fly_image_rows_bit_equal_at_kitti(kitti_fly_scene, monkeypatch,
+                                           kind, k, stride):
+    """K6 and its stride-2 form on the KITTI scene (375 x 1242, max_dis
+    128), both views, through the shared-row design: the f32 costs equal
+    the one-sample-at-a-time K6's on the same inputs bit for bit (the same
+    rounding steps in the same order), and lie within REL_TOL of the plain
+    version; random planes leave the range, flat ones sit on one disparity
+    (neighbouring lanes' taps on neighbouring columns), edge ones reach
+    past both borders, where the taps wrap."""
+    fd = kitti_fly_scene
+    assert fly_cost.launch_plan(k, 375, 1242, KITTI.half_wnd, 128, stride,
+                                1, False, True).rows
+    abc = torch.as_tensor(kitti_fly_planes(kind, k, seed=700 + k),
+                          device=fd.imgs[0].device)
+    kw = dict(half_wnd=KITTI.half_wnd, max_dis=128, lerp="image",
+              wnd_stride=stride, **FLY_KW)
+    before = sum(fly_cost.shared_launches.values())
+    got = fly_cost.fly_cost_cuda(fd, None, abc, **kw)
+    assert sum(fly_cost.shared_launches.values()) == before + 1
+    with monkeypatch.context() as m:
+        m.setattr(fly_cost, "launch_plan", one_sample_at_a_time)
+        sample = fly_cost.fly_cost_cuda(fd, None, abc, **kw)
+    assert sum(fly_cost.shared_launches.values()) == before + 1
+    assert torch.equal(got, sample)
+    assert_close(got, onthefly_cost.fly_plane_cost(fd, None, abc, **kw))
+
+
 def test_pair_volume_on_the_card(cuda):
     vol = torch.rand((2, 5, 7, 9), device=cuda).to(torch.bfloat16)
     pv = cross_scale_cost.pair_volume(vol)
@@ -625,13 +661,16 @@ def test_fly_cases_cover_the_grid():
                     if c[:2] == (lerp, lab)} == set(MANY_KS)
 
 
-@pytest.mark.parametrize("lerp,lab,hw", [("cost", False, 36),
-                                         ("image", True, 32)])
+@pytest.mark.parametrize("lerp,lab,hw", [("cost", False, 3),
+                                         ("image", True, 3)])
 def test_fly_eight_row_tile(cuda, lerp, lab, hw):
-    """At max_dis 128, half_wnd 36 (32 with the Lab word): 16 tile rows of
-    staging pass a block's 227 KB of shared memory, 8 rows fit, so the
-    launch takes the 8-row tile."""
-    h, w, d = 20, 150, 128
+    """At max_dis 1500, half_wnd 3: the shared rows pass a block's 227 KB
+    of shared memory, so the launch computes one sample at a time, where 8
+    tile rows keep more warps resident than 16 (tests/test_torch_fly_plan
+    .py test_sample_design_keeps_its_tile_rule)."""
+    h, w, d = 20, 1600, 1500
+    p = fly_cost.launch_plan(2, h, w, hw, d, 2, 1, lab, lerp == "image")
+    assert not p.rows and p.tile_rows == 8
     fd, _ = fly_scene(h, w, d, 1, lab, 8, cuda)
     abc = torch.as_tensor(nan_planes(2, h, w, d, seed=9), device=cuda)
     assert_close(*fly_both(fd, None, abc, hw, d, lerp, 2))
@@ -929,9 +968,8 @@ def test_no_volume_pipeline_runs_through_the_kernels(cuda, kw, n_fly,
     assert fly_cost.count() == n_fly
     assert fly_cost.count(strided=True) == n_strided
     assert fly_cost.count(lab=True) == (n_fly if cfg.use_lab_weights else 0)
-    # cost lerp takes the shared-row design on every launch, K6 on none
-    assert sum(fly_cost.shared_launches.values()) == (
-        n_fly if cfg.fly_lerp == "cost" else 0)
+    # either lerp takes the shared-row design on every launch
+    assert sum(fly_cost.shared_launches.values()) == n_fly
     assert (window_cost.launches, quadrant_build.launches,
             cross_scale_cost.launches) == (0, 0, 0)
     assert onthefly_cost.launches == 0 and plane_cost.launches == 0
@@ -1088,9 +1126,8 @@ def test_main_path_on_the_card(cuda, path):
             assert bad <= BAD_PIXEL_MAX, (seed, bad)
     torch.cuda.synchronize()
     assert_launches(launch_counts(), launches, len(seeds) + 1)
-    # every cost-lerp launch takes the shared-row design, no K6 launch
-    assert sum(fly_cost.shared_launches.values()) == fly_cost.count(
-        lerp="cost")
+    # every fly launch takes the shared-row design, K6's too
+    assert sum(fly_cost.shared_launches.values()) == fly_cost.count()
     if cfg.use_pp:
         out, imgs = outs[0], torch.stack([l, r])
         dis = plane_to_disp(out["abc"], cfg.dis_scale)
